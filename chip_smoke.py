@@ -5,47 +5,72 @@ Phases, in order; any failure exits non-zero:
 
 1. Card check: CUDA must be available; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
-2. Build: compiles every kernel of the serving path from
+2. Build: compiles every kernel source of the port from
    ``skypilot_tpu_torch/ops/csrc`` with ``nvcc`` (one process per
-   source, started together) and prints the seconds and the compiler's
-   register/spill report.
-3. Kernel vs plain: at the Llama-3-8B shapes (8 KV heads, group 4,
-   head_dim 128, pages of 64 bf16 rows) each kernel is held against its
-   plain PyTorch version on the same inputs, at ``ATOL``; then, on small
-   inputs, at every head_dim, group and page size the kernels take.
+   source, all five started together) and prints the seconds and the
+   compiler's register/spill report.
+3. Kernel vs plain: each kernel is held against its plain PyTorch
+   version on the same inputs, at a stated tolerance. The paged kernels
+   at the Llama-3-8B shapes (8 KV heads, group 4, head_dim 128, pages of
+   64 bf16 rows), then at every head_dim, group and page size they take;
+   the flash attention forward (out, lse) and backward (dq, dk, dv) at
+   the bench_1b shapes (b 6, 12 heads, s 2048, d 128, causal), where the
+   backward must also give the same bits on two runs, then at head_dim
+   64/128 x group 1/2/4/8 x causal/not; the fused cross-entropy
+   forward (nll, lse) at T 12288, d 1536, V 32768, then at a vocabulary
+   that is not a multiple of its tile, with targets in the last tile and
+   outside the vocabulary.
 4. Timing: each kernel, its plain version and one PyTorch library call
-   computing the same function (``scaled_dot_product_attention`` over the
-   gathered K/V; a yardstick the port never calls), by CUDA events, with
-   the L2 cache flushed between launches; plus the least time the card
-   could take for the same work (``bound_ms``).
-5. End to end: starts ``python -m skypilot_tpu_torch.infer.server --model
-   8b --slots 8 --max-seq-len 2048`` (full width and depth, random
-   weights from a seed) in a subprocess, serves mixed-length requests
-   (one streamed) twice through ``/generate``, then a burst of short
-   prompts that decodes on all 8 slots; checks token counts and that a
-   repeated greedy request gives the same tokens, prints TTFT, time
-   between tokens and tokens/s, and reads each kernel's launches during
-   those requests from ``/metrics``.
+   computing the same function (a yardstick the port never calls:
+   ``scaled_dot_product_attention`` for attention, its backward through
+   autograd, ``matmul`` + ``logsumexp`` for the cross-entropy), by CUDA
+   events with the L2 cache flushed between launches; plus the least
+   time the card could take for the same work (``bound_ms``).
+5. Serving end to end: starts ``python -m skypilot_tpu_torch.infer.server
+   --model 8b --slots 8 --max-seq-len 2048`` (full width and depth,
+   random weights from a seed) in a subprocess, serves mixed-length
+   requests (one streamed) twice through ``/generate``, then a burst of
+   short prompts that decodes on all 8 slots; checks token counts and
+   that a repeated greedy request gives the same tokens, prints TTFT,
+   time between tokens and tokens/s, and reads each paged kernel's
+   launches during those requests from ``/metrics``.
+6. The training slice against its plain path: a 2-layer model at
+   bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
+   flash attention and the fused cross-entropy (the kernels) against
+   dense attention and the dense cross-entropy (no kernel): the loss and
+   every gradient leaf, by relative norm.
+7. Training end to end: ``python -m skypilot_tpu_torch.bench --attn
+   flash --ce fused`` (bench_1b at full width and depth) in a subprocess,
+   whose JSON gives tokens/s, MFU, step time, peak memory and each
+   training kernel's launches over its timed steps (counters reset just
+   before them), then the same with ``--ce dense`` for comparison; then
+   ``python -m skypilot_tpu_torch.train.run --model llama-350m --steps 4
+   --batch 4 --seq 2048`` with a checkpoint every 2 steps, and again with
+   ``--steps 6``, which must resume at step 4.
 
 Then it prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
 
 Run from the root of the repository: ``python3 chip_smoke.py`` (one
-card). ``--kernels-only`` stops after phase 3; ``--profile`` adds, after
-phase 5, a ``torch.profiler`` breakdown of decode steps of an in-process
-engine. The server's log goes to ``chiprun_out/chip_smoke_server.log``.
+card). ``--kernels-only`` stops after phase 3; ``--profile`` adds, at
+the end, a ``torch.profiler`` breakdown of decode steps of an in-process
+engine and of a bench_1b training step. Subprocess logs go to
+``chiprun_out/chip_smoke_*.log``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pathlib
+import re
 import signal
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -69,7 +94,30 @@ HKV, GROUP, HD, PAGE = 8, 4, 128, 64
 MAX_SEQ = 2048
 DECODE_LENGTHS = [1, 64, 65, 2000, 512, 1023, 777, 130]
 PREFILL_C, PREFILL_OFFSET, PREFILL_TRUE_LEN = 256, 192, 200
-KERNELS = ('paged_decode', 'paged_prefill')
+
+# bench_1b attention (b 6, 12 heads of 128, group 1, s 2048, causal) and
+# its loss (T = 6 x 2048 tokens, d 1536, V 32768); the plain versions
+# walk keys and the vocabulary in tiles of BLOCK (the bench's 512).
+FB, FH, FS, FD = 6, 12, 2048, 128
+CE_T, CE_D, CE_V = 6 * 2048, 1536, 32768
+BLOCK = 512
+# Kernel vs plain, training kernels. bf16 outputs (out, dq, dk, dv):
+# both sides accumulate in fp32 and round once to bf16, so they may
+# differ by one bf16 step (2^-7 relative) plus fp32 summation noise,
+# allowed at 1e-3 of the tensor's largest magnitude; an indexing or
+# masking fault is off by the size of the values themselves. fp32
+# outputs (lse, nll): summation order only, 1e-5 relative plus 1e-5 of
+# the largest magnitude.
+BF16_RTOL, BF16_ATOL_FRAC = 2.0 ** -7, 1e-3
+FP32_RTOL, FP32_ATOL_FRAC = 1e-5, 1e-5
+# The slice vs its plain path (bf16 training step): the plain path
+# rounds P to bf16 before P @ V and the logits to bf16 before the loss,
+# the kernels keep both in fp32, and every other product rounds to bf16
+# on both sides in another order: loss within 1e-2, each gradient leaf
+# within 5e-2 by relative norm.
+SLICE_LOSS_ATOL, SLICE_GRAD_RTOL = 1e-2, 5e-2
+TRAINING_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                    'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd')
 # --profile: decode steps with every slot at this context.
 PROFILE_PROMPT, PROFILE_STEPS = 512, 20
 
@@ -542,14 +590,417 @@ def profile_decode(torch, card: str) -> None:
                   torch.cuda.max_memory_allocated() / 1e9}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 + 4, training kernels
+# ---------------------------------------------------------------------------
+def compare(torch, got, want, rtol: float, atol_frac: float):
+    """(max abs error, ok): ok when every element is within rtol of the
+    plain value plus atol_frac of the plain tensor's largest
+    magnitude."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all().item():
+        return float('inf'), False
+    err = (got - want).abs()
+    limit = rtol * want.abs() + atol_frac * want.abs().max()
+    return err.max().item(), bool((err <= limit).all().item())
+
+
+def flash_inputs(torch, gen, b, hq, hkv, s, d):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device='cuda').to(torch.bfloat16)
+    return randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d), \
+        randn(b, hq, s, d)
+
+
+def flash_check(torch, att, case, causal, block):
+    """Every flash kernel output against its plain version on the same
+    inputs; the backward takes the kernel forward's out and lse on both
+    sides. Returns ({name: max abs error}, {name: ok}, (out, lse,
+    delta))."""
+    q, k, v, do = case
+    scale = q.shape[-1] ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, block_k=block)
+    out, lse = att._flash_forward(q, k, v, causal, scale, block)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = att.flash_forward_reference(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)[:, :, None, :]
+    dq = att._flash_backward_dq(q, k, v, do, lse, delta, causal, scale,
+                                block)
+    dk, dv = att._flash_backward_dkv(q, k, v, do, lse, delta, causal, scale,
+                                     block)
+    torch.cuda.synchronize()
+    ref_dq = att.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    ref_dk, ref_dv = att.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 **kw)
+    errs, oks = {}, {}
+    for name, got, want, tol in (
+            ('out', out, ref_out, (BF16_RTOL, BF16_ATOL_FRAC)),
+            ('lse', lse, ref_lse, (FP32_RTOL, FP32_ATOL_FRAC)),
+            ('dq', dq, ref_dq, (BF16_RTOL, BF16_ATOL_FRAC)),
+            ('dk', dk, ref_dk, (BF16_RTOL, BF16_ATOL_FRAC)),
+            ('dv', dv, ref_dv, (BF16_RTOL, BF16_ATOL_FRAC))):
+        errs[name], oks[name] = compare(torch, got, want, *tol)
+    return errs, oks, (out, lse, delta)
+
+
+def ce_inputs(torch, gen, T, d, V):
+    x = torch.randn((T, d), generator=gen, device='cuda').to(torch.bfloat16)
+    w = (torch.randn((d, V), generator=gen, device='cuda')
+         * d ** -0.5).to(torch.bfloat16)
+    t = torch.randint(0, V, (T,), generator=gen, device='cuda',
+                      dtype=torch.int32)
+    return x, w, t
+
+
+def ce_check(torch, ce, case, block):
+    x, w, t = case
+    nll, lse = ce._fused_fwd(x, w, t, block)
+    torch.cuda.synchronize()
+    ref_nll, ref_lse = ce.fused_forward_reference(x, w, t, block)
+    errs, oks = {}, {}
+    for name, got, want in (('nll', nll, ref_nll), ('lse', lse, ref_lse)):
+        errs[name], oks[name] = compare(torch, got, want, FP32_RTOL,
+                                        FP32_ATOL_FRAC)
+    return errs, oks
+
+
+def check_training_kernels(torch, att, ce):
+    """Phase 3, training kernels: at the bench_1b shapes, then at every
+    variant the wrappers take on small inputs. Returns {kernel: (max abs
+    error at the bench_1b shapes, inputs)}."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(1)
+    case = flash_inputs(torch, gen, FB, FH, FH, FS, FD)
+    errs, oks, saved = flash_check(torch, att, case, True, BLOCK)
+    print(f'flash attention vs plain at b={FB} h={FH} s={FS} d={FD} causal: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (bf16 outputs rtol 2^-7 + {BF16_ATOL_FRAC} x max, fp32 lse '
+          f'rtol {FP32_RTOL} + {FP32_ATOL_FRAC} x max)', flush=True)
+    bad = [k for k, ok in oks.items() if not ok]
+    if bad:
+        fail(f'flash kernels disagree with their plain versions at the '
+             f'bench_1b shapes: {bad} {errs}')
+    # No atomics anywhere: the backward gives the same bits every run.
+    q, k, v, do = case
+    _, lse, delta = saved
+    args = (q, k, v, do, lse, delta, True, FD ** -0.5, BLOCK)
+    runs = [(att._flash_backward_dq(*args), *att._flash_backward_dkv(*args))
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail('the flash backward kernels give different bits run to run')
+    print('flash backward: dq, dk, dv bitwise equal over two runs',
+          flush=True)
+    del runs
+    results = {
+        'flash_attention_fwd': (max(errs['out'], errs['lse']), case, saved),
+        'flash_attention_bwd_dq': (errs['dq'], case, saved),
+        'flash_attention_bwd_dkv': (max(errs['dk'], errs['dv']), case, saved),
+    }
+    worst, n = {}, 0
+    for hd in att.CUDA_HEAD_DIMS:
+        for group in att.CUDA_GROUPS:
+            for causal in (True, False):
+                # s 192: three tiles, so not a multiple of 128.
+                case = flash_inputs(torch, gen, 2, 2 * group, 2, 192, hd)
+                errs, oks, _ = flash_check(torch, att, case, causal, 64)
+                bad = [k for k, ok in oks.items() if not ok]
+                if bad:
+                    fail(f'flash kernels disagree with their plain versions '
+                         f'at hd={hd} group={group} causal={causal}: {bad} '
+                         f'{errs}')
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+                n += 1
+    print(f'all {n} flash variants vs plain: max abs error '
+          + ', '.join(f'{k} {v:.3e}' for k, v in worst.items()), flush=True)
+
+    case = ce_inputs(torch, gen, CE_T, CE_D, CE_V)
+    errs, oks = ce_check(torch, ce, case, BLOCK)
+    print(f'fused cross-entropy vs plain at T={CE_T} d={CE_D} V={CE_V}: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (rtol {FP32_RTOL} + {FP32_ATOL_FRAC} x max)', flush=True)
+    if not all(oks.values()):
+        fail(f'ce_fwd disagrees with its plain version: {errs}')
+    results['fused_cross_entropy_fwd'] = (max(errs.values()), case, None)
+    # V 1000 is not a multiple of the 128-column tile; T 100 not of 64;
+    # targets in the last tile, at V - 1 and outside the vocabulary.
+    for T, d, V in ((100, 64, 1000), (64, 128, 256)):
+        x, w, t = ce_inputs(torch, gen, T, d, V)
+        t[:4] = torch.tensor([V - 1, V - 100, -1, V], dtype=torch.int32)
+        errs, oks = ce_check(torch, ce, (x, w, t), 8)
+        print(f'fused cross-entropy vs plain at T={T} d={d} V={V}: '
+              + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()),
+              flush=True)
+        if not all(oks.values()):
+            fail(f'ce_fwd disagrees with its plain version at T={T} d={d} '
+                 f'V={V}: {errs}')
+    return results
+
+
+def time_training_kernels(torch, att, ce, checked):
+    """Phase 4, training kernels at the bench_1b shapes."""
+    F = torch.nn.functional
+    flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
+    rows = {}
+    q, k, v, do = checked['flash_attention_fwd'][1]
+    out, lse, delta = checked['flash_attention_fwd'][2]
+    scale = FD ** -0.5
+    kw = dict(causal=True, sm_scale=scale, block_k=BLOCK)
+    pairs = FS * (FS + 1) // 2          # causal (query, key) pairs per head
+    elems = FB * FH * FS * FD           # one [b, h, s, d] tensor (hkv = hq)
+    rows_f32 = FB * FH * FS             # one [b, h, 1, s] fp32 tensor
+    flops_1 = 2.0 * FB * FH * FD * pairs     # one s x s x d product, causal
+
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20, flush)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do, retain_graph=True), 20, flush)
+    rows['flash_attention_fwd'] = dict(
+        ms=time_ms(torch, lambda: att._flash_forward(
+            q, k, v, True, scale, BLOCK), 20, flush),
+        plain_ms=time_ms(torch, lambda: att.flash_forward_reference(
+            q, k, v, **kw), 5, flush),
+        library_ms=lib_fwd,
+        bound=bound(4 * elems * 2 + rows_f32 * 4, 2 * flops_1))
+    rows['flash_attention_bwd_dq'] = dict(
+        ms=time_ms(torch, lambda: att._flash_backward_dq(
+            q, k, v, do, lse, delta, True, scale, BLOCK), 20, flush),
+        plain_ms=time_ms(torch, lambda: att.flash_bwd_dq_reference(
+            q, k, v, do, lse, delta, **kw), 5, flush),
+        library_ms=lib_bwd,
+        bound=bound(5 * elems * 2 + 2 * rows_f32 * 4, 3 * flops_1))
+    rows['flash_attention_bwd_dkv'] = dict(
+        ms=time_ms(torch, lambda: att._flash_backward_dkv(
+            q, k, v, do, lse, delta, True, scale, BLOCK), 20, flush),
+        plain_ms=time_ms(torch, lambda: att.flash_bwd_dkv_reference(
+            q, k, v, do, lse, delta, **kw), 5, flush),
+        library_ms=lib_bwd,
+        bound=bound(6 * elems * 2 + 2 * rows_f32 * 4, 4 * flops_1))
+    del lib_out, qg, kg, vg
+
+    x, w, t = checked['fused_cross_entropy_fwd'][1]
+
+    def library_ce():
+        logits = torch.matmul(x, w).float()
+        return torch.logsumexp(logits, -1) - logits.gather(
+            1, t.long()[:, None])[:, 0]
+
+    rows['fused_cross_entropy_fwd'] = dict(
+        ms=time_ms(torch, lambda: ce._fused_fwd(x, w, t, BLOCK), 10, flush),
+        plain_ms=time_ms(torch, lambda: ce.fused_forward_reference(
+            x, w, t, BLOCK), 5, flush),
+        library_ms=time_ms(torch, library_ce, 10, flush),
+        bound=bound(x.numel() * 2 + w.numel() * 2 + CE_T * 4 * 3,
+                    2.0 * CE_T * CE_D * CE_V))
+    for name, r in rows.items():
+        print(f'{name}: {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
+              f'library {r["library_ms"]:.4f} ms, bound '
+              f'{r["bound"][0]:.4f} ms ({r["bound"][1]})', flush=True)
+    print('(library: scaled_dot_product_attention forward; its autograd '
+          'backward computes dq, dk and dv together and stands beside both '
+          'backward kernels; matmul + logsumexp for the cross-entropy)',
+          flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the training slice against its plain path
+# ---------------------------------------------------------------------------
+def check_slice(torch, att, ce):
+    """loss_fn and every gradient of a 2-layer bench_1b-width model, the
+    kernel path (flash + fused CE) against the plain path (dense
+    attention + dense CE), same bf16 params and batch."""
+    from skypilot_tpu_torch.models import llama
+    cfg_k = llama.LlamaConfig.bench_1b(n_layers=2, attention_impl='flash',
+                                       fused_loss=True)
+    cfg_p = llama.LlamaConfig.bench_1b(n_layers=2, attention_impl='dense',
+                                       fused_loss=False)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(2)
+    params = llama.init_params(cfg_k, gen, 'cuda')
+    tokens = torch.randint(0, cfg_k.vocab_size, (1, FS + 1), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    leaves = [(f'layers.{k}', t) for k, t in params['layers'].items()] + [
+        (k, params[k]) for k in ('embed', 'final_norm', 'lm_head')]
+    for _, t in leaves:
+        t.requires_grad_(True)
+
+    def run(cfg):
+        att.reset_launches()
+        ce.reset_launches()
+        loss = llama.loss_fn(cfg, params, tokens[:, :-1], tokens[:, 1:])
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        torch.cuda.synchronize()
+        return loss.item(), grads, {**att.launches, **ce.launches}
+
+    loss_k, grads_k, launches_k = run(cfg_k)
+    loss_p, grads_p, launches_p = run(cfg_p)
+    if any(launches_k[k] <= 0 for k in TRAINING_KERNELS) \
+            or any(launches_p.values()):
+        fail(f'the kernel path must launch every training kernel and the '
+             f'plain path none: {launches_k} / {launches_p}')
+    rel = {}
+    for (name, _), gk, gp in zip(leaves, grads_k, grads_p):
+        rel[name] = ((gk.float() - gp.float()).norm()
+                     / gp.float().norm()).item()
+    summary = {'loss_kernels': loss_k, 'loss_plain': loss_p,
+               'loss_abs_diff': abs(loss_k - loss_p),
+               'grad_rel_norm_err': rel, 'launches': launches_k}
+    print('slice vs plain path (2 layers at bench_1b width, b 1, s 2048, '
+          f'loss atol {SLICE_LOSS_ATOL}, grads rel-norm '
+          f'{SLICE_GRAD_RTOL}): ' + json.dumps(summary), flush=True)
+    if not abs(loss_k - loss_p) <= SLICE_LOSS_ATOL \
+            or not all(r <= SLICE_GRAD_RTOL for r in rel.values()):
+        fail('the kernel path disagrees with the plain path')
+    for _, t in leaves:
+        t.requires_grad_(False)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training end to end
+# ---------------------------------------------------------------------------
+def run_logged(cmd, log_name: str, timeout: float):
+    """Run ``cmd`` from the repo root; its output goes to
+    chiprun_out/<log_name>. Returns (stdout, stderr); fails on a non-zero
+    exit."""
+    OUT_DIR.mkdir(exist_ok=True)
+    print('running: ' + ' '.join(cmd[1:]), flush=True)
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    (OUT_DIR / log_name).write_text(
+        f'$ {" ".join(cmd)}\n--- stdout\n{proc.stdout}\n--- stderr\n'
+        f'{proc.stderr}')
+    print(f'  exit {proc.returncode} after {time.time() - t0:.1f} s',
+          flush=True)
+    if proc.returncode != 0:
+        fail(f'{" ".join(cmd[1:])} exited {proc.returncode}:\n'
+             f'{proc.stderr[-3000:]}')
+    return proc.stdout, proc.stderr
+
+
+def run_bench(ce_flavor: str, card: str):
+    out, _ = run_logged(
+        [sys.executable, '-m', 'skypilot_tpu_torch.bench', '--attn', 'flash',
+         '--ce', ce_flavor], f'chip_smoke_bench_{ce_flavor}.log', 900)
+    result = json.loads(out.strip().splitlines()[-1])
+    print(f'bench_1b train step (--attn flash --ce {ce_flavor}, {card}): '
+          + json.dumps(result), flush=True)
+    if not math.isfinite(result['loss']):
+        fail(f'bench loss is not finite: {result["loss"]}')
+    return result
+
+
+def train_and_resume(card: str):
+    """llama-350m (head_dim 64, group 2: the flash kernels' other
+    variant) for 4 steps with a checkpoint every 2, then to step 6 from
+    the same directory, which must resume at step 4. The checkpoints
+    (about 2 GB each) go to a temporary directory that is removed."""
+    pat = re.compile(r'step (\d+)/(\d+) loss=(\S+) tokens/s=(\d+)')
+    runs = []
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_ckpt_') as ckpt:
+        for steps in (4, 6):
+            _, err = run_logged(
+                [sys.executable, '-m', 'skypilot_tpu_torch.train.run',
+                 '--model', 'llama-350m', '--steps', str(steps), '--batch',
+                 '4', '--seq', '2048', '--checkpoint-dir', ckpt,
+                 '--checkpoint-every', '2', '--log-every', '1'],
+                f'chip_smoke_train_{steps}.log', 900)
+            logged = [(int(m.group(1)), float(m.group(3)), int(m.group(4)))
+                      for m in pat.finditer(err)]
+            resumed = re.search(r'resumed from checkpoint at step (\d+)',
+                                err)
+            runs.append({'steps': steps,
+                         'resumed_at': int(resumed.group(1)) if resumed
+                         else None,
+                         'logged': logged,
+                         'checkpoints': sorted(os.listdir(ckpt))})
+    print(f'llama-350m train and resume ({card}): ' + json.dumps(runs),
+          flush=True)
+    first, second = runs
+    if [s for s, _, _ in first['logged']] != [1, 2, 3, 4] \
+            or first['resumed_at'] is not None:
+        fail(f'the first llama-350m run did not log steps 1-4 fresh: {first}')
+    if second['resumed_at'] != 4 \
+            or [s for s, _, _ in second['logged']] != [5, 6]:
+        fail(f'the second llama-350m run did not resume at step 4: {second}')
+    if not all(math.isfinite(loss) for r in runs
+               for _, loss, _ in r['logged']):
+        fail('llama-350m logged a non-finite loss')
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# --profile: where a training step's time goes
+# ---------------------------------------------------------------------------
+def _train_kernel_kind(name: str) -> str:
+    low = name.lower()
+    for key in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv', 'ce_fwd'):
+        if key in low:
+            return key
+    return _kernel_kind(name)
+
+
+def profile_train(torch, card: str) -> None:
+    """bench_1b (--attn flash --ce fused) in process: host-clock step
+    time over 3 steps, then ``torch.profiler`` over one more: device
+    time by kernel kind and the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+    cfg = llama.LlamaConfig.bench_1b(attention_impl='flash', fused_loss=True)
+    opt = trainer.make_optimizer(total_steps=1000, mu_dtype='bfloat16')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    state = trainer.init_train_state(cfg, gen, opt, 'cuda')
+    step = trainer.make_train_step(cfg, opt)
+    batch = trainer.synthetic_batch(cfg, 6, FS, gen, 'cuda')
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kinds, kernels = {}, {}
+    for e in prof.key_averages():
+        us = getattr(e, 'self_device_time_total', 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            kind = _train_kernel_kind(e.key)
+            kinds[kind] = kinds.get(kind, 0) + us / 1e3
+            kernels[e.key] = (us / 1e3, e.count)
+    busy = sum(kinds.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]
+    print(f'train step profile (bench_1b, b 6, s {FS}, flash + fused CE, '
+          f'{card}): ' + json.dumps({
+              'step_ms': step_ms, 'profiled_step_ms': window_ms,
+              'device_busy_ms': busy, 'device_busy_share': busy / window_ms,
+              'kernel_launches': sum(c for _, c in kernels.values()),
+              'device_ms_by_kind': kinds,
+              'top_kernels': [{'name': k[:100], 'ms': ms, 'launches': c}
+                              for k, (ms, c) in top]}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernels-only', action='store_true',
                         help='stop after holding the kernels against '
                              'their plain versions')
     parser.add_argument('--profile', action='store_true',
-                        help='after the server run, profile decode steps '
-                             'of an in-process engine')
+                        help='at the end, profile decode steps of an '
+                             'in-process engine and a bench_1b train step')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -558,7 +1009,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from skypilot_tpu_torch.ops import _build
+    from skypilot_tpu_torch.ops import attention as att
+    from skypilot_tpu_torch.ops import cross_entropy as ce
     from skypilot_tpu_torch.ops import paged_attention as pa
+    # The plain versions' fp32 products stay fp32 (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # Phase 1: the card.
     card = card_line()
@@ -568,44 +1024,73 @@ def main() -> int:
 
     # Phase 2: build from the checkout's sources.
     t0 = time.perf_counter()
-    secs = _build.build(KERNELS)
+    secs = _build.build()
     print(f'built {", ".join(f"{k} {v:.1f}s" for k, v in secs.items())} '
           f'({time.perf_counter() - t0:.1f} s wall)', flush=True)
-    for name in KERNELS:
+    for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if 'registers' in line or 'spill' in line:
+            if 'registers' in line or 'spill' in line \
+                    or 'Compiling entry' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
 
     # Phase 3: kernels vs their plain versions.
     checked = check_kernels(torch, pa)
+    checked.update(check_training_kernels(torch, att, ce))
     if args.kernels_only:
-        print('kernels-only: both kernels agree with their plain versions',
+        print('kernels-only: every kernel agrees with its plain version',
               flush=True)
         return 0
 
     # Phase 4: timing.
     timed = time_kernels(torch, pa, checked)
+    timed.update(time_training_kernels(torch, att, ce, checked))
+    for key in TRAINING_KERNELS:     # keep the errors, free the inputs
+        checked[key] = (checked[key][0],)
+    torch.cuda.empty_cache()
 
-    # Phase 5: the main path, end to end through the server.
+    # Phase 5: the serving path, end to end through the server.
     launches, _ = run_server(card)
+
+    # Phase 6: the training slice against its plain path.
+    check_slice(torch, att, ce)
+    torch.cuda.empty_cache()
+
+    # Phase 7: the training path, end to end.
+    bench = run_bench('fused', card)
+    per_step = bench['launches_per_step']
+    if any(bench['launches'][k] <= 0 for k in TRAINING_KERNELS):
+        fail(f'a training kernel was not launched on the main path: '
+             f'{bench["launches"]}')
+    launches.update(bench['launches'])
+    print(f'bench_1b launches per step: {json.dumps(per_step)}', flush=True)
+    run_bench('dense', card)
+    train_and_resume(card)
     if args.profile:
         profile_decode(torch, card)
+        profile_train(torch, card)
 
-    replaces = {
-        'paged_decode': ('paged_decode_attention',
-                         'skypilot_tpu/ops/paged_attention.py:164'),
-        'paged_prefill': ('paged_prefill_attention',
-                          'skypilot_tpu/ops/paged_attention.py:341'),
-    }
+    rows = [
+        ('paged_decode_attention', 'paged_decode', 'paged_decode',
+         'skypilot_tpu/ops/paged_attention.py:164'),
+        ('paged_prefill_attention', 'paged_prefill', 'paged_prefill',
+         'skypilot_tpu/ops/paged_attention.py:341'),
+        ('flash_attention_fwd', 'flash_attention_fwd', 'flash_fwd',
+         'skypilot_tpu/ops/attention.py:63'),
+        ('flash_attention_bwd_dq', 'flash_attention_bwd_dq', 'flash_bwd',
+         'skypilot_tpu/ops/attention.py:169'),
+        ('flash_attention_bwd_dkv', 'flash_attention_bwd_dkv', 'flash_bwd',
+         'skypilot_tpu/ops/attention.py:213'),
+        ('fused_cross_entropy_fwd', 'fused_cross_entropy_fwd', 'ce_fwd',
+         'skypilot_tpu/ops/cross_entropy.py:131'),
+    ]
     kernels = []
-    for name in KERNELS:
-        wrapper, where = replaces[name]
-        r = timed[name]
+    for wrapper, key, source, where in rows:
+        r = timed[key]
         kernels.append({
             'name': wrapper, 'route': 'cuda',
-            'source': f'skypilot_tpu_torch/ops/csrc/{name}.cu',
+            'source': f'skypilot_tpu_torch/ops/csrc/{source}.cu',
             'replaces': where, 'launches': launches[wrapper],
-            'max_abs_err': checked[name][0], 'ms': r['ms'],
+            'max_abs_err': checked[key][0], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
             'bound_by': r['bound'][1], 'library_ms': r['library_ms']})
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -29,6 +29,12 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+# Every kernel source of the port (csrc/<name>.cu): the paged attention
+# of the serving path, then the flash attention forward/backward and the
+# fused cross-entropy forward of the training path.
+SOURCES = ('paged_decode', 'paged_prefill', 'flash_fwd', 'flash_bwd',
+           'ce_fwd')
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -52,9 +58,10 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f'{name}-{digest[:12]}.so'
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every named kernel source that has no current library,
-    one ``nvcc`` process per source, all started together. Returns the
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every named kernel source (default: all of them) that
+    has no current library, one ``nvcc`` process per source, all
+    started together. Returns the
     wall seconds each compile took (0.0 for one already built). Raises
     :class:`BuildError` with the compiler's output if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
