@@ -13,6 +13,12 @@ Phases, in order; any failure exits non-zero:
    version on the same inputs, at a stated tolerance. The paged kernels
    at the Llama-3-8B shapes (8 KV heads, group 4, head_dim 128, pages of
    64 bf16 rows), then at every head_dim, group and page size they take;
+   the speculative verify kernel (5 queries per slot, one slot's run at
+   the block table's coverage edge) and the int8 flavors of decode,
+   prefill and verify (pages and scales from ``quantize_rows`` of random
+   bf16 rows) at the same shapes, then at every head_dim, group, page
+   size and (verify) query count, where each verify run's query 0 must
+   also be bitwise the decode kernel's output at lengths + 1;
    the flash attention forward (out, lse) and backward (dq, dk, dv) at
    the bench_1b shapes (b 6, 12 heads, s 2048, d 128, causal), where the
    backward must also give the same bits on two runs, then at head_dim
@@ -27,13 +33,26 @@ Phases, in order; any failure exits non-zero:
    events with the L2 cache flushed between launches; plus the least
    time the card could take for the same work (``bound_ms``).
 5. Serving end to end: starts ``python -m skypilot_tpu_torch.infer.server
-   --model 8b --slots 8 --max-seq-len 2048`` (full width and depth,
-   random weights from a seed) in a subprocess, serves mixed-length
-   requests (one streamed) twice through ``/generate``, then a burst of
-   short prompts that decodes on all 8 slots; checks token counts and
-   that a repeated greedy request gives the same tokens, prints TTFT,
-   time between tokens and tokens/s, and reads each paged kernel's
-   launches during those requests from ``/metrics``.
+   --model 8b --slots 8 --max-seq-len 2048 --spec-k 4`` (full width and
+   depth, random weights from a seed) in a subprocess, serves
+   mixed-length requests (one streamed) twice through ``/generate``, then
+   a burst of short prompts that decodes on all 8 slots; checks token
+   counts and that a repeated greedy request gives the same tokens,
+   prints TTFT, time between tokens and tokens/s; then sends repetitive
+   prompts with ``"spec": false`` and with speculation on, which must
+   give the same tokens, and prints ``accepted_len_mean``; reads each
+   paged kernel's launches during those requests from ``/metrics``. Then
+   the same against a second server with ``--kv-dtype int8 --spec-k 4``,
+   whose three int8 kernels must all launch, printed beside the bf16
+   numbers with ``kv_page_bytes``.
+5b. Speculation in process at full 8B width and depth (random weights,
+   seed 0): speculation-off greedy tokens for 8 prompts x 64 new tokens,
+   then speculation on with an oracle drafter that proposes that
+   continuation (wrong at a fixed draft index for half the prompts): the
+   tokens must be the same (one divergence is tolerated, only at a
+   near-tie of speculation-off's top-2 logits, printed), drafts must be
+   accepted, and no page may leak; then the int8-vs-bf16 decode-logit
+   delta at these shapes, which must be > 0.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -94,6 +113,18 @@ HKV, GROUP, HD, PAGE = 8, 4, 128, 64
 MAX_SEQ = 2048
 DECODE_LENGTHS = [1, 64, 65, 2000, 512, 1023, 777, 130]
 PREFILL_C, PREFILL_OFFSET, PREFILL_TRUE_LEN = 256, 192, 200
+# Speculative verify: R = spec_k + 1 = 5 queries per slot over the decode
+# lengths, the last slot's run at the block table's coverage edge
+# (2044 + 5 > 2048: its last queries see the whole table).
+VERIFY_R = 5
+VERIFY_LENGTHS = DECODE_LENGTHS[:-1] + [MAX_SEQ - 4]
+# Phase 5b: 8 prompts x 64 new tokens; the oracle drafter is wrong at
+# this draft index for every other prompt. Speculation on and off may
+# part only where speculation-off's top-2 logit margin is at most
+# NEAR_TIE of the top logit (the verify step's matmuls see other shapes
+# than decode's, so their sums may round differently).
+SPEC_PROMPT_LENGTHS = [64, 100, 17, 300, 64, 129, 500, 200]
+SPEC_NEW, ORACLE_WRONG_AT, NEAR_TIE = 64, 2, 1e-2
 
 # bench_1b attention (b 6, 12 heads of 128, group 1, s 2048, causal) and
 # its loss (T = 6 x 2048 tokens, d 1536, V 32768); the plain versions
@@ -195,22 +226,62 @@ def prefill_case(torch, gen, C, hkv, group, hd, page, maxp):
     return q, k_pages, v_pages, row
 
 
-def decode_err(torch, pa, case) -> float:
-    out = pa.paged_decode_attention(*case)
+def verify_case(torch, gen, lengths, R, hkv, group, hd, page, maxp):
+    """R queries per slot; each slot's table covers its run, up to the
+    table's coverage."""
+    cover = [min(n + R, maxp * page) for n in lengths]
+    _, k_pages, v_pages, tables, _ = decode_case(torch, gen, cover, hkv,
+                                                 group, hd, page, maxp)
+    q = torch.randn((len(lengths), R, hkv, group, hd), generator=gen,
+                    device='cuda').to(torch.bfloat16)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    return q, k_pages, v_pages, tables, lengths
+
+
+def quantize_case(pa, case):
+    """The same case on int8 pages, values and scales from
+    ``quantize_rows`` of its bf16 pages: (case, scale keywords)."""
+    q, k_pages, v_pages, *rest = case
+    kq, ks = pa.quantize_rows(k_pages)
+    vq, vs = pa.quantize_rows(v_pages)
+    return (q, kq, vq, *rest), {'k_scales': ks, 'v_scales': vs}
+
+
+def decode_err(torch, pa, case, **kw) -> float:
+    out = pa.paged_decode_attention(*case, **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all().item():
         fail('paged_decode: non-finite output')
-    ref = pa.paged_decode_attention_reference(*case)
+    ref = pa.paged_decode_attention_reference(*case, **kw)
     return (out - ref).abs().max().item()
 
 
-def prefill_err(torch, pa, case, offset, true_len) -> float:
-    out = pa.paged_prefill_attention(*case, offset, true_len)
+def prefill_err(torch, pa, case, offset, true_len, **kw) -> float:
+    out = pa.paged_prefill_attention(*case, offset, true_len, **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out[:true_len]).all().item():
         fail('paged_prefill: non-finite output')
-    ref = pa.paged_prefill_attention_reference(*case, offset, true_len)
+    ref = pa.paged_prefill_attention_reference(*case, offset, true_len, **kw)
     return (out[:true_len] - ref[:true_len]).abs().max().item()
+
+
+def verify_err(torch, pa, case, **kw) -> float:
+    """The verify kernel against its plain version; fails unless every
+    slot's query 0 is bitwise the decode kernel's output at lengths + 1
+    (the exact-greedy acceptance rule rests on it)."""
+    q, k_pages, v_pages, tables, lengths = case
+    out = pa.paged_verify_attention(*case, **kw)
+    dec = pa.paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                                    tables, lengths + 1, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all().item():
+        fail('paged_verify: non-finite output')
+    if not torch.equal(out[:, 0], dec):
+        fail(f'paged_verify: query 0 is not bitwise the decode kernel at '
+             f'lengths + 1 (max diff {(out[:, 0] - dec).abs().max().item()}'
+             f', shape {tuple(q.shape)}, int8 {bool(kw)})')
+    ref = pa.paged_verify_attention_reference(*case, **kw)
+    return (out - ref).abs().max().item()
 
 
 def check_kernels(torch, pa):
@@ -270,6 +341,83 @@ def check_kernels(torch, pa):
     print(f'all {n} kernel shapes vs plain: max_abs_err decode '
           f'{worst["paged_decode"]:.3e}, prefill '
           f'{worst["paged_prefill"]:.3e} (atol {ATOL})', flush=True)
+    return results
+
+
+def check_spec_int8_kernels(torch, pa):
+    """Phase 3 for the verify kernel and the int8 flavors: at the 8B
+    shapes, then at every head_dim x group x page size (x query count for
+    verify) the wrappers take, int8 pages and scales quantized from random
+    bf16 rows. Returns {name: (max_abs_err at the 8B shapes, inputs, scale
+    keywords)}."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    maxp = MAX_SEQ // PAGE
+    vcase = verify_case(torch, gen, VERIFY_LENGTHS, VERIFY_R, HKV, GROUP, HD,
+                        PAGE, maxp)
+    dcase = decode_case(torch, gen, DECODE_LENGTHS, HKV, GROUP, HD, PAGE,
+                        maxp)
+    pcase = prefill_case(torch, gen, PREFILL_C, HKV, GROUP, HD, PAGE, maxp)
+    off, tl = PREFILL_OFFSET, PREFILL_TRUE_LEN
+    runs = {
+        'paged_verify': lambda c, kw: verify_err(torch, pa, c, **kw),
+        'paged_decode': lambda c, kw: decode_err(torch, pa, c, **kw),
+        'paged_prefill': lambda c, kw: prefill_err(torch, pa, c, off, tl,
+                                                   **kw),
+    }
+    results = {}
+    for name, case in (('paged_verify', vcase), ('paged_verify_int8', vcase),
+                       ('paged_decode_int8', dcase),
+                       ('paged_prefill_int8', pcase)):
+        kw = {}
+        if name.endswith('_int8'):
+            case, kw = quantize_case(pa, case)
+        err = runs[name.replace('_int8', '')](case, kw)
+        print(f'{name} vs plain at the 8B shapes: max_abs_err={err:.3e} '
+              f'(atol {ATOL})' + (f', R={VERIFY_R} lengths={VERIFY_LENGTHS}, '
+                                  f'query 0 bitwise = decode'
+                                  if 'verify' in name else ''), flush=True)
+        if err > ATOL:
+            fail(f'{name} disagrees with its plain version: {err}')
+        results[name] = (err, case, kw)
+
+    # Every variant: verify at every query count from an empty slot to a
+    # run at the coverage edge (8 * page - 3 + R > 8 * page for R >= 4);
+    # int8 decode and prefill at the lengths and chunk of check_kernels.
+    worst, n = {}, 0
+    for hd in pa.CUDA_HEAD_DIMS:
+        for group in pa.CUDA_GROUPS:
+            for page in pa.CUDA_PAGE_SIZES:
+                cases = [('paged_decode', decode_case(
+                    torch, gen, [1, page, page + 1, 5 * page - 3], 2, group,
+                    hd, page, 8)), ('paged_prefill', prefill_case(
+                        torch, gen, 4 * page, 2, group, hd, page, 8))]
+                cases += [('paged_verify', verify_case(
+                    torch, gen, [0, page - 2, 5 * page - 3, 8 * page - 3], R,
+                    2, group, hd, page, 8))
+                    for R in pa.CUDA_VERIFY_QUERIES
+                    if R * group <= pa.CUDA_MAX_ROWS]
+                for name, case in cases:
+                    flavors = [('_int8', *quantize_case(pa, case))]
+                    if name == 'paged_verify':
+                        flavors.append(('', case, {}))
+                    for suffix, c, kw in flavors:
+                        if name == 'paged_prefill':
+                            err = prefill_err(torch, pa, c, 3 * page,
+                                              4 * page - 5, **kw)
+                        else:
+                            err = runs[name](c, kw)
+                        key = name + suffix
+                        if err > ATOL:
+                            fail(f'{key} disagrees with its plain version at '
+                                 f'hd={hd} group={group} page={page} '
+                                 f'q={tuple(c[0].shape)}: {err}')
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        n += 1
+    print(f'all {n} verify / int8 kernel variants vs plain (every verify '
+          f'run\'s query 0 bitwise = decode): max_abs_err '
+          + ', '.join(f'{k} {v:.3e}' for k, v in sorted(worst.items()))
+          + f' (atol {ATOL})', flush=True)
     return results
 
 
@@ -341,6 +489,104 @@ def time_kernels(torch, pa, checked):
     return rows
 
 
+def time_spec_int8_kernels(torch, pa, checked):
+    """Phase 4 for the verify kernel and the int8 flavors at the 8B
+    shapes. The library yardstick is ``scaled_dot_product_attention``
+    over the gathered K/V (dequantized to bf16 beforehand for int8), with
+    a boolean causal mask for verify."""
+    flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
+    rows = {}
+    hq = HKV * GROUP
+    cov = MAX_SEQ
+
+    def dequantized(k_pages, v_pages, kw):
+        if not kw:
+            return k_pages, v_pages
+        return tuple((p.float() * s[..., None]).to(torch.bfloat16)
+                     for p, s in ((k_pages, kw['k_scales']),
+                                  (v_pages, kw['v_scales'])))
+
+    def gathered(k_pages, v_pages, tables, S):
+        idx = tables[:, :S // PAGE].long()
+        slots = tables.shape[0]
+        return tuple(p[:, idx].permute(1, 0, 2, 3, 4).reshape(
+            slots, HKV, S, HD) for p in (k_pages, v_pages))
+
+    for name in ('paged_verify', 'paged_verify_int8'):
+        _, case, kw = checked[name]
+        q, kp, vp, tables, lengths = case
+        slots, R = q.shape[:2]
+        ms = time_ms(torch, lambda: pa.paged_verify_attention(*case, **kw),
+                     50, flush)
+        plain = time_ms(torch, lambda: pa.paged_verify_attention_reference(
+            *case, **kw), 10, flush)
+        S = -(-min(max(VERIFY_LENGTHS) + R, cov) // PAGE) * PAGE
+        kg, vg = gathered(*dequantized(kp, vp, kw), tables, S)
+        qs = q.permute(0, 2, 3, 1, 4).reshape(slots, hq, R, HD)
+        horizon = (lengths.long()[:, None]
+                   + torch.arange(R, device='cuda')[None, :] + 1)
+        mask = (torch.arange(S, device='cuda')[None, None, :]
+                < horizon[:, :, None])[:, None]
+        lib = time_ms(torch, lambda: sdpa(torch, qs, kg, vg, mask), 50,
+                      flush)
+        # Each slot needs its rows up to its last query's horizon, once;
+        # each query row pairs with the positions it sees.
+        need = [min(n + R, cov) for n in VERIFY_LENGTHS]
+        row_bytes = HD * 2 if not kw else HD + 4
+        n_bytes = (q.numel() * (2 + 4) + sum(need) * HKV * row_bytes * 2
+                   + sum(-(-n // PAGE) for n in need) * 4 + slots * 4)
+        flops = 4 * hq * HD * sum(min(n + i + 1, cov)
+                                  for n in VERIFY_LENGTHS for i in range(R))
+        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound=bound(n_bytes, flops))
+
+    _, case, kw = checked['paged_decode_int8']
+    q, kp, vp, tables, lengths = case
+    slots = q.shape[0]
+    ms = time_ms(torch, lambda: pa.paged_decode_attention(*case, **kw), 50,
+                 flush)
+    plain = time_ms(torch, lambda: pa.paged_decode_attention_reference(
+        *case, **kw), 10, flush)
+    S = -(-max(DECODE_LENGTHS) // PAGE) * PAGE
+    kg, vg = gathered(*dequantized(kp, vp, kw), tables, S)
+    mask = (torch.arange(S, device='cuda')[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    lib = time_ms(torch, lambda: sdpa(torch, q.reshape(slots, hq, 1, HD), kg,
+                                      vg, mask), 50, flush)
+    toks = sum(DECODE_LENGTHS)
+    n_bytes = (q.numel() * (2 + 4) + toks * HKV * (HD + 4) * 2
+               + sum(-(-n // PAGE) for n in DECODE_LENGTHS) * 4 + slots * 4)
+    rows['paged_decode_int8'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                     bound=bound(n_bytes, 4 * toks * hq * HD))
+
+    _, case, kw = checked['paged_prefill_int8']
+    q, kp, vp, row = case
+    off, tl, C = PREFILL_OFFSET, PREFILL_TRUE_LEN, PREFILL_C
+    ms = time_ms(torch, lambda: pa.paged_prefill_attention(
+        *case, off, tl, **kw), 50, flush)
+    plain = time_ms(torch, lambda: pa.paged_prefill_attention_reference(
+        *case, off, tl, **kw), 10, flush)
+    S = off + C
+    kd, vd = dequantized(kp, vp, kw)
+    idx = row[:S // PAGE].long()
+    kg = kd[:, idx].reshape(1, HKV, S, HD)
+    vg = vd[:, idx].reshape(1, HKV, S, HD)
+    qs = q.reshape(C, hq, HD).permute(1, 0, 2)[None].contiguous()
+    mask = (torch.arange(S, device='cuda')[None, :]
+            <= off + torch.arange(C, device='cuda')[:, None])
+    lib = time_ms(torch, lambda: sdpa(torch, qs, kg, vg, mask), 50, flush)
+    n_bytes = (tl * hq * HD * (2 + 4) + (off + tl) * HKV * (HD + 4) * 2
+               + -(-(off + tl) // PAGE) * 4)
+    flops = 4 * HD * hq * sum(off + c + 1 for c in range(tl))
+    rows['paged_prefill_int8'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                      bound=bound(n_bytes, flops))
+    for name, r in rows.items():
+        print(f'{name}: {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
+              f'library {r["library_ms"]:.4f} ms, bound '
+              f'{r["bound"][0]:.4f} ms ({r["bound"][1]})', flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: end to end through the server
 # ---------------------------------------------------------------------------
@@ -358,17 +604,19 @@ def http_json(url: str, body=None, timeout: float = 600.0):
         return resp.status, resp.read()
 
 
-def burst(base: str, prompts, new: int, vocab: int, stream_last=False):
+def burst(base: str, prompts, new: int, vocab: int, stream_last=False,
+          spec=True):
     """Send every prompt at once (the last one streamed if
-    ``stream_last``), check each answer, and return ([(tokens, ttft_s,
-    latency_s)] in prompt order, wall seconds)."""
+    ``stream_last``; ``spec`` is the body's speculation opt-in), check
+    each answer, and return ([(tokens, ttft_s, latency_s,
+    accepted_len_mean)] in prompt order, wall seconds)."""
     results = [None] * len(prompts)
     errors = []
 
     def one(i):
         stream = stream_last and i == len(prompts) - 1
         body = {'tokens': prompts[i], 'max_new_tokens': new,
-                'temperature': 0.0, 'stream': stream}
+                'temperature': 0.0, 'stream': stream, 'spec': spec}
         t0 = time.perf_counter()
         try:
             status, raw = http_json(base + '/generate', body)
@@ -383,14 +631,15 @@ def burst(base: str, prompts, new: int, vocab: int, stream_last=False):
                               f'{lines[-1] if lines else None}')
                 return
             tokens = [t for ln in lines[:-1] for t in ln['tokens']]
-            ttft = lines[-1]['ttft_s']
+            answer = lines[-1]
         else:
             answer = json.loads(raw)
             if status != 200:
                 errors.append(f'request {i}: status {status}: {answer}')
                 return
-            tokens, ttft = answer['tokens'], answer['ttft_s']
-        results[i] = (tokens, ttft, latency)
+            tokens = answer['tokens']
+        results[i] = (tokens, answer['ttft_s'], latency,
+                      answer['accepted_len_mean'])
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=one, args=(i,))
@@ -402,7 +651,7 @@ def burst(base: str, prompts, new: int, vocab: int, stream_last=False):
     wall = time.perf_counter() - t0
     if errors or any(r is None for r in results):
         fail(f'requests failed: {errors}')
-    for i, (tokens, _, _) in enumerate(results):
+    for i, (tokens, *_) in enumerate(results):
         if len(tokens) != new:
             fail(f'request {i}: {len(tokens)} tokens, expected {new}')
         if not all(0 <= t < vocab for t in tokens):
@@ -410,10 +659,42 @@ def burst(base: str, prompts, new: int, vocab: int, stream_last=False):
     return results, wall
 
 
-def serve_and_check(base: str, vocab: int, card: str):
-    """Mixed-length requests (one streamed) twice, a greedy repeat, and a
-    burst of short prompts that decodes on all slots, against a warm
-    server. Returns (kernel launch deltas, summary)."""
+def spec_check(base: str, vocab: int):
+    """Repetitive prompts sent with speculation off and on must give the
+    same tokens. Each prompt is a 4-token pattern x 16 led by its own
+    greedy continuation (learnt from a first, speculation-off pass):
+    once the model emits that continuation's opening again, the
+    prompt-lookup drafter finds it in the prompt and drafts the rest.
+    Returns a summary."""
+    import random
+    rnd = random.Random(1)
+    new = 32
+    patterns = [[rnd.randrange(vocab) for _ in range(4)] * 16
+                for _ in range(8)]
+    first, _ = burst(base, patterns, new, vocab, spec=False)
+    prompts = [r[0][:16] + p for r, p in zip(first, patterns)]
+    off, off_wall = burst(base, prompts, new, vocab, spec=False)
+    on, on_wall = burst(base, prompts, new, vocab, spec=True)
+    if [r[0] for r in on] != [r[0] for r in off]:
+        fail('speculation changed the tokens of a greedy request')
+    if any(r[3] is not None for r in off):
+        fail('a request sent with "spec": false rode a verify step')
+    _, raw = http_json(base + '/metrics')
+    m = json.loads(raw)
+    return {'requests': len(prompts), 'max_new_tokens': new,
+            'accepted_len_mean_per_request': [r[3] for r in on],
+            'spec_off_wall_s': off_wall, 'spec_on_wall_s': on_wall,
+            **{k: m.get(k) for k in ('spec_steps', 'spec_drafted_tokens',
+                                     'spec_accepted_tokens',
+                                     'spec_accept_rate',
+                                     'accepted_len_mean')}}
+
+
+def serve_and_check(base: str, vocab: int, card: str, kernels, label: str):
+    """Mixed-length requests (one streamed) twice, a greedy repeat, a
+    burst of short prompts that decodes on all slots, and the
+    speculation check, against a warm server. ``kernels``: the wrappers
+    that must have launched. Returns (kernel launch deltas, summary)."""
     import random
     rnd = random.Random(0)
     lengths = [17, 300, 1000, 64, 129]   # the 129-token one is streamed
@@ -427,7 +708,7 @@ def serve_and_check(base: str, vocab: int, card: str):
     cold, cold_wall = burst(base, prompts, new, vocab, stream_last=True)
     warm, warm_wall = burst(base, prompts, new, vocab, stream_last=True)
     # Greedy determinism: the first request alone gives the same tokens.
-    [(again, _, _)], _ = burst(base, prompts[:1], new, vocab)
+    [(again, *_)], _ = burst(base, prompts[:1], new, vocab)
     if again != cold[0][0]:
         fail('a repeated greedy request gave different tokens')
     # Decode on every slot: 8 short prompts, 64 new tokens each. The
@@ -435,7 +716,8 @@ def serve_and_check(base: str, vocab: int, card: str):
     dnew = 64
     dprompts = [[rnd.randrange(vocab) for _ in range(64)] for _ in range(8)]
     dec, dec_wall = burst(base, dprompts, dnew, vocab)
-    itl_ms = [(lat - ttft) / (dnew - 1) * 1e3 for _, ttft, lat in dec]
+    itl_ms = [(lat - ttft) / (dnew - 1) * 1e3 for _, ttft, lat, _ in dec]
+    spec = spec_check(base, vocab)
 
     _, raw = http_json(base + '/metrics')
     metrics = json.loads(raw)
@@ -456,25 +738,28 @@ def serve_and_check(base: str, vocab: int, card: str):
                          'tokens_per_sec': len(dprompts) * dnew / dec_wall,
                          'itl_ms': itl_ms,
                          'itl_p50_ms': statistics.median(itl_ms)},
+        'speculation': spec,
         'decode_steps': metrics['decode_steps'],
         'decode_tokens': metrics['decode_tokens'],
+        'kv_dtype': metrics['kv_dtype'],
+        'kv_page_bytes': metrics['kv_page_bytes'],
         'kernel_launches': launches,
     }
-    print('end to end (Llama-3-8B, random weights, 8 slots, ' + card
-          + '): ' + json.dumps(summary), flush=True)
-    for name in ('paged_decode_attention', 'paged_prefill_attention'):
+    print(f'end to end (Llama-3-8B, random weights, 8 slots, {label}, '
+          + card + '): ' + json.dumps(summary), flush=True)
+    for name in kernels:
         if launches.get(name, 0) <= 0:
-            fail(f'{name} was not launched on the main path')
+            fail(f'{name} was not launched on the main path ({label})')
     return launches, summary
 
 
-def run_server(card: str):
+def run_server(card: str, flags, log_name: str, kernels, label: str):
     OUT_DIR.mkdir(exist_ok=True)
     port = free_port()
-    log_path = OUT_DIR / 'chip_smoke_server.log'
+    log_path = OUT_DIR / log_name
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
            '--model', '8b', '--slots', '8', '--max-seq-len', str(MAX_SEQ),
-           '--host', '127.0.0.1', '--port', str(port)]
+           '--host', '127.0.0.1', '--port', str(port), *flags]
     print('starting: ' + ' '.join(cmd[1:]), flush=True)
     t0 = time.time()
     with open(log_path, 'wb') as log:
@@ -492,12 +777,16 @@ def run_server(card: str):
                     status, raw = http_json(base + '/health', timeout=5)
                     if status == 200 and json.loads(raw)['status'] == 'ok':
                         break
+                except urllib.error.HTTPError as e:
+                    if json.loads(e.read()).get('status') == 'dead':
+                        tail = log_path.read_text(errors='replace')[-4000:]
+                        fail(f'the server\'s engine loop died:\n{tail}')
                 except (urllib.error.URLError, ConnectionError, OSError):
                     pass
                 time.sleep(1.0)
             print(f'server healthy after {time.time() - t0:.1f} s',
                   flush=True)
-            return serve_and_check(base, 128_256, card)
+            return serve_and_check(base, 128_256, card, kernels, label)
         finally:
             os.killpg(proc.pid, signal.SIGTERM)
             try:
@@ -508,11 +797,166 @@ def run_server(card: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: speculation in process at full 8B width and depth
+# ---------------------------------------------------------------------------
+class OracleDrafter:
+    """Proposes each known prompt's speculation-off greedy continuation;
+    for the prompts in ``wrong`` the draft's token at index ``wrong_at``
+    is off by one, so those runs are accepted up to it and rejected
+    there."""
+
+    def __init__(self, prompts, outputs, wrong, wrong_at, vocab):
+        self.known = [(list(p), list(o)) for p, o in zip(prompts, outputs)]
+        self.wrong = {tuple(p) for p in wrong}
+        self.wrong_at, self.vocab = wrong_at, vocab
+
+    def propose(self, context, k, memo=None):
+        del memo
+        for prompt, out in self.known:
+            if list(context[:len(prompt)]) == prompt:
+                draft = out[len(context) - len(prompt):][:k]
+                if tuple(prompt) in self.wrong and len(draft) > self.wrong_at:
+                    draft[self.wrong_at] = (draft[self.wrong_at] + 1) % \
+                        self.vocab
+                return draft
+        return []
+
+
+def prefill_logits(torch, model_lib, pc_lib, cfg, params, rope, tokens,
+                   dtype):
+    """Logits after ``tokens`` through the prefill path on a fresh
+    one-slot cache of ``dtype`` pages, in PREFILL_C-token chunks. Returns
+    (logits [vocab], cache, table row)."""
+    maxp, C = MAX_SEQ // PAGE, PREFILL_C
+    cache = pc_lib.init_paged_cache(cfg.n_layers, 1, maxp + 1, PAGE,
+                                    cfg.n_kv_heads, cfg.head_dim, dtype=dtype,
+                                    device='cuda')
+    row = torch.arange(1, maxp + 1, dtype=torch.int32, device='cuda')
+    for off in range(0, len(tokens), C):
+        chunk = tokens[off:off + C]
+        padded = torch.zeros(C, dtype=torch.int32, device='cuda')
+        padded[:len(chunk)] = torch.tensor(chunk, dtype=torch.int32)
+        cache, logits = model_lib.paged_prefill_chunk(
+            cfg, params, cache, 0, row, padded, off, len(chunk), rope)
+    return logits, cache, row
+
+
+def spec_in_process(torch, pa, card: str):
+    """Phase 5b: speculation-off greedy tokens for 8 prompts x 64 new
+    tokens on an 8B engine, then the same with speculation on (spec_k 4)
+    and the oracle drafter; then the int8-vs-bf16 decode-logit delta."""
+    import random
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import model as model_lib
+    from skypilot_tpu_torch.infer import paged_cache as pc_lib
+    from skypilot_tpu_torch.models import llama
+    t0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, 'cuda')
+
+    def engine(**kw):
+        return engine_lib.InferenceEngine(
+            cfg, params, engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE, **kw),
+            seed=0, device='cuda')
+
+    rnd = random.Random(4)
+    prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in SPEC_PROMPT_LENGTHS]
+    off_engine = engine()
+    off = [r.output_tokens for r in off_engine.generate(prompts, SPEC_NEW)]
+    off_steps = off_engine.metrics()['decode_steps']
+    del off_engine
+    on = engine(spec_k=VERIFY_R - 1)
+    on._drafter = OracleDrafter(prompts, off, prompts[1::2], ORACLE_WRONG_AT,
+                                cfg.vocab_size)
+    pa.reset_launches()
+    got = [r.output_tokens for r in on.generate(prompts, SPEC_NEW)]
+    torch.cuda.synchronize()
+    launches = dict(pa.launches)
+    m = on.metrics()
+    al = on.allocator
+    leaked = al.n_pages - 1 - al.free_pages
+    refs = sum(al.refcount(pid) for pid in range(1, al.n_pages))
+    rope = on._rope
+    del on
+    diverged = [(i, next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                         min(len(x), len(y))))
+                for i, (x, y) in enumerate(zip(off, got)) if x != y]
+    summary = {
+        'card': card, 'prompt_tokens': SPEC_PROMPT_LENGTHS,
+        'max_new_tokens': SPEC_NEW, 'spec_k': VERIFY_R - 1,
+        'oracle_wrong_at': ORACLE_WRONG_AT,
+        'decode_steps_spec_off': off_steps, 'decode_steps_spec_on':
+            m['decode_steps'],
+        **{k: m[k] for k in ('spec_steps', 'spec_drafted_tokens',
+                             'spec_accepted_tokens', 'spec_accept_rate',
+                             'accepted_len_mean')},
+        'diverged': diverged, 'pages_leaked': leaked, 'refcounts': refs,
+        'kernel_launches': launches}
+    # A divergence is tolerated only at a near-tie (and only after the
+    # bitwise query-0 check of phase 3 passed, which fails the run
+    # otherwise): speculation-off's top-2 margin there, recomputed by
+    # prefill.
+    for i, j in diverged[:1]:
+        logits, _, _ = prefill_logits(torch, model_lib, pc_lib, cfg, params,
+                                      rope, prompts[i] + off[i][:j],
+                                      torch.bfloat16)
+        top2 = torch.topk(logits.float(), 2).values.tolist()
+        summary['near_tie'] = {'request': i, 'step': j,
+                               'margin': top2[0] - top2[1],
+                               'top_logit': top2[0]}
+    # int8 vs bf16 at these shapes: prefill the first prompt into each
+    # kind of cache, decode one step, compare the logits.
+    step = {}
+    for dtype in (torch.bfloat16, torch.int8):
+        logits, cache, row = prefill_logits(torch, model_lib, pc_lib, cfg,
+                                            params, rope, prompts[0], dtype)
+        tok = torch.argmax(logits).to(torch.int32).reshape(1)
+        step[dtype], _ = model_lib.paged_decode_step(cfg, params, cache,
+                                                     row[None], tok, rope)
+        del cache
+    delta = (step[torch.bfloat16] - step[torch.int8]).abs().max().item()
+    summary['int8_vs_bf16_decode_logit_delta'] = delta
+    summary['wall_s'] = time.perf_counter() - t0
+    print('speculation in process (Llama-3-8B, random weights, 8 slots, '
+          + card + '): ' + json.dumps(summary), flush=True)
+    if len(diverged) > 1:
+        fail(f'speculation on parted from speculation off in '
+             f'{len(diverged)} requests: {diverged}')
+    if diverged:
+        tie = summary['near_tie']
+        print(f'speculation on parted from off at request {tie["request"]}, '
+              f'output step {tie["step"]}: speculation-off top-2 logit '
+              f'margin {tie["margin"]:.4e} (top logit '
+              f'{tie["top_logit"]:.4f}; tolerated at <= {NEAR_TIE} x top)',
+              flush=True)
+        if not tie['margin'] <= NEAR_TIE * abs(tie['top_logit']):
+            fail('speculation changed greedy tokens away from a near-tie')
+    if m['spec_accepted_tokens'] < 1:
+        fail('the oracle run accepted no draft: the check is vacuous')
+    if leaked or refs:
+        fail(f'speculation leaked pages: {leaked} pages, refcounts {refs}')
+    for name in ('paged_verify_attention', 'paged_decode_attention',
+                 'paged_prefill_attention'):
+        if launches[name] <= 0:
+            fail(f'{name} was not launched in the speculation run')
+    if not delta > 0:
+        fail('int8 and bf16 pages gave the same decode logits: the int8 '
+             'path did not run')
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # --profile: where a decode step's time goes
 # ---------------------------------------------------------------------------
 def _kernel_kind(name: str) -> str:
     low = name.lower()
-    if 'paged_decode' in low:
+    if 'paged_attention_kernel' in low:
         return 'paged_decode_attention'
     if any(k in low for k in ('gemm', 'gemv', 'xmma', 'cutlass', 'cublas',
                               'nvjet')):
@@ -522,17 +966,24 @@ def _kernel_kind(name: str) -> str:
     return 'other'
 
 
-def profile_decode(torch, card: str) -> None:
-    """An in-process 8B engine with all 8 slots decoding at
-    PROFILE_PROMPT tokens of context: the host-clock time of a step over
-    PROFILE_STEPS steps, then ``torch.profiler`` over a few more: device
-    time by kernel, the device's busy share of the window, and the host
-    ops with the most self time."""
+def profile_decode(torch, card: str, kv_dtype: str) -> None:
+    """An in-process 8B engine (``kv_dtype`` pages) with all 8 slots
+    decoding at PROFILE_PROMPT tokens of context: the host-clock time of
+    a step over PROFILE_STEPS steps (and, on bf16 pages, over as many
+    with the dense block one row wide instead of ``STEP_ROWS``: what the
+    padding that keeps decode and verify steps bitwise alike costs),
+    then the synchronizing CUDA calls of one step (the step's readback is
+    one), then ``torch.profiler`` over a few more: device time by kernel,
+    the device's busy share of the window, and the host ops with the most
+    self time."""
     import random
+    import warnings
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from skypilot_tpu_torch.infer import model as model_lib
     from skypilot_tpu_torch.infer import server as server_lib
-    eng = server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None, 'cuda')
+    eng = server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None, 'cuda',
+                                  kv_dtype=kv_dtype)
     slots, vocab = eng.ecfg.n_slots, eng.config.vocab_size
     rnd = random.Random(2)
     for _ in range(slots):
@@ -548,6 +999,26 @@ def profile_decode(torch, card: str) -> None:
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    narrow_ms = None
+    if kv_dtype == 'bfloat16':
+        rows, model_lib.STEP_ROWS = model_lib.STEP_ROWS, 1
+        try:
+            eng.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+            narrow_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+        finally:
+            model_lib.STEP_ROWS = rows
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
     n = 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -569,9 +1040,12 @@ def profile_decode(torch, card: str) -> None:
         kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:15]
-    print('decode step profile (Llama-3-8B, 8 slots at '
+    print(f'decode step profile (Llama-3-8B, {kv_dtype} pages, 8 slots at '
           f'{PROFILE_PROMPT} tokens, {card}): ' + json.dumps({
               'step_ms': step_ms,
+              'step_ms_one_row_block': narrow_ms,
+              'synchronizing_calls_per_step': sorted(
+                  {str(w.message)[:80] for w in syncs}) + [len(syncs)],
               'decode_tokens_per_sec': slots / step_ms * 1e3,
               'profiled_step_ms': window_ms / n,
               'device_busy_ms_per_step': busy,
@@ -1035,6 +1509,7 @@ def main() -> int:
 
     # Phase 3: kernels vs their plain versions.
     checked = check_kernels(torch, pa)
+    checked.update(check_spec_int8_kernels(torch, pa))
     checked.update(check_training_kernels(torch, att, ce))
     if args.kernels_only:
         print('kernels-only: every kernel agrees with its plain version',
@@ -1043,13 +1518,35 @@ def main() -> int:
 
     # Phase 4: timing.
     timed = time_kernels(torch, pa, checked)
+    timed.update(time_spec_int8_kernels(torch, pa, checked))
     timed.update(time_training_kernels(torch, att, ce, checked))
-    for key in TRAINING_KERNELS:     # keep the errors, free the inputs
+    for key in checked:              # keep the errors, free the inputs
         checked[key] = (checked[key][0],)
     torch.cuda.empty_cache()
 
-    # Phase 5: the serving path, end to end through the server.
-    launches, _ = run_server(card)
+    # Phase 5: the serving path, end to end through the servers.
+    launches, bf16 = run_server(
+        card, ['--spec-k', str(VERIFY_R - 1)], 'chip_smoke_server.log',
+        ('paged_decode_attention', 'paged_prefill_attention',
+         'paged_verify_attention'), 'bf16 pages, spec_k 4')
+    int8_launches, int8 = run_server(
+        card, ['--kv-dtype', 'int8', '--spec-k', str(VERIFY_R - 1)],
+        'chip_smoke_server_int8.log',
+        ('paged_decode_attention_int8', 'paged_prefill_attention_int8',
+         'paged_verify_attention_int8'), 'int8 pages, spec_k 4')
+    launches = {k: launches[k] + int8_launches[k] for k in launches}
+    print('bf16 vs int8 pages (' + card + '): ' + json.dumps({
+        key: [bf16[key], int8[key]]
+        for key in ('ttft_cold_p50_s', 'ttft_warm_p50_s', 'kv_page_bytes')}
+        | {'itl_p50_ms': [bf16['decode_burst']['itl_p50_ms'],
+                          int8['decode_burst']['itl_p50_ms']],
+           'tokens_per_sec': [bf16['decode_burst']['tokens_per_sec'],
+                              int8['decode_burst']['tokens_per_sec']],
+           'kv_page_bytes_ratio': bf16['kv_page_bytes']
+           / int8['kv_page_bytes']}), flush=True)
+
+    # Phase 5b: speculation in process at full width and depth.
+    spec_in_process(torch, pa, card)
 
     # Phase 6: the training slice against its plain path.
     check_slice(torch, att, ce)
@@ -1066,7 +1563,8 @@ def main() -> int:
     run_bench('dense', card)
     train_and_resume(card)
     if args.profile:
-        profile_decode(torch, card)
+        profile_decode(torch, card, 'bfloat16')
+        profile_decode(torch, card, 'int8')
         profile_train(torch, card)
 
     rows = [
@@ -1074,6 +1572,14 @@ def main() -> int:
          'skypilot_tpu/ops/paged_attention.py:164'),
         ('paged_prefill_attention', 'paged_prefill', 'paged_prefill',
          'skypilot_tpu/ops/paged_attention.py:341'),
+        ('paged_verify_attention', 'paged_verify', 'paged_decode',
+         'skypilot_tpu/ops/paged_attention.py:545'),
+        ('paged_decode_attention_int8', 'paged_decode_int8', 'paged_decode',
+         'skypilot_tpu/ops/paged_attention.py:164'),
+        ('paged_prefill_attention_int8', 'paged_prefill_int8',
+         'paged_prefill', 'skypilot_tpu/ops/paged_attention.py:341'),
+        ('paged_verify_attention_int8', 'paged_verify_int8', 'paged_decode',
+         'skypilot_tpu/ops/paged_attention.py:545'),
         ('flash_attention_fwd', 'flash_attention_fwd', 'flash_fwd',
          'skypilot_tpu/ops/attention.py:63'),
         ('flash_attention_bwd_dq', 'flash_attention_bwd_dq', 'flash_bwd',

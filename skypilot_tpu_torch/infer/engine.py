@@ -10,12 +10,21 @@ What this slice keeps from the reference:
 - one decode step over ALL slots with an ``active`` mask, as the
   reference does, so inactive slots write into the sink page or their own
   frontier and never advance their length;
-- a synchronous loop (``pipeline_depth`` 0): each step reads its
-  ``[2, slots]`` token pair back before the next one starts.
+- self-speculative decoding (``spec_k`` > 0): the prompt-lookup drafter
+  proposes up to ``spec_k`` tokens per greedy slot, one verify step
+  scores them all, the longest exact-greedy prefix plus one corrected
+  token lands, and rejected-draft pages roll back; greedy outputs equal
+  speculation-off's token for token;
+- int8 KV pages (``kv_dtype='int8'``): quantized on write, dequantized in
+  the kernels;
+- a synchronous loop (``pipeline_depth`` 0): each step reads its token
+  rows back before the next one starts.
 
 What it leaves out (ROADMAP queue 1): dispatch-ahead pipelining,
-preemption and resume, speculative decoding, the fused mixed step, int8
-KV, the prefix cache, the flight recorder and the SDC sentinel. Where the
+preemption and resume, the fused mixed step, the prefix cache (and so the
+copy-on-write of shared pages before a draft run), the wfq and deadline
+schedulers (and so their ``spec_budget``: drafts get the fcfs budget,
+``spec_k``), the flight recorder and the SDC sentinel. Where the
 reference preempts under page pressure, this engine finishes the request
 with ``finish_reason='cache_full'``; the default pool
 (``n_slots * max_pages_per_slot + 1`` pages) never runs dry.
@@ -35,6 +44,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.infer import drafter as drafter_lib
 from skypilot_tpu_torch.infer import model as model_lib
 from skypilot_tpu_torch.infer import paged_cache as paged_cache_lib
 from skypilot_tpu_torch.infer import sampling as sampling_lib
@@ -69,6 +79,20 @@ class EngineConfig:
     # Total pool pages (page 0 is the sink). None -> dense-equivalent
     # capacity, n_slots * max_seq_len / page_size + 1.
     n_pages: Optional[int] = None
+    # KV page value dtype: 'bfloat16' (pages of cache_dtype) or 'int8'
+    # (int8 values plus one fp32 absmax scale per row per KV head,
+    # quantized on write and dequantized in the kernels: about half the
+    # KV bytes per token). Greedy outputs under int8 are not
+    # bit-identical to bf16; the reference pins the tolerance.
+    kv_dtype: str = 'bfloat16'
+    # Self-speculative decoding: a prompt-lookup drafter proposes up to
+    # spec_k tokens per greedy slot and one verify step scores them all;
+    # a step emits 1..spec_k+1 tokens per slot and greedy outputs stay
+    # identical to spec_k=0. 0 = off. Sampled slots never draft.
+    spec_k: int = 0
+    # Longest trailing n-gram the drafter matches (it falls back to
+    # shorter grams down to 1).
+    spec_ngram: int = 3
 
 
 @dataclasses.dataclass
@@ -86,6 +110,17 @@ class Request:
     # Prompt tokens served from a prefix cache; always 0 in this slice
     # (reported by the server like the reference's).
     cached_tokens: int = 0
+    # Per-request speculation opt-out (body {"spec": false}): never
+    # drafted for; outputs are the same either way.
+    spec: bool = True
+    # Verify steps in which this request drafted, and the tokens those
+    # steps emitted for it (engine thread only): the per-request
+    # accepted_len_mean.
+    spec_steps: int = 0
+    spec_emitted: int = 0
+    # The drafter's incremental n-gram index over prompt + output.
+    draft_memo: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
     _cond: threading.Condition = dataclasses.field(
         default_factory=threading.Condition, repr=False, compare=False)
 
@@ -161,6 +196,9 @@ class InferenceEngine:
         if self._chunk_cap % page:
             raise ValueError(f'prefill chunk {self._chunk_cap} must be a '
                              f'multiple of page_size {page}')
+        if ecfg.kv_dtype not in ('bfloat16', 'int8'):
+            raise ValueError(f"kv_dtype must be 'bfloat16' or 'int8', got "
+                             f'{ecfg.kv_dtype!r}')
         if self.device.type == 'cuda':
             paged_attn.check_cuda_shape(
                 config.head_dim, config.n_heads // config.n_kv_heads, page)
@@ -185,7 +223,9 @@ class InferenceEngine:
         self.cache = paged_cache_lib.init_paged_cache(
             config.n_layers, ecfg.n_slots, n_pages, page,
             config.n_kv_heads, config.head_dim,
-            dtype=llama.torch_dtype(ecfg.cache_dtype), device=self.device)
+            dtype=(torch.int8 if ecfg.kv_dtype == 'int8'
+                   else llama.torch_dtype(ecfg.cache_dtype)),
+            device=self.device)
         self.params = params
         self._rope = model_lib.rope_tables(config, self.device)
         self._generator = torch.Generator(device=self.device)
@@ -216,13 +256,38 @@ class InferenceEngine:
         self._ttfts: collections.deque = collections.deque(maxlen=1024)
         self._queue_waits: collections.deque = collections.deque(
             maxlen=1024)
+        self._drafter = drafter_lib.PromptLookupDrafter(
+            max_ngram=max(1, int(ecfg.spec_ngram)))
+        # Verify accounting: steps, drafting (slot, step) lanes, drafted,
+        # accepted and emitted tokens of those lanes.
+        self._spec_steps = 0
+        self._spec_slot_steps = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_emitted = 0
+        self._spec_k = 0
+        self.set_spec_k(ecfg.spec_k)
+
+    def set_spec_k(self, k: int) -> None:
+        """Runtime draft width (0 = off); greedy outputs are the same at
+        every width. On CUDA a width the verify kernel does not take
+        raises."""
+        k = max(0, int(k))
+        if k and self.device.type == 'cuda':
+            paged_attn.check_cuda_shape(
+                self.config.head_dim,
+                self.config.n_heads // self.config.n_kv_heads,
+                self.ecfg.page_size, r_queries=k + 1)
+        with self._lock:
+            self._spec_k = k
 
     # ---- submission ------------------------------------------------------
     def submit(self, prompt_tokens: Sequence[int],
                max_new_tokens: Optional[int] = None,
-               temperature: float = 0.0) -> Request:
-        """Queue a request. Raises ValueError for a prompt the cache or
-        the page pool can never hold."""
+               temperature: float = 0.0, spec: bool = True) -> Request:
+        """Queue a request. ``spec=False`` opts it out of speculative
+        drafting. Raises ValueError for a prompt the cache or the page
+        pool can never hold."""
         if not prompt_tokens:
             raise ValueError('empty prompt')
         total = len(prompt_tokens)
@@ -254,7 +319,7 @@ class InferenceEngine:
         req = Request(request_id=next(self._ids),
                       prompt_tokens=list(map(int, prompt_tokens)),
                       max_new_tokens=int(max_new_tokens),
-                      temperature=float(temperature))
+                      temperature=float(temperature), spec=bool(spec))
         with self._lock:
             self._waiting.append(req)
         return req
@@ -408,17 +473,23 @@ class InferenceEngine:
         if not decoding:
             return len(self._prefilling)
         t0 = time.perf_counter()
-        self._decode(decoding, just_prefilled)
+        with self._lock:
+            spec_k = self._spec_k
+        # No drafts this step (speculation off, no eligible slot, or no
+        # n-gram matched): the plain decode step is the cheaper one.
+        drafts = (self._build_drafts(decoding, just_prefilled, spec_k)
+                  if spec_k else None)
+        if drafts is not None:
+            self._verify(decoding, just_prefilled, *drafts)
+        else:
+            self._decode(decoding, just_prefilled)
         with self._lock:
             self._decode_time += time.perf_counter() - t0
         return len(decoding) + len(self._prefilling)
 
-    def _decode(self, decoding: List[int],
-                just_prefilled: List[int]) -> None:
-        """One decode step over every slot, then its host bookkeeping.
-        The step's [2, slots] pair is read back at once: row 0 echoes the
-        input tokens (the first token of each slot that finished prefill
-        this step), row 1 holds the new tokens."""
+    def _refresh_dispatch_state(self, decoding: List[int]) -> None:
+        """Upload the block table and the active mask where they changed
+        (shared by the decode and the verify step)."""
         if self._table_version != self.allocator.version:
             self._table_dev = torch.from_numpy(self.allocator.table()).to(
                 self.device)
@@ -429,6 +500,14 @@ class InferenceEngine:
             mask[decoding] = True
             self._active_dev = torch.from_numpy(mask).to(self.device)
             self._active_key = key
+
+    def _decode(self, decoding: List[int],
+                just_prefilled: List[int]) -> None:
+        """One decode step over every slot, then its host bookkeeping.
+        The step's [2, slots] pair is read back at once: row 0 echoes the
+        input tokens (the first token of each slot that finished prefill
+        this step), row 1 holds the new tokens."""
+        self._refresh_dispatch_state(decoding)
         assigned = [(s, self._slots[s]) for s in decoding]
         prefilled = [(s, self._slots[s]) for s in just_prefilled]
         logits, self.cache = model_lib.paged_decode_step(
@@ -440,6 +519,134 @@ class InferenceEngine:
         toks_out = torch.where(self._active_dev, sampled, self._last_dev)
         pair = torch.stack([self._last_dev, toks_out]).cpu().numpy()
         self._last_dev = toks_out
+        self._consume(pair, prefilled, assigned, None)
+
+    # ---- speculative decoding -------------------------------------------
+    def _spec_eligible(self, s: int, fresh: set) -> bool:
+        """May slot ``s`` draft this step? Greedy, opted in, fully
+        prefilled, and not one of this step's fresh prefills (their first
+        token is still on the device, so the host cannot continue the
+        sequence)."""
+        r = self._slots[s]
+        return (r is not None and s not in self._prefilling
+                and s not in fresh and r.temperature == 0 and r.spec)
+
+    def _build_drafts(self, decoding: List[int], just_prefilled: List[int],
+                      spec_k: int) -> Optional[tuple]:
+        """Prompt-lookup drafts for this step's decoding slots:
+        ``(draft_mat [slots, spec_k], draft_lens [slots])`` int32,
+        zero-padded, or None when nobody drafted. A slot's width is the
+        fcfs scheduler's budget (``spec_k``), cut so every drafted
+        position and the corrected token fit in the cache and no token
+        past the request's budget is drafted; a pool that cannot cover
+        the run trims the draft, never the workload."""
+        lens = np.zeros((self.ecfg.n_slots,), np.int32)
+        mat = np.zeros((self.ecfg.n_slots, spec_k), np.int32)
+        fresh = set(just_prefilled)
+        any_draft = False
+        for s in decoding:
+            if not self._spec_eligible(s, fresh):
+                continue
+            req = self._slots[s]
+            base = int(self._slot_len[s])
+            budget = min(spec_k, self.ecfg.max_seq_len - 2 - base,
+                         req.max_new_tokens - len(req.output_tokens) - 1)
+            if budget <= 0:
+                continue
+            prop = self._drafter.propose(
+                drafter_lib.cached_context(req.prompt_tokens,
+                                           req.output_tokens,
+                                           req.draft_memo),
+                budget, memo=req.draft_memo)
+            if prop and not self.allocator.extend(s, base + len(prop) + 1):
+                covered = (self.allocator.pages_of(s)
+                           * self.allocator.page_size)
+                prop = prop[:max(0, covered - base - 1)]
+            if not prop:
+                continue
+            lens[s] = len(prop)
+            mat[s, :len(prop)] = prop
+            any_draft = True
+        return (mat, lens) if any_draft else None
+
+    def _verify(self, decoding: List[int], just_prefilled: List[int],
+                draft_mat: np.ndarray, draft_lens: np.ndarray) -> None:
+        """One verify step over every slot: the run's K/V writes, every
+        candidate's logits, exact-greedy acceptance and the device-side
+        advance (lengths += accepted + 1 on active slots, the corrected
+        token becomes the next input), then its host bookkeeping. The
+        [R + 2, slots] rows read back: row 0 the input tokens, rows
+        1..R the model's token at each position, row R + 1 the accepted
+        count."""
+        self._refresh_dispatch_state(decoding)
+        decoded = [(s, self._slots[s], int(draft_lens[s])) for s in decoding]
+        prefilled = [(s, self._slots[s]) for s in just_prefilled]
+        drafts = torch.from_numpy(draft_mat).to(self.device)
+        lens = torch.from_numpy(draft_lens).to(self.device)
+        tokens = torch.cat([self._last_dev[:, None], drafts], dim=1)
+        logits, self.cache = model_lib.paged_verify_step(
+            self.config, self.params, self.cache, self._table_dev, tokens,
+            self._rope)
+        emitted, accepted = sampling_lib.speculative_accept(
+            logits, drafts, lens, self._generator,
+            torch.from_numpy(self._temps.copy()), top_k=self.ecfg.top_k)
+        active = self._active_dev
+        accepted = torch.where(active, accepted, torch.zeros_like(accepted))
+        next_tok = emitted.gather(1, accepted.long()[:, None])[:, 0]
+        self._last_dev = torch.where(active, next_tok, tokens[:, 0])
+        self.cache.lengths += (accepted + 1).to(
+            self.cache.lengths.dtype) * active.to(self.cache.lengths.dtype)
+        pair = torch.cat([tokens[:, :1].T, emitted.T, accepted[None]],
+                         dim=0).cpu().numpy()
+        with self._lock:
+            self._spec_steps += 1
+        self._consume(pair, prefilled, decoded, tokens.shape[1])
+
+    def _consume_verify(self, pair: np.ndarray, decoded, spec_r: int,
+                        touched: List[Request]) -> None:  # holds: _lock
+        """Emit each slot's accepted run plus the corrected token ONE
+        token at a time through the same finish ladder as plain decode
+        (eos / max_tokens / cache_full fire mid-run and drop the tail,
+        just what speculation-off would have produced), then roll the
+        pages extended for rejected drafts back to the pool. ``decoded``
+        rows are (slot, request, draft_len); the accepted count sits in
+        row ``spec_r + 1``."""
+        for slot, req, dl in decoded:
+            if req.done or self._slots[slot] is not req:
+                continue
+            accepted = min(int(pair[spec_r + 1, slot]), dl)
+            if dl > 0:
+                # Only drafting lanes feed the speculation counters: a
+                # draft_len 0 lane emits one token like plain decode.
+                self._spec_slot_steps += 1
+                self._spec_drafted += dl
+                self._spec_accepted += accepted
+                req.spec_steps += 1
+            for i in range(accepted + 1):
+                token = int(pair[1 + i, slot])
+                req.output_tokens.append(token)
+                self._slot_len[slot] += 1
+                self._decode_tokens += 1
+                if dl > 0:
+                    self._spec_emitted += 1
+                    req.spec_emitted += 1
+                if self._finished(req, slot, token):
+                    self._finish(slot, req)
+                    break
+            if req.done:
+                continue
+            touched.append(req)
+            # Pages extended past the new frontier (the next token's
+            # write page is kept) return to the pool now.
+            self.allocator.shrink(slot, int(self._slot_len[slot]) + 1)
+
+    # ---- host bookkeeping ------------------------------------------------
+    def _consume(self, pair: np.ndarray, prefilled, decoded,
+                 spec_r: Optional[int]) -> None:
+        """Apply a step's read-back rows: first tokens of the slots that
+        finished prefill this step (row 0), then each decoding slot's new
+        token (row 1), or its accepted run on a verify step
+        (``spec_r`` = R)."""
         now = time.time()
         touched: List[Request] = []
         with self._lock:
@@ -457,7 +664,10 @@ class InferenceEngine:
                 if self._finished(req, slot, first):
                     # The token decoded this same step dies with the slot.
                     self._finish(slot, req)
-            for slot, req in assigned:
+            if spec_r is not None:
+                self._consume_verify(pair, decoded, spec_r, touched)
+                decoded = ()
+            for slot, req in decoded:
                 if req.done or self._slots[slot] is not req:
                     continue
                 token = int(pair[1, slot])
@@ -498,7 +708,12 @@ class InferenceEngine:
             ttfts = sorted(self._ttfts)
             waits = sorted(self._queue_waits)
             c = dict(steps=self._decode_steps, tokens=self._decode_tokens,
-                     time=self._decode_time,
+                     time=self._decode_time, spec_k=self._spec_k,
+                     spec_steps=self._spec_steps,
+                     spec_slot_steps=self._spec_slot_steps,
+                     spec_drafted=self._spec_drafted,
+                     spec_accepted=self._spec_accepted,
+                     spec_emitted=self._spec_emitted,
                      prefill_tokens=self._prefill_tokens,
                      prefill_chunks=self._prefill_chunks,
                      waiting=len(self._waiting),
@@ -511,6 +726,19 @@ class InferenceEngine:
                                       if c['time'] else 0.0),
             'tokens_per_step': (round(c['tokens'] / c['steps'], 4)
                                 if c['steps'] else None),
+            **({'spec_k': c['spec_k'],
+                'spec_steps': c['spec_steps'],
+                'spec_slot_steps': c['spec_slot_steps'],
+                'spec_drafted_tokens': c['spec_drafted'],
+                'spec_accepted_tokens': c['spec_accepted'],
+                'spec_emitted_tokens': c['spec_emitted'],
+                'spec_accept_rate': (round(
+                    c['spec_accepted'] / c['spec_drafted'], 4)
+                    if c['spec_drafted'] else 0.0),
+                'accepted_len_mean': (round(
+                    c['spec_emitted'] / c['spec_slot_steps'], 4)
+                    if c['spec_slot_steps'] else None)}
+               if (c['spec_k'] or c['spec_steps']) else {}),
             'prefill_tokens': c['prefill_tokens'],
             'prefill_chunks': c['prefill_chunks'],
             'ttft_p50_s': ttfts[len(ttfts) // 2] if ttfts else None,
@@ -524,9 +752,21 @@ class InferenceEngine:
             'page_size': self.allocator.page_size,
             'pages_total': self.allocator.n_pages,
             'pages_free': c['pages_free'],
-            'kv_dtype': self.ecfg.cache_dtype,
+            'kv_dtype': self.ecfg.kv_dtype,
+            'kv_page_bytes': self._kv_page_bytes(),
             'device': str(self.device),
             # Launches of each hand-written kernel in this process (the
             # wrappers' counters): shows the path ran through them.
             'kernel_launches': dict(paged_attn.launches),
         }
+
+    def _kv_page_bytes(self) -> int:
+        """Device bytes one physical page costs across every layer: K
+        plus V values at their dtype, plus the fp32 row scales on int8
+        pages."""
+        cfg, page = self.config, self.allocator.page_size
+        rows = 2 * cfg.n_layers * cfg.n_kv_heads * page
+        out = rows * cfg.head_dim * self.cache.k_pages.element_size()
+        if self.cache.k_scales is not None:
+            out += rows * self.cache.k_scales.element_size()
+        return out

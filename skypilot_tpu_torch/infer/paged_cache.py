@@ -1,10 +1,13 @@
 """Paged KV cache: block tables over a shared page pool (counterpart of
-``skypilot_tpu/infer/paged_cache.py``, bf16 flavor).
+``skypilot_tpu/infer/paged_cache.py``).
 
 Device state:
 
-    k_pages, v_pages: [n_layers, n_kv_heads, n_pages, page, head_dim]
-    lengths:          [n_slots] int32
+    k_pages, v_pages:   [n_layers, n_kv_heads, n_pages, page, head_dim]
+    lengths:            [n_slots] int32
+    k_scales, v_scales: [n_layers, n_kv_heads, n_pages, page] fp32, on
+                        int8 pages only (one absmax scale per cached row,
+                        pool-aligned with the pages); None on bf16 pages
 
 Host state: the :class:`PageAllocator` (free-page stack, refcounts and
 per-slot block tables), a copy of the reference's, since the port
@@ -25,6 +28,8 @@ class PagedKVCache:
     k_pages: torch.Tensor   # [L, hkv, P, page, hd]
     v_pages: torch.Tensor   # [L, hkv, P, page, hd]
     lengths: torch.Tensor   # [slots] int32
+    k_scales: Optional[torch.Tensor] = None   # [L, hkv, P, page] fp32
+    v_scales: Optional[torch.Tensor] = None
 
     @property
     def n_pages(self) -> int:
@@ -38,11 +43,19 @@ class PagedKVCache:
 def init_paged_cache(n_layers: int, n_slots: int, n_pages: int,
                      page_size: int, n_kv_heads: int, head_dim: int,
                      dtype=torch.bfloat16, device='cpu') -> PagedKVCache:
+    """Zeroed pages of ``dtype``; ``torch.int8`` adds zeroed fp32 row
+    scales beside them."""
     shape = (n_layers, n_kv_heads, n_pages, page_size, head_dim)
+    scales = ({'k_scales': torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device),
+               'v_scales': torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)}
+              if dtype == torch.int8 else {})
     return PagedKVCache(
         k_pages=torch.zeros(shape, dtype=dtype, device=device),
         v_pages=torch.zeros(shape, dtype=dtype, device=device),
-        lengths=torch.zeros((n_slots,), dtype=torch.int32, device=device))
+        lengths=torch.zeros((n_slots,), dtype=torch.int32, device=device),
+        **scales)
 
 
 def free_slot(cache: PagedKVCache, slot: int) -> PagedKVCache:
@@ -54,9 +67,11 @@ def free_slot(cache: PagedKVCache, slot: int) -> PagedKVCache:
 
 def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     """Device half of copy-on-write: duplicate physical page ``src``
-    into ``dst`` across all layers and heads, in place."""
-    cache.k_pages[:, :, dst] = cache.k_pages[:, :, src]
-    cache.v_pages[:, :, dst] = cache.v_pages[:, :, src]
+    into ``dst`` across all layers and heads, in place, its row scales
+    with it on int8 pages."""
+    for t in (cache.k_pages, cache.v_pages, cache.k_scales, cache.v_scales):
+        if t is not None:
+            t[:, :, dst] = t[:, :, src]
     return cache
 
 

@@ -9,7 +9,7 @@ compare distributions, not tokens.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,6 +22,36 @@ class SamplingParams:
     def __post_init__(self):
         if self.temperature < 0:
             raise ValueError('temperature must be >= 0')
+
+
+def speculative_accept(logits: torch.Tensor, drafts: torch.Tensor,
+                       draft_len: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       temperature: torch.Tensor, top_k: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact-greedy draft acceptance over the verify logits.
+
+    logits: [slots, K+1, vocab], position i the model's output after
+    verify input i (input 0 the slot's last token, inputs 1..K the padded
+    drafts); drafts: [slots, K] int32; draft_len: [slots] int32 valid
+    drafts per slot; temperature and top_k as in :func:`sample`.
+
+    Returns ``(emitted [slots, K+1] int32, accepted [slots] int32)``:
+    position 0 goes through :func:`sample` (a sampled slot riding a
+    verify step with draft_len 0 samples exactly as a decode step would),
+    later positions take the argmax; ``accepted`` is the longest prefix
+    where draft i equals the model's token at position i. The caller
+    emits ``emitted[:, :accepted + 1]``: every emitted token is the
+    model's own, so greedy outputs equal speculation-off's."""
+    k = logits.shape[1] - 1
+    first = sample(logits[:, 0], generator, temperature, top_k=top_k)
+    preds = torch.argmax(logits[:, 1:], dim=-1).to(torch.int32)
+    emitted = torch.cat([first[:, None], preds], dim=1)
+    match = ((drafts == emitted[:, :k])
+             & (torch.arange(k, device=logits.device)[None, :]
+                < draft_len[:, None]))
+    accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    return emitted, accepted.to(torch.int32)
 
 
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator],

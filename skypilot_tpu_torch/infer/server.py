@@ -7,11 +7,15 @@ Endpoints:
 - ``GET  /health``   -> 200 ``{"status": "ok"}`` once the engine is warm,
   503 ``{"status": "warming"}`` before (``"dead"`` if the loop died).
 - ``POST /generate`` -> {"tokens": [int] | "prompt": str, optional
-  "max_new_tokens", "temperature", "stream"}. The answer is one JSON
-  object, or with ``"stream": true`` JSON lines: ``{"tokens", "text"}``
-  per token batch and a final ``{"done": true, ...}`` line.
+  "max_new_tokens", "temperature", "stream", "spec"}. The answer is one
+  JSON object, or with ``"stream": true`` JSON lines: ``{"tokens",
+  "text"}`` per token batch and a final ``{"done": true, ...}`` line.
+  ``"spec": false`` opts the request out of speculative drafting; both
+  answers carry its ``accepted_len_mean`` (tokens per verify step it
+  drafted in, None when it never drafted).
 - ``GET  /metrics``  -> engine metrics as JSON (TTFT p50, decode tokens,
-  steps, each kernel's launch count).
+  steps, the KV dtype and page bytes, the speculation counters, each
+  kernel's launch count).
 
 It uses the standard library's ``ThreadingHTTPServer``: one thread per
 connection enqueues its request and waits on the request's condition,
@@ -21,7 +25,8 @@ over every waiting request).
 Without a checkpoint the server serves random weights sized by
 ``--model``, drawn from ``--seed``. Run:
 ``python -m skypilot_tpu_torch.infer.server --port 8000 --model 8b``
-(add ``--device cpu`` to run on the CPU).
+(add ``--device cpu`` to run on the CPU, ``--spec-k 4`` to decode
+speculatively, ``--kv-dtype int8`` for int8 KV pages).
 """
 from __future__ import annotations
 
@@ -209,18 +214,24 @@ class InferenceServer:
         try:
             req = self.engine.submit(
                 tokens, max_new_tokens=body.get('max_new_tokens'),
-                temperature=float(body.get('temperature', 0.0)))
+                temperature=float(body.get('temperature', 0.0)),
+                spec=bool(body.get('spec', True)))
         except (TypeError, ValueError) as e:
             return None, (400, {'error': str(e)})
         self._woken.set()
         return req, None
+
+    @staticmethod
+    def _accepted_len_mean(req) -> Optional[float]:
+        return (round(req.spec_emitted / req.spec_steps, 3)
+                if req.spec_steps else None)
 
     def done_line(self, req) -> dict:
         return {'done': True, 'request_id': req.request_id,
                 'finish_reason': req.finish_reason, 'ttft_s': req.ttft,
                 'queue_wait_s': req.queue_wait,
                 'cached_tokens': req.cached_tokens,
-                'accepted_len_mean': None}
+                'accepted_len_mean': self._accepted_len_mean(req)}
 
     def answer(self, req) -> dict:
         return {'request_id': req.request_id,
@@ -230,7 +241,7 @@ class InferenceServer:
                 'ttft_s': req.ttft,
                 'queue_wait_s': req.queue_wait,
                 'cached_tokens': req.cached_tokens,
-                'accepted_len_mean': None}
+                'accepted_len_mean': self._accepted_len_mean(req)}
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
@@ -323,8 +334,9 @@ class _Handler(http.server.BaseHTTPRequestHandler):
 
 
 def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
-                 n_pages: Optional[int], device: str,
-                 seed: int = 0) -> engine_lib.InferenceEngine:
+                 n_pages: Optional[int], device: str, seed: int = 0,
+                 kv_dtype: str = 'bfloat16', spec_k: int = 0,
+                 spec_ngram: int = 3) -> engine_lib.InferenceEngine:
     """Random weights for ``model`` drawn from ``seed`` on ``device``,
     and a paged engine over them."""
     dev = engine_lib.resolve_device(device)
@@ -336,11 +348,12 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
         config, params,
         engine_lib.EngineConfig(
             n_slots=slots, max_seq_len=min(max_seq_len, config.max_seq_len),
-            page_size=page_size, n_pages=n_pages),
+            page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype,
+            spec_k=spec_k, spec_ngram=spec_ngram),
         seed=seed, device=dev)
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--host', default='0.0.0.0')
     parser.add_argument('--port', type=int, required=True)
@@ -351,6 +364,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument('--n-pages', type=int, default=None,
                         help='KV pool pages incl. the sink page (default: '
                              'slots x max_seq_len / page_size + 1)')
+    parser.add_argument('--kv-dtype', default='bfloat16',
+                        choices=['bfloat16', 'int8'],
+                        help='KV page value dtype: int8 pages carry one '
+                             'fp32 absmax scale per row (quantized on '
+                             'write, dequantized in the kernels), about '
+                             'half the KV bytes per token')
+    parser.add_argument('--spec-k', type=int, default=0,
+                        help='speculative decoding draft width: a '
+                             'prompt-lookup drafter proposes up to this '
+                             'many tokens per greedy request and one '
+                             'verify step scores them all (greedy output '
+                             'unchanged); 0 = off')
+    parser.add_argument('--spec-ngram', type=int, default=3,
+                        help='longest trailing n-gram the drafter '
+                             'matches')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default; raises without a card) or "
                              "'cpu'")
@@ -359,14 +387,23 @@ def main(argv: Optional[List[str]] = None) -> None:
                              'command line; the KV cache is always paged')
     parser.add_argument('--seed', type=int, default=0,
                         help='seed of the random weights and of sampling')
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def engine_from_args(args: argparse.Namespace) -> engine_lib.InferenceEngine:
+    return build_engine(args.model, args.slots, args.max_seq_len,
+                        args.page_size, args.n_pages, args.device, args.seed,
+                        kv_dtype=args.kv_dtype, spec_k=args.spec_k,
+                        spec_ngram=args.spec_ngram)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     t0 = time.time()
     logger.warning('no checkpoint: serving random weights (%s) on %s',
                    args.model, args.device)
-    engine = build_engine(args.model, args.slots, args.max_seq_len,
-                          args.page_size, args.n_pages, args.device,
-                          args.seed)
+    engine = engine_from_args(args)
     logger.info('weights and KV pool ready in %.1fs', time.time() - t0)
     InferenceServer(engine).run(args.host, args.port)
 

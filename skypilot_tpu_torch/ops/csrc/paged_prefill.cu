@@ -3,12 +3,14 @@
 // the slot's paged prefix plus the chunk itself.
 //
 // Replaces: skypilot_tpu/ops/paged_attention.py, _prefill_kernel (entry
-// paged_prefill_attention), bf16 flavor.
+// paged_prefill_attention), its bf16 flavor and its int8 flavor
+// (quantized=True: int8 pages with one fp32 scale per row).
 //
 // What bounds it on the H100: arithmetic for long prefixes. The chunk
 // does about 4 * C * hq * hd * (offset + C) FLOPs per layer against
 // (offset + C) * hkv * hd * 4 bytes of K/V, i.e. hundreds of FLOPs per
 // byte; the floor is those FLOPs over 989 TFLOP/s (bf16 tensor cores).
+// int8 pages halve the bytes and leave the FLOPs as they are.
 //
 // What the design does about it: the TPU kernel flattens queries x group
 // into rows (group fastest: row r is query r // group), walks a
@@ -20,7 +22,11 @@
 // all 64 rows (padded rows keep the reads free of bank conflicts), and
 // every thread computes a 4 x (page/16) tile of scores and a 4 x (hd/16)
 // tile of the output in registers, so each shared-memory load feeds
-// several FMAs. Causality is masked in global positions (kpos <= offset +
+// several FMAs. int8 rows are dequantized while staged, float(value) *
+// scale in fp32 with the scale read at the same page id as the values,
+// so the products see the reference's dequantized rows (staged as fp32:
+// 16 int8 values a 16-byte load, 4x the shared memory of a bf16 row).
+// Causality is masked in global positions (kpos <= offset +
 // r // group) and the page loop stops at the last page any row of the
 // tile can see -- pages past it are fully masked, an exact no-op in the
 // online softmax -- so a tile never loads what it cannot attend to. fp32
@@ -45,28 +51,109 @@ constexpr int kThreads = 256;
 constexpr int kRows = 64;  // query rows (queries x group) per block
 constexpr float kNegInf = -1e30f;
 
-template <int HD, int PAGE>
+// Page element type in device memory -> its staged type in shared
+// memory: bf16 rows are staged as they are, int8 rows dequantized to
+// fp32.
+template <typename T>
+struct Staged;
+template <>
+struct Staged<__nv_bfloat16> {
+  using type = __nv_bfloat16;
+};
+template <>
+struct Staged<int8_t> {
+  using type = float;
+};
+
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+template <int HD, int PAGE, typename S>
 struct Layout {
   static constexpr int QS = HD + 2;    // fp32 query row stride (padded)
-  static constexpr int KS = HD + 2;    // bf16 key row stride (padded)
+  static constexpr int KS = HD + 2;    // staged key row stride (padded)
   static constexpr int SS = PAGE + 1;  // fp32 score row stride (padded)
   static constexpr size_t q_bytes = (size_t)kRows * QS * sizeof(float);
-  static constexpr size_t k_bytes = (size_t)PAGE * KS * sizeof(__nv_bfloat16);
-  static constexpr size_t v_bytes = (size_t)PAGE * HD * sizeof(__nv_bfloat16);
+  static constexpr size_t k_bytes = (size_t)PAGE * KS * sizeof(S);
+  static constexpr size_t v_bytes = (size_t)PAGE * HD * sizeof(S);
   static constexpr size_t s_bytes = (size_t)kRows * SS * sizeof(float);
   static constexpr size_t total =
       q_bytes + v_bytes + k_bytes + s_bytes + 3 * kRows * sizeof(float);
 };
 
-template <int HD, int PAGE>
+// Stage one K page (rows padded to KS) and one V page (rows of HD) into
+// shared memory, 16-byte loads.
+template <int HD, int PAGE, int KS>
+__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ k,
+                                      const __nv_bfloat16* __restrict__ v,
+                                      const float* __restrict__ ks,
+                                      const float* __restrict__ vs,
+                                      __nv_bfloat16* k_s, __nv_bfloat16* v_s,
+                                      int tid) {
+  (void)ks;
+  (void)vs;
+  constexpr int VEC_PER_ROW = HD / 8;
+  const uint4* ksrc = reinterpret_cast<const uint4*>(k);
+  const uint4* vsrc = reinterpret_cast<const uint4*>(v);
+  for (int i = tid; i < PAGE * VEC_PER_ROW; i += kThreads) {
+    const int j = i / VEC_PER_ROW;
+    const int col = (i - j * VEC_PER_ROW) * 8;
+    const uint4 kv = ksrc[i];
+    uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + j * KS + col);
+    kd[0] = kv.x;
+    kd[1] = kv.y;
+    kd[2] = kv.z;
+    kd[3] = kv.w;
+    reinterpret_cast<uint4*>(v_s)[i] = vsrc[i];
+  }
+}
+
+template <int HD, int PAGE, int KS>
+__device__ __forceinline__ void stage(const int8_t* __restrict__ k,
+                                      const int8_t* __restrict__ v,
+                                      const float* __restrict__ ks,
+                                      const float* __restrict__ vs,
+                                      float* k_s, float* v_s, int tid) {
+  constexpr int VEC_PER_ROW = HD / 16;
+  const uint4* ksrc = reinterpret_cast<const uint4*>(k);
+  const uint4* vsrc = reinterpret_cast<const uint4*>(v);
+  for (int i = tid; i < PAGE * VEC_PER_ROW; i += kThreads) {
+    const int j = i / VEC_PER_ROW;
+    const int col = (i - j * VEC_PER_ROW) * 16;
+    const uint4 kraw = ksrc[i];
+    const uint4 vraw = vsrc[i];
+    const int8_t* kv = reinterpret_cast<const int8_t*>(&kraw);
+    const int8_t* vv = reinterpret_cast<const int8_t*>(&vraw);
+    const float kscale = ks[j];
+    const float vscale = vs[j];
+    float2* kd = reinterpret_cast<float2*>(k_s + j * KS + col);
+    float2* vd = reinterpret_cast<float2*>(v_s + j * HD + col);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      kd[c] = make_float2((float)kv[2 * c] * kscale,
+                          (float)kv[2 * c + 1] * kscale);
+      vd[c] = make_float2((float)vv[2 * c] * vscale,
+                          (float)vv[2 * c + 1] * vscale);
+    }
+  }
+}
+
+template <int HD, int PAGE, typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k_pages,
-                     const __nv_bfloat16* __restrict__ v_pages,
+                     const T* __restrict__ k_pages,
+                     const T* __restrict__ v_pages,
+                     const float* __restrict__ k_scales,
+                     const float* __restrict__ v_scales,
                      const int* __restrict__ table_row,
                      float* __restrict__ out, int chunk, int hkv, int group,
                      int n_pages, int offset, int true_len, float sm_scale) {
-  using L = Layout<HD, PAGE>;
+  using S = typename Staged<T>::type;
+  using L = Layout<HD, PAGE, S>;
   constexpr int NC = PAGE / 16;  // key columns per thread
   constexpr int ND = HD / 32;    // output column pairs per thread
   const int tile = blockIdx.x;
@@ -77,10 +164,8 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem);                      // [kRows][QS]
-  __nv_bfloat16* v_s =
-      reinterpret_cast<__nv_bfloat16*>(smem + L::q_bytes);          // [PAGE][HD]
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(
-      smem + L::q_bytes + L::v_bytes);                              // [PAGE][KS]
+  S* v_s = reinterpret_cast<S*>(smem + L::q_bytes);                // [PAGE][HD]
+  S* k_s = reinterpret_cast<S*>(smem + L::q_bytes + L::v_bytes);   // [PAGE][KS]
   float* s_s = reinterpret_cast<float*>(
       smem + L::q_bytes + L::v_bytes + L::k_bytes);                 // [kRows][SS]
   float* m_s = s_s + kRows * L::SS;
@@ -122,23 +207,11 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < ND; ++c) acc[i][c] = make_float2(0.f, 0.f);
   __syncthreads();
 
-  constexpr int VEC_PER_ROW = HD / 8;
   for (int p = 0; p < n_live; ++p) {
     const int pid = table_row[p];
-    const size_t base = ((size_t)h * n_pages + pid) * PAGE * HD;
-    const uint4* ksrc = reinterpret_cast<const uint4*>(k_pages + base);
-    const uint4* vsrc = reinterpret_cast<const uint4*>(v_pages + base);
-    for (int i = tid; i < PAGE * VEC_PER_ROW; i += kThreads) {
-      const int j = i / VEC_PER_ROW;
-      const int col = (i - j * VEC_PER_ROW) * 8;
-      const uint4 kv = ksrc[i];
-      uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + j * L::KS + col);
-      kd[0] = kv.x;
-      kd[1] = kv.y;
-      kd[2] = kv.z;
-      kd[3] = kv.w;
-      reinterpret_cast<uint4*>(v_s)[i] = vsrc[i];
-    }
+    const size_t first = ((size_t)h * n_pages + pid) * PAGE;  // page's row 0
+    stage<HD, PAGE, L::KS>(k_pages + first * HD, v_pages + first * HD,
+                           k_scales + first, v_scales + first, k_s, v_s, tid);
     __syncthreads();
 
     // Scores: rows rl + 16i x keys cl + 16c, causal in global positions.
@@ -156,8 +229,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
         qv[i] = *reinterpret_cast<const float2*>(q_s + (rl + 16 * i) * L::QS + d);
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        kv[c] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            k_s + (cl + 16 * c) * L::KS + d));
+        kv[c] = ld2(k_s + (cl + 16 * c) * L::KS + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -225,9 +297,7 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < 4; ++i) pr[i] = s_s[(rl + 16 * i) * L::SS + j];
 #pragma unroll
       for (int c = 0; c < ND; ++c) {
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(
-                v_s + j * HD + 2 * (cl + 16 * c)));
+        const float2 vv = ld2(v_s + j * HD + 2 * (cl + 16 * c));
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][c].x = fmaf(pr[i], vv.x, acc[i][c].x);
@@ -257,45 +327,54 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD, int PAGE>
+template <int HD, int PAGE, typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* table_row, void* out, int chunk, int hkv, int group,
-           int n_pages, int offset, int true_len, float sm_scale,
-           cudaStream_t stream) {
-  const size_t smem = Layout<HD, PAGE>::total;
+           const void* k_scales, const void* v_scales, const void* table_row,
+           void* out, int chunk, int hkv, int group, int n_pages, int offset,
+           int true_len, float sm_scale, cudaStream_t stream) {
+  using S = typename Staged<T>::type;
+  const size_t smem = Layout<HD, PAGE, S>::total;
+  auto kernel = paged_prefill_kernel<HD, PAGE, T>;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<HD, PAGE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_rows = chunk * group;
   dim3 grid((n_rows + kRows - 1) / kRows, hkv);
-  paged_prefill_kernel<HD, PAGE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages),
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales),
       static_cast<const int*>(table_row), static_cast<float*>(out), chunk, hkv,
       group, n_pages, offset, true_len, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_hd(const void* q, const void* k_pages, const void* v_pages,
-              const void* table_row, void* out, int chunk, int hkv, int group,
-              int n_pages, int page, int offset, int true_len,
-              float sm_scale, cudaStream_t s) {
+template <typename T>
+int dispatch(const void* q, const void* k_pages, const void* v_pages,
+             const void* k_scales, const void* v_scales,
+             const void* table_row, void* out, int chunk, int hkv, int group,
+             int head_dim, int n_pages, int page, int offset, int true_len,
+             float sm_scale, void* stream) {
+  if (chunk < 1 || hkv < 1 || true_len < 1 || offset < 0 ||
+      (group != 1 && group != 2 && group != 4 && group != 8))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PREFILL_LAUNCH(HD, PAGE)                                            \
+  launch<HD, PAGE, T>(q, k_pages, v_pages, k_scales, v_scales, table_row,   \
+                      out, chunk, hkv, group, n_pages, offset, true_len,    \
+                      sm_scale, s)
+  if (head_dim != 64 && head_dim != 128) return -1;
   switch (page) {
     case 16:
-      return launch<HD, 16>(q, k_pages, v_pages, table_row, out, chunk, hkv,
-                            group, n_pages, offset, true_len, sm_scale, s);
+      return head_dim == 64 ? PREFILL_LAUNCH(64, 16) : PREFILL_LAUNCH(128, 16);
     case 32:
-      return launch<HD, 32>(q, k_pages, v_pages, table_row, out, chunk, hkv,
-                            group, n_pages, offset, true_len, sm_scale, s);
+      return head_dim == 64 ? PREFILL_LAUNCH(64, 32) : PREFILL_LAUNCH(128, 32);
     case 64:
-      return launch<HD, 64>(q, k_pages, v_pages, table_row, out, chunk, hkv,
-                            group, n_pages, offset, true_len, sm_scale, s);
+      return head_dim == 64 ? PREFILL_LAUNCH(64, 64) : PREFILL_LAUNCH(128, 64);
     default:
       return -1;
   }
+#undef PREFILL_LAUNCH
 }
 
 }  // namespace
@@ -305,19 +384,18 @@ extern "C" int paged_prefill_attention_bf16(
     const void* table_row, void* out, int chunk, int hkv, int group,
     int head_dim, int n_pages, int page, int offset, int true_len,
     float sm_scale, void* stream) {
-  if (chunk < 1 || hkv < 1 || true_len < 1 || offset < 0 ||
-      (group != 1 && group != 2 && group != 4 && group != 8))
-    return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch_hd<64>(q, k_pages, v_pages, table_row, out, chunk, hkv,
-                           group, n_pages, page, offset, true_len, sm_scale, s);
-    case 128:
-      return launch_hd<128>(q, k_pages, v_pages, table_row, out, chunk, hkv,
-                            group, n_pages, page, offset, true_len, sm_scale,
-                            s);
-    default:
-      return -1;
-  }
+  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
+                                 table_row, out, chunk, hkv, group, head_dim,
+                                 n_pages, page, offset, true_len, sm_scale,
+                                 stream);
+}
+
+extern "C" int paged_prefill_attention_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* table_row,
+    void* out, int chunk, int hkv, int group, int head_dim, int n_pages,
+    int page, int offset, int true_len, float sm_scale, void* stream) {
+  return dispatch<int8_t>(q, k_pages, v_pages, k_scales, v_scales, table_row,
+                          out, chunk, hkv, group, head_dim, n_pages, page,
+                          offset, true_len, sm_scale, stream);
 }

@@ -7,23 +7,35 @@ Layout (per layer), as in the reference:
     block_tables:     [n_slots, max_pages] int32  (page ids)
     lengths:          [n_slots] int32             (tokens per slot)
 
-Two attention entry points, each with a plain PyTorch version beside it:
+int8 pages (``kv_dtype='int8'``) hold int8 values plus one fp32 absmax
+scale per cached row per KV head, ``k_scales/v_scales: [hkv, P, page]``,
+pool-aligned with the pages: rows are quantized on write
+(:func:`quantize_rows`) and dequantized in the kernel, row by row, before
+the products.
 
-- ``paged_decode_attention``: one query token per slot; on a CUDA tensor
+Three attention entry points, each with a plain PyTorch version beside
+it, each taking optional ``k_scales``/``v_scales`` (given: the int8
+flavor):
+
+- ``paged_decode_attention``: one query token per slot; on CUDA tensors
   it launches ``csrc/paged_decode.cu``.
+- ``paged_verify_attention``: R = spec_k + 1 query tokens per slot (the
+  speculative verify step); the same templated body in
+  ``csrc/paged_decode.cu``, of which decode is the one-query instance.
 - ``paged_prefill_attention``: a C-token chunk of one slot, causal over
-  its cached prefix plus itself; on a CUDA tensor it launches
+  its cached prefix plus itself; on CUDA tensors it launches
   ``csrc/paged_prefill.cu``.
 
 A wrapper runs the plain version only because the tensors it was given
-lie on the CPU; on CUDA tensors it launches its kernel or raises. Each
-wrapper adds one to its entry of :data:`launches` where it launches its
-kernel, and nowhere else, so a run can show that its main path went
-through the kernels.
+lie on the CPU; on CUDA tensors it launches its kernel or raises (int8
+pages never reach a bf16 kernel or a plain version). Each wrapper adds
+one to its entry of :data:`launches` where it launches its kernel, and
+nowhere else, so a run can show that its main path went through the
+kernels.
 
-The cache writes (``write_chunk_pages``, ``append_token_pages``) are the
-reference's XLA scatters as indexed assignment, bf16 pages only; the
-int8 flavor is a later slice of the port.
+The cache writes (``write_chunk_pages``, ``append_token_pages``,
+``append_run_pages``) are the reference's XLA scatters as indexed
+assignment, in place; with scales they quantize on write.
 """
 from __future__ import annotations
 
@@ -35,10 +47,16 @@ import torch
 
 _NEG_INF = -1e30
 
-# Kernel launches per wrapper since the process started (or the last
-# reset_launches()).
-launches: Dict[str, int] = {'paged_decode_attention': 0,
-                            'paged_prefill_attention': 0}
+# Kernel launches per wrapper and flavor since the process started (or
+# the last reset_launches()).
+launches: Dict[str, int] = {
+    'paged_decode_attention': 0,
+    'paged_prefill_attention': 0,
+    'paged_verify_attention': 0,
+    'paged_decode_attention_int8': 0,
+    'paged_prefill_attention_int8': 0,
+    'paged_verify_attention_int8': 0,
+}
 
 IntLike = Union[int, torch.Tensor]
 
@@ -48,6 +66,10 @@ IntLike = Union[int, torch.Tensor]
 CUDA_HEAD_DIMS = (64, 128)
 CUDA_PAGE_SIZES = (16, 32, 64)
 CUDA_GROUPS = (1, 2, 4, 8)
+# Verify queries per slot (spec_k 1..7), with at most CUDA_MAX_ROWS
+# query rows (queries x group) per (slot, KV head) block.
+CUDA_VERIFY_QUERIES = tuple(range(2, 9))
+CUDA_MAX_ROWS = 64
 
 
 def reset_launches() -> None:
@@ -56,12 +78,47 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
+# int8 row quantization (quant-on-write / dequant-in-kernel)
+# ---------------------------------------------------------------------------
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization over the trailing head_dim
+    axis, the reference's rules: ``(values int8[...], scales
+    fp32[...[:-1]])`` with ``x ≈ values * scales[..., None]``, scale =
+    absmax / 127, round half to even, clip to ±127, and an all-zero row
+    gets scale 1.0."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0,
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _deq(pages: torch.Tensor, scales: Optional[torch.Tensor]
+         ) -> torch.Tensor:
+    """Plain-path dequant: fp32 values, the scale applied per row."""
+    out = pages.float()
+    if scales is not None:
+        out = out * scales.float()[..., None]
+    return out
+
+
+def _gather(pages, scales, index):
+    """Pages (dequantized when scales are given) at page ids ``index``:
+    [hkv, *index.shape, page, hd] fp32."""
+    return _deq(pages[:, index], None if scales is None
+                else scales[:, index])
+
+
+# ---------------------------------------------------------------------------
 # Plain versions (ground truth in tests; the CPU path of the wrappers)
 # ---------------------------------------------------------------------------
 def paged_decode_attention_reference(
         q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         block_tables: torch.Tensor, lengths: torch.Tensor, *,
-        sm_scale: Optional[float] = None) -> torch.Tensor:
+        sm_scale: Optional[float] = None,
+        k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: [slots, hkv, group, hd]; pages: [hkv, P, page, hd];
     block_tables: [slots, maxp]; lengths: [slots]. Attends to positions
     < lengths[slot]. Returns [slots, hkv, group, hd] fp32."""
@@ -72,9 +129,9 @@ def paged_decode_attention_reference(
         sm_scale = hd ** -0.5
     tables = block_tables.long()
     # Gather each slot's pages: [slots, hkv, maxp*page, hd].
-    k = k_pages[:, tables].float().permute(1, 0, 2, 3, 4).reshape(
+    k = _gather(k_pages, k_scales, tables).permute(1, 0, 2, 3, 4).reshape(
         slots, hkv, maxp * page, hd)
-    v = v_pages[:, tables].float().permute(1, 0, 2, 3, 4).reshape(
+    v = _gather(v_pages, v_scales, tables).permute(1, 0, 2, 3, 4).reshape(
         slots, hkv, maxp * page, hd)
     s = torch.einsum('bkgd,bksd->bkgs', q.float(), k) * sm_scale
     pos = torch.arange(maxp * page, device=q.device)[None, None, None, :]
@@ -87,7 +144,9 @@ def paged_decode_attention_reference(
 def paged_prefill_attention_reference(
         q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         table_row: torch.Tensor, offset: IntLike, true_len: IntLike, *,
-        sm_scale: Optional[float] = None) -> torch.Tensor:
+        sm_scale: Optional[float] = None,
+        k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: [C, hkv, group, hd] (chunk queries of ONE slot, global
     positions offset..offset+C); pages: [hkv, P, page, hd]; table_row:
     [maxp]. Causal over prefix+chunk: query at global position i attends
@@ -99,8 +158,8 @@ def paged_prefill_attention_reference(
     if sm_scale is None:
         sm_scale = hd ** -0.5
     row = table_row.long()
-    k = k_pages[:, row].float().reshape(hkv, maxp * page, hd)
-    v = v_pages[:, row].float().reshape(hkv, maxp * page, hd)
+    k = _gather(k_pages, k_scales, row).reshape(hkv, maxp * page, hd)
+    v = _gather(v_pages, v_scales, row).reshape(hkv, maxp * page, hd)
     s = torch.einsum('ckgd,ksd->ckgs', q.float(), k) * sm_scale
     qpos = int(offset) + torch.arange(C, device=q.device)
     kpos = torch.arange(maxp * page, device=q.device)
@@ -110,19 +169,59 @@ def paged_prefill_attention_reference(
     return torch.einsum('ckgs,ksd->ckgd', p, v)
 
 
+def paged_verify_attention_reference(
+        q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        block_tables: torch.Tensor, lengths: torch.Tensor, *,
+        sm_scale: Optional[float] = None,
+        k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: [slots, R, hkv, group, hd], R = spec_k + 1 verify queries per
+    slot at positions lengths[slot]..lengths[slot]+R-1 (their K/V
+    already written). Query i attends to positions < lengths[slot] + i
+    + 1. Returns [slots, R, hkv, group, hd] fp32."""
+    slots, R, hkv, group, hd = q.shape
+    page = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    if sm_scale is None:
+        sm_scale = hd ** -0.5
+    tables = block_tables.long()
+    k = _gather(k_pages, k_scales, tables).permute(1, 0, 2, 3, 4).reshape(
+        slots, hkv, maxp * page, hd)
+    v = _gather(v_pages, v_scales, tables).permute(1, 0, 2, 3, 4).reshape(
+        slots, hkv, maxp * page, hd)
+    s = torch.einsum('brkgd,bksd->brkgs', q.float(), k) * sm_scale
+    pos = torch.arange(maxp * page, device=q.device)
+    horizon = (lengths.long()[:, None]
+               + torch.arange(R, device=q.device)[None, :] + 1)
+    valid = pos[None, None, :] < horizon[:, :, None]   # [slots, R, S]
+    s = torch.where(valid[:, :, None, None, :], s,
+                    torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum('brkgs,bksd->brkgd', p, v)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# C entry point -> (csrc library, argument types): the pointers (q,
+# pages, the int8 flavor's scales, tables/lengths or the table row, out),
+# the integer shape arguments, sm_scale and the stream.
 _SIGNATURES = {
     'paged_decode_attention_bf16': (
-        'paged_decode',
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        'paged_decode', [_P] * 6 + [_I] * 7 + [_F, _P]),
+    'paged_decode_attention_int8': (
+        'paged_decode', [_P] * 8 + [_I] * 7 + [_F, _P]),
+    'paged_verify_attention_bf16': (
+        'paged_decode', [_P] * 6 + [_I] * 8 + [_F, _P]),
+    'paged_verify_attention_int8': (
+        'paged_decode', [_P] * 8 + [_I] * 8 + [_F, _P]),
     'paged_prefill_attention_bf16': (
-        'paged_prefill',
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        'paged_prefill', [_P] * 5 + [_I] * 8 + [_F, _P]),
+    'paged_prefill_attention_int8': (
+        'paged_prefill', [_P] * 7 + [_I] * 8 + [_F, _P]),
 }
 
 
@@ -138,8 +237,8 @@ def _kernel(symbol: str):
     return fn
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devices = {t.device.type for t in tensors}
+def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    devices = {t.device.type for t in tensors if t is not None}
     if devices == {'cpu'}:
         return True
     if devices != {'cuda'}:
@@ -148,9 +247,11 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def check_cuda_shape(head_dim: int, group: int, page: int) -> None:
+def check_cuda_shape(head_dim: int, group: int, page: int,
+                     r_queries: int = 1) -> None:
     """Raise ValueError unless the CUDA kernels take this head_dim,
-    query-heads-per-KV-head group and page size."""
+    query-heads-per-KV-head group and page size, and (``r_queries`` > 1,
+    the verify kernel) this many queries per slot."""
     if head_dim not in CUDA_HEAD_DIMS or group not in CUDA_GROUPS \
             or page not in CUDA_PAGE_SIZES:
         raise ValueError(
@@ -158,18 +259,41 @@ def check_cuda_shape(head_dim: int, group: int, page: int) -> None:
             f'{CUDA_HEAD_DIMS}, group in {CUDA_GROUPS} and page_size in '
             f'{CUDA_PAGE_SIZES}; got head_dim {head_dim}, group {group}, '
             f'page_size {page}')
+    if r_queries != 1 and (r_queries not in CUDA_VERIFY_QUERIES
+                           or r_queries * group > CUDA_MAX_ROWS):
+        raise ValueError(
+            f'the CUDA paged verify kernel takes {CUDA_VERIFY_QUERIES[0]}'
+            f'..{CUDA_VERIFY_QUERIES[-1]} queries per slot (spec_k + 1) '
+            f'with queries x group <= {CUDA_MAX_ROWS}; got {r_queries} '
+            f'queries at group {group}')
 
 
-def _check_cuda(name: str, q, k_pages, v_pages, *index_tensors) -> None:
-    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.bfloat16 \
-            or v_pages.dtype != torch.bfloat16:
-        raise TypeError(f'{name}: the CUDA kernel takes bf16 q and pages, '
-                        f'got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}')
+def _check_cuda(name: str, q, k_pages, v_pages, k_scales, v_scales,
+                *index_tensors) -> bool:
+    """Validate a CUDA launch; returns whether the pages are int8."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f'{name}: pass both k_scales and v_scales or '
+                         f'neither')
+    quantized = k_scales is not None
+    pages = torch.int8 if quantized else torch.bfloat16
+    if q.dtype != torch.bfloat16 or k_pages.dtype != pages \
+            or v_pages.dtype != pages:
+        raise TypeError(
+            f'{name}: the CUDA kernel takes bf16 q and '
+            f'{"int8 pages with fp32 scales" if quantized else "bf16 pages"}'
+            f', got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}'
+            + ('' if quantized else ' (int8 pages need k_scales/v_scales)'))
     for t in index_tensors:
         if t.dtype != torch.int32:
             raise TypeError(f'{name}: block tables and lengths must be '
                             f'int32, got {t.dtype}')
-    for t in (q, k_pages, v_pages, *index_tensors):
+    scales = (k_scales, v_scales) if quantized else ()
+    for t in scales:
+        if t.dtype != torch.float32 or t.shape != k_pages.shape[:3]:
+            raise TypeError(f'{name}: scales must be fp32 '
+                            f'{tuple(k_pages.shape[:3])}, got {t.dtype} '
+                            f'{tuple(t.shape)}')
+    for t in (q, k_pages, v_pages, *scales, *index_tensors):
         if not t.is_contiguous():
             raise ValueError(f'{name}: inputs must be contiguous')
         if t.device != q.device:
@@ -177,83 +301,142 @@ def _check_cuda(name: str, q, k_pages, v_pages, *index_tensors) -> None:
     if k_pages.shape != v_pages.shape:
         raise ValueError(f'{name}: k/v page shapes differ: '
                          f'{tuple(k_pages.shape)} vs {tuple(v_pages.shape)}')
-    if k_pages.shape[0] != q.shape[1] or k_pages.shape[3] != q.shape[3]:
+    if k_pages.shape[0] != q.shape[-3] or k_pages.shape[3] != q.shape[-1]:
         raise ValueError(f'{name}: q {tuple(q.shape)} does not match pages '
                          f'{tuple(k_pages.shape)}')
-    check_cuda_shape(q.shape[3], q.shape[2], k_pages.shape[2])
+    r_queries = q.shape[1] if q.dim() == 5 else 1
+    check_cuda_shape(q.shape[-1], q.shape[-2], k_pages.shape[2], r_queries)
+    return quantized
 
 
-def _raise_on(err: int, name: str, shape) -> None:
+def _launch(name: str, quantized: bool, q, k_pages, v_pages, k_scales,
+            v_scales, index, ints, sm_scale: float) -> torch.Tensor:
+    """Allocate the fp32 output, launch the bf16 or int8 entry point of
+    ``name`` on the current stream, raise on a refused launch, count
+    it."""
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scales = [k_scales.data_ptr(), v_scales.data_ptr()] if quantized else []
+    err = _kernel(f'{name}_{"int8" if quantized else "bf16"}')(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+        *[t.data_ptr() for t in index], out.data_ptr(), *ints,
+        float(sm_scale), stream)
     if err == -1:
         raise ValueError(f'{name}: the CUDA kernel does not take shape '
-                         f'{shape}')
+                         f'{(tuple(q.shape), tuple(k_pages.shape))}')
     if err:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{err}')
+    launches[name + ('_int8' if quantized else '')] += 1
+    return out
+
+
+def _check_slots(name, slots, block_tables, lengths) -> None:
+    if block_tables.shape[0] != slots or lengths.shape != (slots,):
+        raise ValueError(f'{name}: tables {tuple(block_tables.shape)} / '
+                         f'lengths {tuple(lengths.shape)} do not match '
+                         f'{slots} slots')
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor,
                            block_tables: torch.Tensor,
                            lengths: torch.Tensor, *,
-                           sm_scale: Optional[float] = None
+                           sm_scale: Optional[float] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One decode token for every slot over the paged cache.
 
-    q: [slots, hkv, group, hd]; k_pages/v_pages: [hkv, P, page, hd];
+    q: [slots, hkv, group, hd]; k_pages/v_pages: [hkv, P, page, hd]
+    (bf16, or int8 with fp32 ``k_scales``/``v_scales`` [hkv, P, page]);
     block_tables: [slots, maxp] int32; lengths: [slots] int32 (attends
     to positions < length: callers that write the new token's K/V first
     pass the already-bumped length). Returns [slots, hkv, group, hd]
     fp32. CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/paged_decode.cu`` (bf16 q and pages, the shapes of
+    ``csrc/paged_decode.cu`` (bf16 q, the shapes of
     :func:`check_cuda_shape`) or raise."""
-    if _on_cpu(q, k_pages, v_pages, block_tables, lengths):
+    if _on_cpu(q, k_pages, v_pages, block_tables, lengths, k_scales,
+               v_scales):
         return paged_decode_attention_reference(
-            q, k_pages, v_pages, block_tables, lengths, sm_scale=sm_scale)
+            q, k_pages, v_pages, block_tables, lengths, sm_scale=sm_scale,
+            k_scales=k_scales, v_scales=v_scales)
     name = 'paged_decode_attention'
-    _check_cuda(name, q, k_pages, v_pages, block_tables, lengths)
+    quantized = _check_cuda(name, q, k_pages, v_pages, k_scales, v_scales,
+                            block_tables, lengths)
     slots, hkv, group, hd = q.shape
     _, n_pages, page, _ = k_pages.shape
-    if block_tables.shape[0] != slots or lengths.shape != (slots,):
-        raise ValueError(f'{name}: tables {tuple(block_tables.shape)} / '
-                         f'lengths {tuple(lengths.shape)} do not match '
-                         f'{slots} slots')
-    if sm_scale is None:
-        sm_scale = hd ** -0.5
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel('paged_decode_attention_bf16')(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        slots, hkv, group, hd, n_pages, page, block_tables.shape[1],
-        float(sm_scale), stream)
-    _raise_on(err, name, (tuple(q.shape), tuple(k_pages.shape)))
-    launches[name] += 1
-    return out
+    _check_slots(name, slots, block_tables, lengths)
+    return _launch(name, quantized, q, k_pages, v_pages, k_scales, v_scales,
+                   (block_tables, lengths),
+                   (slots, hkv, group, hd, n_pages, page,
+                    block_tables.shape[1]),
+                   hd ** -0.5 if sm_scale is None else sm_scale)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor,
+                           block_tables: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           sm_scale: Optional[float] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Speculative verify: R = spec_k + 1 query tokens for every slot
+    in one launch over the paged cache.
+
+    q: [slots, R, hkv, group, hd]; lengths: [slots] int32, the length
+    BEFORE the run (query i sits at position lengths[slot] + i and
+    attends to positions < lengths[slot] + i + 1; the run's K/V must
+    already be written, see :func:`append_run_pages`). Pages and scales
+    as in :func:`paged_decode_attention`. Returns [slots, R, hkv, group,
+    hd] fp32. Query 0's output is bitwise the decode kernel's for
+    lengths + 1 (the exact-greedy acceptance rule rests on it). CPU
+    tensors take the plain version; CUDA tensors launch the verify
+    instance of ``csrc/paged_decode.cu`` or raise."""
+    if _on_cpu(q, k_pages, v_pages, block_tables, lengths, k_scales,
+               v_scales):
+        return paged_verify_attention_reference(
+            q, k_pages, v_pages, block_tables, lengths, sm_scale=sm_scale,
+            k_scales=k_scales, v_scales=v_scales)
+    name = 'paged_verify_attention'
+    quantized = _check_cuda(name, q, k_pages, v_pages, k_scales, v_scales,
+                            block_tables, lengths)
+    slots, R, hkv, group, hd = q.shape
+    _, n_pages, page, _ = k_pages.shape
+    _check_slots(name, slots, block_tables, lengths)
+    return _launch(name, quantized, q, k_pages, v_pages, k_scales, v_scales,
+                   (block_tables, lengths),
+                   (slots, R, hkv, group, hd, n_pages, page,
+                    block_tables.shape[1]),
+                   hd ** -0.5 if sm_scale is None else sm_scale)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor,
                             table_row: torch.Tensor, offset: IntLike,
                             true_len: IntLike, *,
-                            sm_scale: Optional[float] = None
+                            sm_scale: Optional[float] = None,
+                            k_scales: Optional[torch.Tensor] = None,
+                            v_scales: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """One prompt chunk of ONE slot attending over its paged prefix.
 
     q: [C, hkv, group, hd] (global positions offset..offset+C-1, the
     chunk's K/V already written into the pages); table_row: [maxp]
     int32; offset (page-aligned, not necessarily C-aligned) and true_len
-    are host integers. Rows past true_len are pad whose values the
-    caller discards. Returns [C, hkv, group, hd] fp32. CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/paged_prefill.cu``
-    (bf16 q and pages, the shapes of :func:`check_cuda_shape`) or
-    raise."""
-    if _on_cpu(q, k_pages, v_pages, table_row):
+    are host integers. Pages and scales as in
+    :func:`paged_decode_attention`. Rows past true_len are pad whose
+    values the caller discards. Returns [C, hkv, group, hd] fp32. CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/paged_prefill.cu`` or raise."""
+    if _on_cpu(q, k_pages, v_pages, table_row, k_scales, v_scales):
         return paged_prefill_attention_reference(
             q, k_pages, v_pages, table_row, offset, true_len,
-            sm_scale=sm_scale)
+            sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
     name = 'paged_prefill_attention'
-    _check_cuda(name, q, k_pages, v_pages, table_row)
+    quantized = _check_cuda(name, q, k_pages, v_pages, k_scales, v_scales,
+                            table_row)
     C, hkv, group, hd = q.shape
     _, n_pages, page, _ = k_pages.shape
     offset, true_len = int(offset), int(true_len)
@@ -263,32 +446,46 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f'{name}: offset {offset} / true_len {true_len} '
                          f'outside a {C}-token chunk over {maxp} pages of '
                          f'{page}')
-    if sm_scale is None:
-        sm_scale = hd ** -0.5
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel('paged_prefill_attention_bf16')(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table_row.data_ptr(), out.data_ptr(), C, hkv, group, hd, n_pages,
-        page, offset, true_len, float(sm_scale), stream)
-    _raise_on(err, name, (tuple(q.shape), tuple(k_pages.shape)))
-    launches[name] += 1
-    return out
+    return _launch(name, quantized, q, k_pages, v_pages, k_scales, v_scales,
+                   (table_row,),
+                   (C, hkv, group, hd, n_pages, page, offset, true_len),
+                   hd ** -0.5 if sm_scale is None else sm_scale)
 
 
 # ---------------------------------------------------------------------------
 # Paged cache writes
 # ---------------------------------------------------------------------------
+def _store(pages, scales, index, rows):
+    """``pages[index] = rows`` (quantized on write into ``scales`` when
+    given); rows: [hkv, ..., hd]."""
+    if scales is None:
+        pages[index] = rows.to(pages.dtype)
+    else:
+        values, row_scales = quantize_rows(rows)
+        pages[index] = values
+        scales[index] = row_scales
+
+
+def _written(k_pages, v_pages, k_scales, v_scales):
+    if k_scales is None:
+        return k_pages, v_pages
+    return k_pages, v_pages, k_scales, v_scales
+
+
 def write_chunk_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
                       k_new: torch.Tensor, v_new: torch.Tensor,
-                      table_row: torch.Tensor, offset: IntLike
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      table_row: torch.Tensor, offset: IntLike,
+                      k_scales: Optional[torch.Tensor] = None,
+                      v_scales: Optional[torch.Tensor] = None):
     """Write a C-token chunk's K/V into a slot's pages, IN PLACE.
 
     k_new/v_new: [C, hkv, hd] with C a multiple of page_size and offset
     page-aligned (the engine's chunk cap guarantees both), so the chunk
-    covers whole pages at table-looked-up page ids. Returns the (same,
-    updated) page tensors."""
+    covers whole pages at table-looked-up page ids. With
+    ``k_scales``/``v_scales`` (int8 pages) the rows are quantized on
+    write and their scales land beside them. Returns the (same, updated)
+    tensors: ``(k_pages, v_pages)``, plus the scales on the int8
+    flavor."""
     C, hkv, hd = k_new.shape
     page = k_pages.shape[2]
     if C % page:
@@ -296,29 +493,62 @@ def write_chunk_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
     n = C // page
     first = int(offset) // page
     pids = table_row[first:first + n].long()
-    k_pages[:, pids] = k_new.permute(1, 0, 2).to(k_pages.dtype).reshape(
-        hkv, n, page, hd)
-    v_pages[:, pids] = v_new.permute(1, 0, 2).to(v_pages.dtype).reshape(
-        hkv, n, page, hd)
-    return k_pages, v_pages
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        _store(pages, scales, (slice(None), pids),
+               new.permute(1, 0, 2).reshape(hkv, n, page, hd))
+    return _written(k_pages, v_pages, k_scales, v_scales)
 
 
 def append_token_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor,
-                       block_tables: torch.Tensor, lengths: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       block_tables: torch.Tensor, lengths: torch.Tensor,
+                       k_scales: Optional[torch.Tensor] = None,
+                       v_scales: Optional[torch.Tensor] = None):
     """Append one token's K/V per slot at position lengths[slot], IN
     PLACE: slot i's row lands in page table[i, len//page] at row
     len%page. k_new/v_new: [slots, hkv, hd]. Inactive slots (zeroed
     table rows) write into the sink page 0; a position past the table's
-    coverage is redirected there too. Returns the (same, updated) page
-    tensors."""
+    coverage is redirected there too. Quantized on write with scales.
+    Returns the (same, updated) tensors."""
     page = k_pages.shape[2]
     maxp = block_tables.shape[1]
     col = (lengths // page).long()
     pids = block_tables.gather(1, col.clamp(max=maxp - 1)[:, None])[:, 0]
     pids = torch.where(col < maxp, pids.long(), torch.zeros_like(col))
     rows = (lengths % page).long()
-    k_pages[:, pids, rows] = k_new.permute(1, 0, 2).to(k_pages.dtype)
-    v_pages[:, pids, rows] = v_new.permute(1, 0, 2).to(v_pages.dtype)
-    return k_pages, v_pages
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        _store(pages, scales, (slice(None), pids, rows),
+               new.permute(1, 0, 2))
+    return _written(k_pages, v_pages, k_scales, v_scales)
+
+
+def append_run_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor,
+                     block_tables: torch.Tensor, lengths: torch.Tensor,
+                     k_scales: Optional[torch.Tensor] = None,
+                     v_scales: Optional[torch.Tensor] = None):
+    """Append a RUN of R tokens' K/V per slot at positions ``lengths[slot]
+    + i``, IN PLACE: the speculative verify write (the input token plus
+    the padded draft candidates). k_new/v_new: [slots, R, hkv, hd].
+    Positions past the slot's block-table coverage (padded drafts,
+    inactive slots' garbage lanes) redirect to the SINK page 0, never to
+    a live page through a clamped index. One vectorized write per tensor
+    (the reference chains R scatters; they differ only in which garbage
+    row wins where two lanes hit the sink at one row). Quantized on
+    write with scales. Returns the (same, updated) tensors."""
+    page = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    R = k_new.shape[1]
+    pos = lengths.long()[:, None] + torch.arange(
+        R, device=lengths.device)[None, :]                  # [slots, R]
+    col = pos // page
+    pids = block_tables.long().gather(1, col.clamp(max=maxp - 1))
+    pids = torch.where(col < maxp, pids, torch.zeros_like(pids))
+    rows = pos % page
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        _store(pages, scales, (slice(None), pids, rows),
+               new.permute(2, 0, 1, 3))
+    return _written(k_pages, v_pages, k_scales, v_scales)

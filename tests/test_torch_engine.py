@@ -60,8 +60,10 @@ def test_greedy_outputs_identical_to_jax_engine(params):
                 'pages_total', 'pages_free', 'page_size', 'num_active',
                 'num_waiting'):
         assert tm[key] == jm[key], key
-    assert tm['kernel_launches'] == {'paged_decode_attention': 0,
-                                     'paged_prefill_attention': 0}
+    assert tm['kernel_launches'] == dict.fromkeys(
+        ['paged_decode_attention', 'paged_prefill_attention',
+         'paged_verify_attention', 'paged_decode_attention_int8',
+         'paged_prefill_attention_int8', 'paged_verify_attention_int8'], 0)
     assert tm['ttft_p50_s'] is not None
 
 

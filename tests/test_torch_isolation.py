@@ -22,7 +22,7 @@ bad = sorted(m for m in sys.modules
              or m == 'skypilot_tpu' or m.startswith('skypilot_tpu.'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 22, names
+assert len(names) >= 23, names
 '''
 
 

@@ -109,8 +109,10 @@ def test_cpu_wrappers_run_the_plain_version_and_launch_nothing():
     ref = tpa.paged_prefill_attention_reference(qp, k, v, tables[3], 16,
                                                 20)
     assert torch.equal(out, ref)
-    assert tpa.launches == {'paged_decode_attention': 0,
-                            'paged_prefill_attention': 0}
+    assert tpa.launches == dict.fromkeys(
+        ['paged_decode_attention', 'paged_prefill_attention',
+         'paged_verify_attention', 'paged_decode_attention_int8',
+         'paged_prefill_attention_int8', 'paged_verify_attention_int8'], 0)
 
 
 def test_wrappers_refuse_mixed_devices():
