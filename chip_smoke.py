@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
 2. Build: compiles every kernel source of the port from
    ``skypilot_tpu_torch/ops/csrc`` with ``nvcc`` (one process per
    source, all five started together) and prints the seconds and the
-   compiler's register/spill report.
+   compiler's register/spill report and warnings; then reads the
+   compiled flash forward and dK/dV kernels back (``cuobjdump -sass``)
+   and fails unless each holds wgmma products (``HGMMA``), TMA tile
+   loads (``UTMALDG``) and mbarrier operations (``SYNCS``).
 3. Kernel vs plain: each kernel is held against its plain PyTorch
    version on the same inputs, at a stated tolerance. The paged kernels
    at the Llama-3-8B shapes (8 KV heads, group 4, head_dim 128, pages of
@@ -22,7 +25,9 @@ Phases, in order; any failure exits non-zero:
    the flash attention forward (out, lse) and backward (dq, dk, dv) at
    the bench_1b shapes (b 6, 12 heads, s 2048, d 128, causal), where the
    backward must also give the same bits on two runs, then at head_dim
-   64/128 x group 1/2/4/8 x causal/not; the fused cross-entropy
+   64/128 x group 1/2/4/8 x causal/not, at s 192 (an odd multiple of
+   64: the forward's and dK/dV's 128-row CTAs only half fit at the
+   end); the fused cross-entropy
    forward (nll, lse) at T 12288, d 1536, V 32768, then at a vocabulary
    that is not a multiple of its tile, with targets in the last tile and
    outside the vocabulary.
@@ -84,6 +89,7 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -153,6 +159,13 @@ TRAINING_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
 PROFILE_PROMPT, PROFILE_STEPS = 512, 20
 
 
+# Phase 2: instructions each tensor-core kernel's compiled code must
+# hold (cuobjdump -sass): wgmma products, TMA tile loads, mbarrier waits.
+SASS_REQUIRED = {'flash_fwd': 'flash_fwd_kernel',
+                 'flash_bwd': 'flash_bwd_dkv_kernel'}
+SASS_OPS = ('HGMMA', 'UTMALDG', 'SYNCS')
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f'chip_smoke: FAILED: {msg}')
 
@@ -187,6 +200,31 @@ def time_ms(torch, fn, reps: int, flush) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def check_sass(_build) -> None:
+    """Phase 2: count SASS_OPS in each kernel of SASS_REQUIRED (every
+    head_dim instance), from ``cuobjdump -sass`` of its built library;
+    fail if one is missing."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    for source, kernel in SASS_REQUIRED.items():
+        sass = subprocess.run(
+            [tool, '-sass', str(_build.library_path(source))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        bodies = [body for body in sass.split('Function : ')[1:]
+                  if kernel in body.split('\n', 1)[0]]
+        if not bodies:
+            fail(f'{source}: no compiled {kernel} in cuobjdump output')
+        for body in bodies:
+            dims = re.search(r'ILi(\d+)E', body.split('\n', 1)[0])
+            label = f'{kernel}<{dims.group(1) if dims else "?"}>'
+            counts = {op: len(re.findall(rf'\b{op}\b', body))
+                      for op in SASS_OPS}
+            print(f'  {source}: {label} '
+                  + ', '.join(f'{op} {n}' for op, n in counts.items()),
+                  flush=True)
+            if not all(counts.values()):
+                fail(f'{source}: {label} lacks one of {SASS_OPS}: {counts}')
 
 
 # ---------------------------------------------------------------------------
@@ -1504,8 +1542,9 @@ def main() -> int:
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if 'registers' in line or 'spill' in line \
-                    or 'Compiling entry' in line:
+                    or 'Compiling entry' in line or 'arning' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
+    check_sass(_build)
 
     # Phase 3: kernels vs their plain versions.
     checked = check_kernels(torch, pa)

@@ -4,10 +4,13 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. Builds happen at first use (or all together, in parallel,
 through :func:`build`) into ``skypilot_tpu_torch/_build/``, which
-``.gitignore`` lists. A library's file name carries a hash of its source
-and flags, so an edited kernel is rebuilt and an unchanged one is loaded
-as it is; the compiler's ``-Xptxas -v`` report (registers, shared
-memory, spills) lands beside it as ``<name>-<hash>.log``.
+``.gitignore`` lists. A library's file name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited kernel or
+header is rebuilt and an unchanged one is loaded as it is; the
+compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+lands beside it as ``<name>-<hash>.log``. The flash kernels' TMA tensor
+maps come from the driver through ``cudaGetDriverEntryPoint`` at run
+time, so no library links ``-lcuda``.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc``.
@@ -52,10 +55,15 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> pathlib.Path:
-    src = (SRC_DIR / f'{name}.cu').read_bytes()
-    digest = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f'{name}-{digest[:12]}.so'
+def library_path(name: str) -> pathlib.Path:
+    """Where the current build of ``csrc/<name>.cu`` lies (or will): its
+    name hashes the source, every shared header (``csrc/*.cuh``, which
+    any source may include) and the flags."""
+    digest = hashlib.sha1((SRC_DIR / f'{name}.cu').read_bytes())
+    for header in sorted(SRC_DIR.glob('*.cuh')):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{digest.hexdigest()[:12]}.so'
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
@@ -68,7 +76,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     procs = []
     seconds: Dict[str, float] = {}
     for name in names:
-        out = _target(name)
+        out = library_path(name)
         if out.exists():
             seconds[name] = 0.0
             continue
@@ -98,7 +106,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 def build_log(name: str) -> str:
     """The compiler's report for the current build of ``name``."""
-    path = _target(name).with_suffix('.log')
+    path = library_path(name).with_suffix('.log')
     return path.read_text(errors='replace') if path.exists() else ''
 
 
@@ -108,6 +116,6 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib

@@ -15,7 +15,8 @@ implementations with one contract:
   passes, as the reference computes it in XLA.
 
 On CUDA tensors the three passes launch ``csrc/flash_fwd.cu`` (forward)
-and ``csrc/flash_bwd.cu`` (dQ, then dK/dV); on CPU tensors they run the
+and ``csrc/flash_bwd.cu`` (dQ, then dK/dV; the forward and dK/dV run
+wgmma products on TMA-loaded tiles); on CPU tensors they run the
 plain blockwise versions below, which the CPU tests hold to the JAX
 kernels and ``chip_smoke.py`` holds the CUDA kernels to. Each wrapper
 adds one to its entry of :data:`launches` where it launches its kernel,
@@ -42,7 +43,8 @@ launches: Dict[str, int] = {'flash_attention_fwd': 0,
 
 # The shapes the CUDA kernels take; ``chip_smoke.py`` holds every
 # combination (causal and not) against the plain versions on the card.
-# The kernels tile the sequence by 64 rows and keys.
+# The kernels tile the sequence by 64 rows and keys (the forward's and
+# dK/dV's 128-row blocks idle their second half past the end).
 CUDA_HEAD_DIMS = (64, 128)
 CUDA_GROUPS = (1, 2, 4, 8)
 CUDA_SEQ_MULTIPLE = 64
@@ -365,8 +367,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``block_q``/``block_k`` are the reference's tile sizes: seq must
     divide by both (clamped to seq), and the plain CPU version walks
-    keys in ``block_k`` blocks. The CUDA kernels pick their own tiles
-    (64 rows by 64 keys) and take bf16 inputs with the shapes of
+    keys in ``block_k`` blocks. The CUDA kernels pick their own tiles:
+    the forward 128 q rows per block against 64-key tiles, dK/dV 128 keys
+    per block against 64-row q tiles (both on the tensor cores), dQ 64
+    rows by 64 keys. They take bf16 inputs with the shapes of
     :func:`check_cuda_shape`; anything else raises."""
     s = q.shape[2]
     if sm_scale is None:

@@ -56,18 +56,36 @@ def test_builds_each_source_once_for_sm90a_and_caches(build_env,
         assert 'arch=compute_90a,code=sm_90a' in line
         assert '-O3' in line and '-shared' in line and '-fPIC' in line
     for name in ('k1', 'k2'):
-        lib = _build._target(name)
+        lib = _build.library_path(name)
         assert lib.read_text() == 'built\n'
         assert 'Used 42 registers' in _build.build_log(name)
     # Unchanged sources are not compiled again.
     assert _build.build(['k1', 'k2']) == {'k1': 0.0, 'k2': 0.0}
     assert len(log.read_text().splitlines()) == 2
     # An edited source gets a new library name and one new compile.
-    old = _build._target('k1')
+    old = _build.library_path('k1')
     (_build.SRC_DIR / 'k1.cu').write_text('// kernel k1, edited\n')
-    assert _build._target('k1') != old
+    assert _build.library_path('k1') != old
     _build.build(['k1'])
     assert len(log.read_text().splitlines()) == 3
+
+
+def test_edited_header_changes_the_library_and_recompiles_once(
+        build_env, monkeypatch):
+    nvcc, log = _fake_nvcc(build_env)
+    monkeypatch.setattr(_build, '_nvcc', lambda: nvcc)
+    header = _build.SRC_DIR / 'shared.cuh'
+    header.write_text('// shared helpers\n')
+    _build.build(['k1'])
+    assert len(log.read_text().splitlines()) == 1
+    old = _build.library_path('k1')
+    assert _build.build(['k1']) == {'k1': 0.0}
+    header.write_text('// shared helpers, edited\n')
+    assert _build.library_path('k1') != old
+    _build.build(['k1'])
+    assert len(log.read_text().splitlines()) == 2
+    assert _build.build(['k1']) == {'k1': 0.0}
+    assert len(log.read_text().splitlines()) == 2
 
 
 def test_failed_compile_raises_with_output_and_leaves_no_library(
@@ -76,7 +94,7 @@ def test_failed_compile_raises_with_output_and_leaves_no_library(
     monkeypatch.setattr(_build, '_nvcc', lambda: nvcc)
     with pytest.raises(_build.BuildError, match='stand-in compile failure'):
         _build.build(['k1'])
-    assert not _build._target('k1').exists()
+    assert not _build.library_path('k1').exists()
     assert not [p for p in os.listdir(_build.BUILD_DIR)
                 if p.endswith(('.so', '.tmp'))]
 
