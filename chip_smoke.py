@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
    compiler's register/spill report and warnings; then reads the
    compiled flash forward and dK/dV kernels back (``cuobjdump -sass``)
    and fails unless each holds wgmma products (``HGMMA``), TMA tile
-   loads (``UTMALDG``) and mbarrier operations (``SYNCS``).
+   loads (``UTMALDG``) and mbarrier operations (``SYNCS``), and the
+   paged decode/verify kernel unless it holds ``mma.sync`` products
+   (``HMMA``) and ``cp.async`` copies (``LDGSTS``).
 3. Kernel vs plain: each kernel is held against its plain PyTorch
    version on the same inputs, at a stated tolerance. The paged kernels
    at the Llama-3-8B shapes (8 KV heads, group 4, head_dim 128, pages of
@@ -21,7 +23,9 @@ Phases, in order; any failure exits non-zero:
    prefill and verify (pages and scales from ``quantize_rows`` of random
    bf16 rows) at the same shapes, then at every head_dim, group, page
    size and (verify) query count, where each verify run's query 0 must
-   also be bitwise the decode kernel's output at lengths + 1;
+   also be bitwise the decode kernel's output at lengths + 1; decode and
+   verify also at lengths on the edges of the kernel's page splits
+   (``split_edges``), at the 8B shapes and in every variant;
    the flash attention forward (out, lse) and backward (dq, dk, dv) at
    the bench_1b shapes (b 6, 12 heads, s 2048, d 128, causal), where the
    backward must also give the same bits on two runs, then at head_dim
@@ -35,8 +39,10 @@ Phases, in order; any failure exits non-zero:
    computing the same function (a yardstick the port never calls:
    ``scaled_dot_product_attention`` for attention, its backward through
    autograd, ``matmul`` + ``logsumexp`` for the cross-entropy), by CUDA
-   events with the L2 cache flushed between launches; plus the least
-   time the card could take for the same work (``bound_ms``).
+   events with the L2 cache flushed between launches and a sleep kernel
+   ahead of each, so the events time the device's work and not the
+   host's enqueueing; plus the least time the card could take for the
+   same work (``bound_ms``).
 5. Serving end to end: starts ``python -m skypilot_tpu_torch.infer.server
    --model 8b --slots 8 --max-seq-len 2048 --spec-k 4`` (full width and
    depth, random weights from a seed) in a subprocess, serves
@@ -56,8 +62,9 @@ Phases, in order; any failure exits non-zero:
    continuation (wrong at a fixed draft index for half the prompts): the
    tokens must be the same (one divergence is tolerated, only at a
    near-tie of speculation-off's top-2 logits, printed), drafts must be
-   accepted, and no page may leak; then the int8-vs-bf16 decode-logit
-   delta at these shapes, which must be > 0.
+   accepted, and no page may leak; the wall time of each pass is
+   printed; then the int8-vs-bf16 decode-logit delta at these shapes,
+   which must be > 0.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -77,8 +84,9 @@ Then it prints one ``{"kernels": [...]}`` line and, last, the
 
 Run from the root of the repository: ``python3 chip_smoke.py`` (one
 card). ``--kernels-only`` stops after phase 3; ``--profile`` adds, at
-the end, a ``torch.profiler`` breakdown of decode steps of an in-process
-engine and of a bench_1b training step. Subprocess logs go to
+the end, ``torch.profiler`` breakdowns of decode steps and of verify
+steps (bf16 and int8 pages) of an in-process engine and of a bench_1b
+training step. Subprocess logs go to
 ``chiprun_out/chip_smoke_*.log``.
 """
 from __future__ import annotations
@@ -113,6 +121,9 @@ ATOL = 1e-3
 # dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# time_ms: the sleep ahead of each timed call, in SM clock cycles (about
+# a millisecond, longer than the host takes to enqueue any timed call).
+SLEEP_CYCLES = 2_000_000
 
 # Llama-3-8B attention shapes.
 HKV, GROUP, HD, PAGE = 8, 4, 128, 64
@@ -160,10 +171,14 @@ PROFILE_PROMPT, PROFILE_STEPS = 512, 20
 
 
 # Phase 2: instructions each tensor-core kernel's compiled code must
-# hold (cuobjdump -sass): wgmma products, TMA tile loads, mbarrier waits.
-SASS_REQUIRED = {'flash_fwd': 'flash_fwd_kernel',
-                 'flash_bwd': 'flash_bwd_dkv_kernel'}
-SASS_OPS = ('HGMMA', 'UTMALDG', 'SYNCS')
+# hold (cuobjdump -sass): wgmma products, TMA tile loads and mbarrier
+# waits in the flash kernels; mma.sync products and cp.async copies in
+# the paged decode/verify kernel.
+_WGMMA_TMA = ('HGMMA', 'UTMALDG', 'SYNCS')
+SASS_REQUIRED = {'flash_fwd': ('flash_fwd_kernel', _WGMMA_TMA),
+                 'flash_bwd': ('flash_bwd_dkv_kernel', _WGMMA_TMA),
+                 'paged_decode': ('paged_attention_kernel',
+                                  ('HMMA', 'LDGSTS'))}
 
 
 def fail(msg: str) -> None:
@@ -185,13 +200,17 @@ def bound(n_bytes: float, flops: float):
 
 
 def time_ms(torch, fn, reps: int, flush) -> float:
-    """Median milliseconds of one call of ``fn`` by CUDA events, the L2
-    cache flushed (a 64 MB write) before each timed call."""
+    """Median milliseconds of the device's work for one call of ``fn``,
+    by CUDA events, the L2 cache flushed (a 64 MB write) before each
+    timed call. A sleep kernel (about a millisecond) enqueued before the
+    start event keeps the device busy while the host enqueues the call,
+    so the events time the device, not the wrapper's Python."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -203,11 +222,11 @@ def time_ms(torch, fn, reps: int, flush) -> float:
 
 
 def check_sass(_build) -> None:
-    """Phase 2: count SASS_OPS in each kernel of SASS_REQUIRED (every
+    """Phase 2: count the SASS_REQUIRED ops in each kernel (every
     head_dim instance), from ``cuobjdump -sass`` of its built library;
     fail if one is missing."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
-    for source, kernel in SASS_REQUIRED.items():
+    for source, (kernel, ops) in SASS_REQUIRED.items():
         sass = subprocess.run(
             [tool, '-sass', str(_build.library_path(source))],
             capture_output=True, text=True, check=True, timeout=300).stdout
@@ -216,20 +235,35 @@ def check_sass(_build) -> None:
         if not bodies:
             fail(f'{source}: no compiled {kernel} in cuobjdump output')
         for body in bodies:
-            dims = re.search(r'ILi(\d+)E', body.split('\n', 1)[0])
-            label = f'{kernel}<{dims.group(1) if dims else "?"}>'
+            dims = re.findall(r'Li(\d+)E', body.split('\n', 1)[0])
+            label = f'{kernel}<{",".join(dims) or "?"}>'
             counts = {op: len(re.findall(rf'\b{op}\b', body))
-                      for op in SASS_OPS}
+                      for op in ops}
             print(f'  {source}: {label} '
                   + ', '.join(f'{op} {n}' for op, n in counts.items()),
                   flush=True)
             if not all(counts.values()):
-                fail(f'{source}: {label} lacks one of {SASS_OPS}: {counts}')
+                fail(f'{source}: {label} lacks one of {ops}: {counts}')
 
 
 # ---------------------------------------------------------------------------
 # Phase 3 + 4: kernels
 # ---------------------------------------------------------------------------
+def split_edges(pa, page):
+    """Lengths at the decode/verify kernel's split edges (a split holds
+    ``pa.PAGES_PER_SPLIT`` pages of ``page`` rows, E positions): one short
+    of a split, a full split, one past it, and 2E - 1, whose decode at
+    lengths + 1 fills two splits while its verify run opens a third."""
+    edge = pa.PAGES_PER_SPLIT * page
+    return [edge - 1, edge, edge + 1, 2 * edge - 1]
+
+
+def variant_pages(pa):
+    """Block-table width of the small variant cases: 8 pages, or three
+    splits where a split holds more (room for split_edges' third)."""
+    return max(8, 3 * pa.PAGES_PER_SPLIT)
+
+
 def decode_case(torch, gen, lengths, hkv, group, hd, page, maxp):
     slots = len(lengths)
     need = sum(-(-n // page) for n in lengths)
@@ -361,8 +395,9 @@ def check_kernels(torch, pa):
             for page in pa.CUDA_PAGE_SIZES:
                 shape = f'hd={hd} group={group} page={page}'
                 case = decode_case(torch, gen, [1, page, page + 1,
-                                                5 * page - 3],
-                                   2, group, hd, page, 8)
+                                                5 * page - 3]
+                                   + split_edges(pa, page),
+                                   2, group, hd, page, variant_pages(pa))
                 err = decode_err(torch, pa, case)
                 if err > ATOL:
                     fail(f'paged_decode disagrees with its plain version '
@@ -419,20 +454,42 @@ def check_spec_int8_kernels(torch, pa):
             fail(f'{name} disagrees with its plain version: {err}')
         results[name] = (err, case, kw)
 
+    # The split edges at the 8B shapes, decode and verify, bf16 and int8.
+    edges = split_edges(pa, PAGE)
+    worst = 0.0
+    for name, case in (
+            ('paged_decode', decode_case(torch, gen, edges, HKV, GROUP, HD,
+                                         PAGE, maxp)),
+            ('paged_verify', verify_case(torch, gen, edges, VERIFY_R, HKV,
+                                         GROUP, HD, PAGE, maxp))):
+        for c, kw in ((case, {}), quantize_case(pa, case)):
+            err = runs[name](c, kw)
+            if err > ATOL:
+                fail(f'{name} disagrees with its plain version at the split '
+                     f'edges {edges} (int8 {bool(kw)}): {err}')
+            worst = max(worst, err)
+    print(f'paged_decode and paged_verify (bf16, int8) vs plain at the split '
+          f'edges {edges} (8B shapes, {pa.PAGES_PER_SPLIT} pages a split): '
+          f'max_abs_err={worst:.3e} (atol {ATOL}), query 0 bitwise = decode',
+          flush=True)
+
     # Every variant: verify at every query count from an empty slot to a
-    # run at the coverage edge (8 * page - 3 + R > 8 * page for R >= 4);
-    # int8 decode and prefill at the lengths and chunk of check_kernels.
+    # run at the coverage edge (maxp * page - 3 + R > maxp * page for R >=
+    # 4) and at the split edges; int8 decode and prefill at the lengths
+    # and chunk of check_kernels.
     worst, n = {}, 0
+    maxp = variant_pages(pa)
     for hd in pa.CUDA_HEAD_DIMS:
         for group in pa.CUDA_GROUPS:
             for page in pa.CUDA_PAGE_SIZES:
                 cases = [('paged_decode', decode_case(
-                    torch, gen, [1, page, page + 1, 5 * page - 3], 2, group,
-                    hd, page, 8)), ('paged_prefill', prefill_case(
+                    torch, gen, [1, page, page + 1, 5 * page - 3]
+                    + split_edges(pa, page), 2, group, hd, page, maxp)),
+                    ('paged_prefill', prefill_case(
                         torch, gen, 4 * page, 2, group, hd, page, 8))]
                 cases += [('paged_verify', verify_case(
-                    torch, gen, [0, page - 2, 5 * page - 3, 8 * page - 3], R,
-                    2, group, hd, page, 8))
+                    torch, gen, [0, page - 2, 5 * page - 3, maxp * page - 3]
+                    + split_edges(pa, page), R, 2, group, hd, page, maxp))
                     for R in pa.CUDA_VERIFY_QUERIES
                     if R * group <= pa.CUDA_MAX_ROWS]
                 for name, case in cases:
@@ -904,15 +961,20 @@ def spec_in_process(torch, pa, card: str):
     prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
                for n in SPEC_PROMPT_LENGTHS]
     off_engine = engine()
+    t1 = time.perf_counter()
     off = [r.output_tokens for r in off_engine.generate(prompts, SPEC_NEW)]
+    torch.cuda.synchronize()
+    off_wall = time.perf_counter() - t1
     off_steps = off_engine.metrics()['decode_steps']
     del off_engine
     on = engine(spec_k=VERIFY_R - 1)
     on._drafter = OracleDrafter(prompts, off, prompts[1::2], ORACLE_WRONG_AT,
                                 cfg.vocab_size)
     pa.reset_launches()
+    t1 = time.perf_counter()
     got = [r.output_tokens for r in on.generate(prompts, SPEC_NEW)]
     torch.cuda.synchronize()
+    on_wall = time.perf_counter() - t1
     launches = dict(pa.launches)
     m = on.metrics()
     al = on.allocator
@@ -928,7 +990,8 @@ def spec_in_process(torch, pa, card: str):
         'max_new_tokens': SPEC_NEW, 'spec_k': VERIFY_R - 1,
         'oracle_wrong_at': ORACLE_WRONG_AT,
         'decode_steps_spec_off': off_steps, 'decode_steps_spec_on':
-            m['decode_steps'],
+            m['decode_steps'], 'wall_s_spec_off': off_wall,
+        'wall_s_spec_on': on_wall,
         **{k: m[k] for k in ('spec_steps', 'spec_drafted_tokens',
                              'spec_accepted_tokens', 'spec_accept_rate',
                              'accepted_len_mean')},
@@ -1004,16 +1067,28 @@ def _kernel_kind(name: str) -> str:
     return 'other'
 
 
-def profile_decode(torch, card: str, kv_dtype: str) -> None:
-    """An in-process 8B engine (``kv_dtype`` pages) with all 8 slots
-    decoding at PROFILE_PROMPT tokens of context: the host-clock time of
-    a step over PROFILE_STEPS steps (and, on bf16 pages, over as many
-    with the dense block one row wide instead of ``STEP_ROWS``: what the
-    padding that keeps decode and verify steps bitwise alike costs),
-    then the synchronizing CUDA calls of one step (the step's readback is
-    one), then ``torch.profiler`` over a few more: device time by kernel,
-    the device's busy share of the window, and the host ops with the most
-    self time."""
+class RepeatDrafter:
+    """Drafts k copies of the context's last token: every step with it
+    is a verify step (random weights rarely accept, which does not change
+    what the step launches)."""
+
+    def propose(self, context, k, memo=None):
+        del memo
+        return [context[-1]] * k
+
+
+def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
+    """An in-process 8B engine (``kv_dtype`` pages) with all 8 slots at
+    PROFILE_PROMPT tokens of context, stepping decode steps or (``verify``,
+    spec_k VERIFY_R - 1 with :class:`RepeatDrafter`) verify steps: the
+    host-clock time of a step over PROFILE_STEPS steps (and, for bf16
+    decode, over as many with the dense block one row wide instead of
+    ``STEP_ROWS``: what the padding that keeps decode and verify steps
+    bitwise alike costs), then the synchronizing CUDA calls of one step
+    (the step's readback is one), then ``torch.profiler`` over a few
+    more: device time by kernel, the paged decode/verify kernel's time
+    and launches, the device's busy share of the window, and the host
+    ops with the most self time."""
     import random
     import warnings
     from torch.autograd import DeviceType
@@ -1021,7 +1096,10 @@ def profile_decode(torch, card: str, kv_dtype: str) -> None:
     from skypilot_tpu_torch.infer import model as model_lib
     from skypilot_tpu_torch.infer import server as server_lib
     eng = server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None, 'cuda',
-                                  kv_dtype=kv_dtype)
+                                  kv_dtype=kv_dtype,
+                                  spec_k=VERIFY_R - 1 if verify else 0)
+    if verify:
+        eng._drafter = RepeatDrafter()
     slots, vocab = eng.ecfg.n_slots, eng.config.vocab_size
     rnd = random.Random(2)
     for _ in range(slots):
@@ -1038,7 +1116,7 @@ def profile_decode(torch, card: str, kv_dtype: str) -> None:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
     narrow_ms = None
-    if kv_dtype == 'bfloat16':
+    if kv_dtype == 'bfloat16' and not verify:
         rows, model_lib.STEP_ROWS = model_lib.STEP_ROWS, 1
         try:
             eng.step()
@@ -1058,6 +1136,7 @@ def profile_decode(torch, card: str, kv_dtype: str) -> None:
         finally:
             torch.cuda.set_sync_debug_mode('default')
     n = 5
+    spec_before = eng.metrics().get('spec_steps', 0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1065,6 +1144,9 @@ def profile_decode(torch, card: str, kv_dtype: str) -> None:
             eng.step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    spec_steps = eng.metrics().get('spec_steps', 0) - spec_before
+    if verify and spec_steps != n:
+        fail(f'the verify-step profile ran {spec_steps} verify steps of {n}')
     kernels, host_ops = {}, {}
     for e in prof.key_averages():
         us = getattr(e, 'self_device_time_total', 0)
@@ -1076,10 +1158,15 @@ def profile_decode(torch, card: str, kv_dtype: str) -> None:
     kinds = {}
     for name, (ms, _) in kernels.items():
         kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0) + ms
+    paged = [(ms, c) for name, (ms, c) in kernels.items()
+             if _kernel_kind(name) == 'paged_decode_attention']
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:15]
-    print(f'decode step profile (Llama-3-8B, {kv_dtype} pages, 8 slots at '
-          f'{PROFILE_PROMPT} tokens, {card}): ' + json.dumps({
+    step = 'verify' if verify else 'decode'
+    print(f'{step} step profile (Llama-3-8B, {kv_dtype} pages, 8 slots at '
+          f'{PROFILE_PROMPT} tokens'
+          + (f', spec_k {VERIFY_R - 1}' if verify else '') + f', {card}): '
+          + json.dumps({
               'step_ms': step_ms,
               'step_ms_one_row_block': narrow_ms,
               'synchronizing_calls_per_step': sorted(
@@ -1090,6 +1177,9 @@ def profile_decode(torch, card: str, kv_dtype: str) -> None:
               'device_busy_share': busy * n / window_ms,
               'device_busy_share_unprofiled': busy / step_ms,
               'kernel_launches_per_step': sum(c for _, c in kernels.values()),
+              f'paged_{step}_kernel_ms_per_step': sum(ms for ms, _ in paged),
+              f'paged_{step}_kernel_launches_per_step':
+                  sum(c for _, c in paged),
               'device_ms_per_step_by_kind': kinds,
               'top_kernels': [{'name': k[:100], 'ms_per_step': ms,
                                'launches_per_step': c}
@@ -1100,6 +1190,8 @@ def profile_decode(torch, card: str, kv_dtype: str) -> None:
                                for k, (ms, c) in top_host],
               'max_memory_allocated_gb':
                   torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1602,8 +1694,9 @@ def main() -> int:
     run_bench('dense', card)
     train_and_resume(card)
     if args.profile:
-        profile_decode(torch, card, 'bfloat16')
-        profile_decode(torch, card, 'int8')
+        for kv_dtype in ('bfloat16', 'int8'):
+            for verify in (False, True):
+                profile_decode(torch, card, kv_dtype, verify)
         profile_train(torch, card)
 
     rows = [

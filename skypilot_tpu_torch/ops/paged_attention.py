@@ -70,6 +70,15 @@ CUDA_GROUPS = (1, 2, 4, 8)
 # query rows (queries x group) per (slot, KV head) block.
 CUDA_VERIFY_QUERIES = tuple(range(2, 9))
 CUDA_MAX_ROWS = 64
+# The decode/verify kernel splits a slot's pages across blocks, this many
+# consecutive pages to a split (by page index alone); it equals
+# kPagesPerSplit in csrc/paged_decode.cu, checked at the first launch.
+PAGES_PER_SPLIT = 4
+
+# Per CUDA device: the decode/verify kernel's split workspace and
+# counters, grown when a launch needs more (launches that share them are
+# ordered on one stream).
+_split_buffers: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -207,17 +216,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> (csrc library, argument types): the pointers (q,
-# pages, the int8 flavor's scales, tables/lengths or the table row, out),
-# the integer shape arguments, sm_scale and the stream.
+# pages, the int8 flavor's scales, tables/lengths or the table row, out,
+# and for decode and verify the split workspace and counters), the
+# integer shape arguments, sm_scale and the stream.
 _SIGNATURES = {
     'paged_decode_attention_bf16': (
-        'paged_decode', [_P] * 6 + [_I] * 7 + [_F, _P]),
-    'paged_decode_attention_int8': (
         'paged_decode', [_P] * 8 + [_I] * 7 + [_F, _P]),
+    'paged_decode_attention_int8': (
+        'paged_decode', [_P] * 10 + [_I] * 7 + [_F, _P]),
     'paged_verify_attention_bf16': (
-        'paged_decode', [_P] * 6 + [_I] * 8 + [_F, _P]),
-    'paged_verify_attention_int8': (
         'paged_decode', [_P] * 8 + [_I] * 8 + [_F, _P]),
+    'paged_verify_attention_int8': (
+        'paged_decode', [_P] * 10 + [_I] * 8 + [_F, _P]),
+    'paged_pages_per_split': ('paged_decode', []),
     'paged_prefill_attention_bf16': (
         'paged_prefill', [_P] * 5 + [_I] * 8 + [_F, _P]),
     'paged_prefill_attention_int8': (
@@ -309,18 +320,47 @@ def _check_cuda(name: str, q, k_pages, v_pages, k_scales, v_scales,
     return quantized
 
 
+@functools.lru_cache(maxsize=None)
+def _checked_pages_per_split() -> int:
+    """PAGES_PER_SPLIT, once the built decode/verify library agrees."""
+    built = _kernel('paged_pages_per_split')()
+    if built != PAGES_PER_SPLIT:
+        raise RuntimeError(f'csrc/paged_decode.cu splits every {built} '
+                           f'pages, the wrapper every {PAGES_PER_SPLIT}')
+    return built
+
+
+def _split_scratch(q: torch.Tensor, slots: int, hkv: int, rows: int,
+                   hd: int, max_pages: int):
+    """This device's decode/verify workspace (room for one fp32 partial
+    of ``rows`` x (hd + 2) per slot, KV head and split) and counters
+    (slots x hkv int32, zero between launches: the kernel returns them to
+    zero), grown when this launch needs more."""
+    n_splits = -(-max_pages // _checked_pages_per_split())
+    n_ws, n_counters = slots * hkv * n_splits * rows * (hd + 2), slots * hkv
+    ws, counters = _split_buffers.get(q.device, (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32,
+                               device=q.device)
+    _split_buffers[q.device] = ws, counters
+    return ws, counters
+
+
 def _launch(name: str, quantized: bool, q, k_pages, v_pages, k_scales,
-            v_scales, index, ints, sm_scale: float) -> torch.Tensor:
+            v_scales, index, ints, sm_scale: float,
+            scratch=()) -> torch.Tensor:
     """Allocate the fp32 output, launch the bf16 or int8 entry point of
-    ``name`` on the current stream, raise on a refused launch, count
-    it."""
+    ``name`` on the current stream (``scratch``: buffers passed after the
+    output), raise on a refused launch, count it."""
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scales = [k_scales.data_ptr(), v_scales.data_ptr()] if quantized else []
     err = _kernel(f'{name}_{"int8" if quantized else "bf16"}')(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
-        *[t.data_ptr() for t in index], out.data_ptr(), *ints,
-        float(sm_scale), stream)
+        *[t.data_ptr() for t in index], out.data_ptr(),
+        *[t.data_ptr() for t in scratch], *ints, float(sm_scale), stream)
     if err == -1:
         raise ValueError(f'{name}: the CUDA kernel does not take shape '
                          f'{(tuple(q.shape), tuple(k_pages.shape))}')
@@ -367,11 +407,12 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     slots, hkv, group, hd = q.shape
     _, n_pages, page, _ = k_pages.shape
     _check_slots(name, slots, block_tables, lengths)
+    maxp = block_tables.shape[1]
     return _launch(name, quantized, q, k_pages, v_pages, k_scales, v_scales,
                    (block_tables, lengths),
-                   (slots, hkv, group, hd, n_pages, page,
-                    block_tables.shape[1]),
-                   hd ** -0.5 if sm_scale is None else sm_scale)
+                   (slots, hkv, group, hd, n_pages, page, maxp),
+                   hd ** -0.5 if sm_scale is None else sm_scale,
+                   _split_scratch(q, slots, hkv, group, hd, maxp))
 
 
 def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -405,11 +446,12 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     slots, R, hkv, group, hd = q.shape
     _, n_pages, page, _ = k_pages.shape
     _check_slots(name, slots, block_tables, lengths)
+    maxp = block_tables.shape[1]
     return _launch(name, quantized, q, k_pages, v_pages, k_scales, v_scales,
                    (block_tables, lengths),
-                   (slots, R, hkv, group, hd, n_pages, page,
-                    block_tables.shape[1]),
-                   hd ** -0.5 if sm_scale is None else sm_scale)
+                   (slots, R, hkv, group, hd, n_pages, page, maxp),
+                   hd ** -0.5 if sm_scale is None else sm_scale,
+                   _split_scratch(q, slots, hkv, R * group, hd, maxp))
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
