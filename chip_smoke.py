@@ -9,11 +9,12 @@ Phases, in order; any failure exits non-zero:
    ``skypilot_tpu_torch/ops/csrc`` with ``nvcc`` (one process per
    source, all five started together) and prints the seconds and the
    compiler's register/spill report and warnings; then reads the
-   compiled flash forward and dK/dV kernels back (``cuobjdump -sass``)
-   and fails unless each holds wgmma products (``HGMMA``), TMA tile
-   loads (``UTMALDG``) and mbarrier operations (``SYNCS``), and the
-   paged decode/verify kernel unless it holds ``mma.sync`` products
-   (``HMMA``) and ``cp.async`` copies (``LDGSTS``).
+   compiled kernels back (``cuobjdump -sass``) and fails unless every
+   instance of the flash forward, dQ and dK/dV kernels holds wgmma
+   products (``HGMMA``), TMA tile loads (``UTMALDG``) and mbarrier
+   operations (``SYNCS``), and every instance of the paged decode/verify
+   and prefill kernels (bf16 and int8) ``mma.sync`` products (``HMMA``)
+   and ``cp.async`` copies (``LDGSTS``).
 3. Kernel vs plain: each kernel is held against its plain PyTorch
    version on the same inputs, at a stated tolerance. The paged kernels
    at the Llama-3-8B shapes (8 KV heads, group 4, head_dim 128, pages of
@@ -25,7 +26,11 @@ Phases, in order; any failure exits non-zero:
    size and (verify) query count, where each verify run's query 0 must
    also be bitwise the decode kernel's output at lengths + 1; decode and
    verify also at lengths on the edges of the kernel's page splits
-   (``split_edges``), at the 8B shapes and in every variant;
+   (``split_edges``), and prefill at prefixes on its own split edges
+   (``prefill_split_edges``) and at the long prefix of phase 4, at the
+   8B shapes and in every variant; prefill must also leave its output
+   bitwise unchanged when the K/V rows past the slot's frontier hold
+   NaN;
    the flash attention forward (out, lse) and backward (dq, dk, dv) at
    the bench_1b shapes (b 6, 12 heads, s 2048, d 128, causal), where the
    backward must also give the same bits on two runs, then at head_dim
@@ -42,7 +47,8 @@ Phases, in order; any failure exits non-zero:
    events with the L2 cache flushed between launches and a sleep kernel
    ahead of each, so the events time the device's work and not the
    host's enqueueing; plus the least time the card could take for the
-   same work (``bound_ms``).
+   same work (``bound_ms``). Prefill is timed twice: a 256-token chunk
+   at offset 192 and the last 256-token chunk of a 2048-token prompt.
 5. Serving end to end: starts ``python -m skypilot_tpu_torch.infer.server
    --model 8b --slots 8 --max-seq-len 2048 --spec-k 4`` (full width and
    depth, random weights from a seed) in a subprocess, serves
@@ -130,6 +136,9 @@ HKV, GROUP, HD, PAGE = 8, 4, 128, 64
 MAX_SEQ = 2048
 DECODE_LENGTHS = [1, 64, 65, 2000, 512, 1023, 777, 130]
 PREFILL_C, PREFILL_OFFSET, PREFILL_TRUE_LEN = 256, 192, 200
+# Prefill's second case: the last chunk of a 2048-token prompt (long
+# prompts, RAG contexts), where the prefix pages outweigh the chunk.
+PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN = MAX_SEQ - PREFILL_C, PREFILL_C
 # Speculative verify: R = spec_k + 1 = 5 queries per slot over the decode
 # lengths, the last slot's run at the block table's coverage edge
 # (2044 + 5 > 2048: its last queries see the whole table).
@@ -171,14 +180,17 @@ PROFILE_PROMPT, PROFILE_STEPS = 512, 20
 
 
 # Phase 2: instructions each tensor-core kernel's compiled code must
-# hold (cuobjdump -sass): wgmma products, TMA tile loads and mbarrier
-# waits in the flash kernels; mma.sync products and cp.async copies in
-# the paged decode/verify kernel.
+# hold (cuobjdump -sass), by source and kernel: wgmma products, TMA tile
+# loads and mbarrier waits in the flash kernels; mma.sync products and
+# cp.async copies in the paged kernels.
 _WGMMA_TMA = ('HGMMA', 'UTMALDG', 'SYNCS')
-SASS_REQUIRED = {'flash_fwd': ('flash_fwd_kernel', _WGMMA_TMA),
-                 'flash_bwd': ('flash_bwd_dkv_kernel', _WGMMA_TMA),
-                 'paged_decode': ('paged_attention_kernel',
-                                  ('HMMA', 'LDGSTS'))}
+_MMA_CP_ASYNC = ('HMMA', 'LDGSTS')
+SASS_REQUIRED = {
+    'flash_fwd': (('flash_fwd_kernel', _WGMMA_TMA),),
+    'flash_bwd': (('flash_bwd_dq_kernel', _WGMMA_TMA),
+                  ('flash_bwd_dkv_kernel', _WGMMA_TMA)),
+    'paged_decode': (('paged_attention_kernel', _MMA_CP_ASYNC),),
+    'paged_prefill': (('paged_prefill_kernel', _MMA_CP_ASYNC),)}
 
 
 def fail(msg: str) -> None:
@@ -223,27 +235,30 @@ def time_ms(torch, fn, reps: int, flush) -> float:
 
 def check_sass(_build) -> None:
     """Phase 2: count the SASS_REQUIRED ops in each kernel (every
-    head_dim instance), from ``cuobjdump -sass`` of its built library;
-    fail if one is missing."""
+    instance: head_dim, page size, page type), from ``cuobjdump -sass``
+    of its built library; fail if one is missing."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
-    for source, (kernel, ops) in SASS_REQUIRED.items():
+    for source, kernels in SASS_REQUIRED.items():
         sass = subprocess.run(
             [tool, '-sass', str(_build.library_path(source))],
             capture_output=True, text=True, check=True, timeout=300).stdout
-        bodies = [body for body in sass.split('Function : ')[1:]
-                  if kernel in body.split('\n', 1)[0]]
-        if not bodies:
-            fail(f'{source}: no compiled {kernel} in cuobjdump output')
-        for body in bodies:
-            dims = re.findall(r'Li(\d+)E', body.split('\n', 1)[0])
-            label = f'{kernel}<{",".join(dims) or "?"}>'
-            counts = {op: len(re.findall(rf'\b{op}\b', body))
-                      for op in ops}
-            print(f'  {source}: {label} '
-                  + ', '.join(f'{op} {n}' for op, n in counts.items()),
-                  flush=True)
-            if not all(counts.values()):
-                fail(f'{source}: {label} lacks one of {ops}: {counts}')
+        for kernel, ops in kernels:
+            bodies = [body for body in sass.split('Function : ')[1:]
+                      if kernel in body.split('\n', 1)[0]]
+            if not bodies:
+                fail(f'{source}: no compiled {kernel} in cuobjdump output')
+            for body in bodies:
+                name = body.split('\n', 1)[0]
+                args = re.findall(r'Li(\d+)E', name) + (
+                    ['int8'] if 'EaE' in name else [])
+                label = f'{kernel}<{",".join(args) or "?"}>'
+                counts = {op: len(re.findall(rf'\b{op}\b', body))
+                          for op in ops}
+                print(f'  {source}: {label} '
+                      + ', '.join(f'{op} {n}' for op, n in counts.items()),
+                      flush=True)
+                if not all(counts.values()):
+                    fail(f'{source}: {label} lacks one of {ops}: {counts}')
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +277,21 @@ def variant_pages(pa):
     """Block-table width of the small variant cases: 8 pages, or three
     splits where a split holds more (room for split_edges' third)."""
     return max(8, 3 * pa.PAGES_PER_SPLIT)
+
+
+def prefill_split_edges(pa, page):
+    """Prefix lengths (page-aligned offsets) around the prefill kernel's
+    first split edge (a split holds ``pa.PREFILL_PAGES_PER_SPLIT`` pages
+    of ``page`` rows, E positions): one page short of it, on it, one
+    page past it."""
+    edge = pa.PREFILL_PAGES_PER_SPLIT * page
+    return [edge - page, edge, edge + page]
+
+
+def prefill_pages(pa):
+    """Block-table width of the small prefill variant cases: room for a
+    4-page chunk past the last of prefill_split_edges."""
+    return max(8, pa.PREFILL_PAGES_PER_SPLIT + 5)
 
 
 def decode_case(torch, gen, lengths, hkv, group, hd, page, maxp):
@@ -329,9 +359,12 @@ def decode_err(torch, pa, case, **kw) -> float:
 
 
 def prefill_err(torch, pa, case, offset, true_len, **kw) -> float:
+    """Max abs error of the prefill kernel's rows below true_len; fails
+    unless every row, pad rows too, is finite (the model writes pad rows
+    back into the pages)."""
     out = pa.paged_prefill_attention(*case, offset, true_len, **kw)
     torch.cuda.synchronize()
-    if not torch.isfinite(out[:true_len]).all().item():
+    if not torch.isfinite(out).all().item():
         fail('paged_prefill: non-finite output')
     ref = pa.paged_prefill_attention_reference(*case, offset, true_len, **kw)
     return (out[:true_len] - ref[:true_len]).abs().max().item()
@@ -384,10 +417,39 @@ def check_kernels(torch, pa):
     if err > ATOL:
         fail(f'paged_prefill disagrees with its plain version: {err}')
     results['paged_prefill'] = (err, pcase)
+    worst = 0.0
+    cases = [(off, tl) for off in prefill_split_edges(pa, PAGE)]
+    for off, n in cases + [(PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN)]:
+        worst = max(worst, prefill_err(torch, pa, pcase, off, n))
+    print(f'paged_prefill vs plain at offsets {prefill_split_edges(pa, PAGE)}'
+          f' (split edges, {pa.PREFILL_PAGES_PER_SPLIT} pages a split) and '
+          f'{PREFILL_LONG_OFFSET} (true_len {PREFILL_LONG_TRUE_LEN}): '
+          f'max_abs_err={worst:.3e} (atol {ATOL})', flush=True)
+    if worst > ATOL:
+        fail(f'paged_prefill disagrees with its plain version at the split '
+             f'edges or the long prefix: {worst}')
+    # Pages past the frontier hold the pad rows the model writes back:
+    # NaN there (the rest of the frontier's page and the page after it)
+    # must not change a bit of the output.
+    q, kp, vp, row = pcase
+    total = PREFILL_OFFSET + tl
+    clean = pa.paged_prefill_attention(*pcase, PREFILL_OFFSET, tl)
+    poisoned = []
+    for p in (kp, vp):
+        p = p.clone()
+        p[:, row[total // PAGE].long(), total % PAGE:] = float('nan')
+        p[:, row[total // PAGE + 1].long()] = float('nan')
+        poisoned.append(p)
+    out = pa.paged_prefill_attention(q, *poisoned, row, PREFILL_OFFSET, tl)
+    if not torch.equal(out, clean):
+        fail('paged_prefill: NaN in K/V rows past the frontier changed the '
+             'output')
+    print('paged_prefill: NaN K/V past the frontier leaves the output '
+          'bitwise unchanged', flush=True)
 
     # Every variant: lengths of 1, a page, a page + 1 and a few pages;
     # a 4-page chunk at a 3-page offset (page- but not chunk-aligned)
-    # with true_len < C.
+    # and at the prefill split edges, with true_len < C.
     worst = {'paged_decode': 0.0, 'paged_prefill': 0.0}
     n = 0
     for hd in pa.CUDA_HEAD_DIMS:
@@ -404,8 +466,10 @@ def check_kernels(torch, pa):
                          f'at {shape}: {err}')
                 worst['paged_decode'] = max(worst['paged_decode'], err)
                 case = prefill_case(torch, gen, 4 * page, 2, group, hd,
-                                    page, 8)
-                err = prefill_err(torch, pa, case, 3 * page, 4 * page - 5)
+                                    page, prefill_pages(pa))
+                err = max(prefill_err(torch, pa, case, off, 4 * page - 5)
+                          for off in [3 * page]
+                          + prefill_split_edges(pa, page))
                 if err > ATOL:
                     fail(f'paged_prefill disagrees with its plain version '
                          f'at {shape}: {err}')
@@ -454,7 +518,17 @@ def check_spec_int8_kernels(torch, pa):
             fail(f'{name} disagrees with its plain version: {err}')
         results[name] = (err, case, kw)
 
-    # The split edges at the 8B shapes, decode and verify, bf16 and int8.
+    # The split edges at the 8B shapes, decode and verify, bf16 and int8;
+    # int8 prefill at the prefill split edges and the long prefix.
+    worst = max(prefill_err(torch, pa, results['paged_prefill_int8'][1], off,
+                            n, **results['paged_prefill_int8'][2])
+                for off, n in [(e, tl) for e in prefill_split_edges(pa, PAGE)]
+                + [(PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN)])
+    if worst > ATOL:
+        fail(f'paged_prefill_int8 disagrees with its plain version at the '
+             f'split edges or the long prefix: {worst}')
+    print(f'paged_prefill_int8 vs plain at the split edges and the long '
+          f'prefix: max_abs_err={worst:.3e} (atol {ATOL})', flush=True)
     edges = split_edges(pa, PAGE)
     worst = 0.0
     for name, case in (
@@ -486,7 +560,8 @@ def check_spec_int8_kernels(torch, pa):
                     torch, gen, [1, page, page + 1, 5 * page - 3]
                     + split_edges(pa, page), 2, group, hd, page, maxp)),
                     ('paged_prefill', prefill_case(
-                        torch, gen, 4 * page, 2, group, hd, page, 8))]
+                        torch, gen, 4 * page, 2, group, hd, page,
+                        prefill_pages(pa)))]
                 cases += [('paged_verify', verify_case(
                     torch, gen, [0, page - 2, 5 * page - 3, maxp * page - 3]
                     + split_edges(pa, page), R, 2, group, hd, page, maxp))
@@ -498,8 +573,10 @@ def check_spec_int8_kernels(torch, pa):
                         flavors.append(('', case, {}))
                     for suffix, c, kw in flavors:
                         if name == 'paged_prefill':
-                            err = prefill_err(torch, pa, c, 3 * page,
-                                              4 * page - 5, **kw)
+                            err = max(prefill_err(torch, pa, c, off,
+                                                  4 * page - 5, **kw)
+                                      for off in [3 * page]
+                                      + prefill_split_edges(pa, page))
                         else:
                             err = runs[name](c, kw)
                         key = name + suffix
@@ -522,6 +599,46 @@ def sdpa(torch, q, k, v, mask):
     F = torch.nn.functional
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                           enable_gqa=True)
+
+
+def dequantized(torch, k_pages, v_pages, kw):
+    """bf16 K/V pages as the int8 flavor's plain version sees them
+    (values x row scales), or the bf16 pages as they are."""
+    if not kw:
+        return k_pages, v_pages
+    return tuple((p.float() * s[..., None]).to(torch.bfloat16)
+                 for p, s in ((k_pages, kw['k_scales']),
+                              (v_pages, kw['v_scales'])))
+
+
+def time_prefill(torch, pa, case, kw, off, tl, flush):
+    """Phase 4, one prefill case at the 8B shapes (int8 with ``kw``'s
+    scales): the kernel, its plain version, and SDPA over the gathered
+    (dequantized) K/V with a boolean causal mask."""
+    q, kp, vp, row = case
+    C, hq = q.shape[0], HKV * GROUP
+    ms = time_ms(torch, lambda: pa.paged_prefill_attention(
+        *case, off, tl, **kw), 50, flush)
+    plain = time_ms(torch, lambda: pa.paged_prefill_attention_reference(
+        *case, off, tl, **kw), 10, flush)
+    S = off + C
+    kd, vd = dequantized(torch, kp, vp, kw)
+    idx = row[:S // PAGE].long()
+    kg = kd[:, idx].reshape(1, HKV, S, HD)
+    vg = vd[:, idx].reshape(1, HKV, S, HD)
+    qs = q.reshape(C, hq, HD).permute(1, 0, 2)[None].contiguous()
+    mask = (torch.arange(S, device='cuda')[None, :]
+            <= off + torch.arange(C, device='cuda')[:, None])
+    lib = time_ms(torch, lambda: sdpa(torch, qs, kg, vg, mask), 50, flush)
+    # Rows past true_len are pad the caller drops: q and the fp32 output
+    # count at true_len rows, K/V at every live position once, and the
+    # table entries up to the last live page.
+    row_bytes = HD * 2 if not kw else HD + 4
+    n_bytes = (tl * hq * HD * (2 + 4) + (off + tl) * HKV * row_bytes * 2
+               + -(-(off + tl) // PAGE) * 4)
+    flops = 4 * HD * hq * sum(off + c + 1 for c in range(tl))
+    return dict(ms=ms, plain_ms=plain, library_ms=lib,
+                bound=bound(n_bytes, flops))
 
 
 def time_kernels(torch, pa, checked):
@@ -555,28 +672,12 @@ def time_kernels(torch, pa, checked):
     rows['paged_decode'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                 bound=bound(n_bytes, flops))
 
-    q, kp, vp, row = checked['paged_prefill'][1]
-    off, tl, C = PREFILL_OFFSET, PREFILL_TRUE_LEN, PREFILL_C
-    ms = time_ms(torch, lambda: pa.paged_prefill_attention(
-        q, kp, vp, row, off, tl), 50, flush)
-    plain = time_ms(torch, lambda: pa.paged_prefill_attention_reference(
-        q, kp, vp, row, off, tl), 10, flush)
-    S = off + C
-    idx = row[:S // PAGE].long()
-    kg = kp[:, idx].reshape(1, HKV, S, HD)
-    vg = vp[:, idx].reshape(1, HKV, S, HD)
-    qs = q.reshape(C, hq, HD).permute(1, 0, 2)[None].contiguous()
-    mask = (torch.arange(S, device='cuda')[None, :]
-            <= off + torch.arange(C, device='cuda')[:, None])
-    lib = time_ms(torch, lambda: sdpa(torch, qs, kg, vg, mask), 50, flush)
-    # Rows past true_len are pad the caller drops: q and the fp32 output
-    # count at true_len rows, K/V at every live position once, and the
-    # table entries up to the last live page.
-    n_bytes = (tl * HKV * GROUP * HD * (2 + 4) + (off + tl) * HKV * HD * 2 * 2
-               + -(-(off + tl) // PAGE) * 4)
-    flops = 4 * HD * hq * sum(off + c + 1 for c in range(tl))
-    rows['paged_prefill'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound=bound(n_bytes, flops))
+    case = checked['paged_prefill'][1]
+    rows['paged_prefill'] = time_prefill(
+        torch, pa, case, {}, PREFILL_OFFSET, PREFILL_TRUE_LEN, flush)
+    rows['paged_prefill_long'] = time_prefill(
+        torch, pa, case, {}, PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN,
+        flush)
     for name, r in rows.items():
         print(f'{name}: {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
               f'library {r["library_ms"]:.4f} ms, bound '
@@ -594,13 +695,6 @@ def time_spec_int8_kernels(torch, pa, checked):
     hq = HKV * GROUP
     cov = MAX_SEQ
 
-    def dequantized(k_pages, v_pages, kw):
-        if not kw:
-            return k_pages, v_pages
-        return tuple((p.float() * s[..., None]).to(torch.bfloat16)
-                     for p, s in ((k_pages, kw['k_scales']),
-                                  (v_pages, kw['v_scales'])))
-
     def gathered(k_pages, v_pages, tables, S):
         idx = tables[:, :S // PAGE].long()
         slots = tables.shape[0]
@@ -616,7 +710,7 @@ def time_spec_int8_kernels(torch, pa, checked):
         plain = time_ms(torch, lambda: pa.paged_verify_attention_reference(
             *case, **kw), 10, flush)
         S = -(-min(max(VERIFY_LENGTHS) + R, cov) // PAGE) * PAGE
-        kg, vg = gathered(*dequantized(kp, vp, kw), tables, S)
+        kg, vg = gathered(*dequantized(torch, kp, vp, kw), tables, S)
         qs = q.permute(0, 2, 3, 1, 4).reshape(slots, hq, R, HD)
         horizon = (lengths.long()[:, None]
                    + torch.arange(R, device='cuda')[None, :] + 1)
@@ -643,7 +737,7 @@ def time_spec_int8_kernels(torch, pa, checked):
     plain = time_ms(torch, lambda: pa.paged_decode_attention_reference(
         *case, **kw), 10, flush)
     S = -(-max(DECODE_LENGTHS) // PAGE) * PAGE
-    kg, vg = gathered(*dequantized(kp, vp, kw), tables, S)
+    kg, vg = gathered(*dequantized(torch, kp, vp, kw), tables, S)
     mask = (torch.arange(S, device='cuda')[None, :]
             < lengths[:, None].long())[:, None, None, :]
     lib = time_ms(torch, lambda: sdpa(torch, q.reshape(slots, hq, 1, HD), kg,
@@ -655,26 +749,11 @@ def time_spec_int8_kernels(torch, pa, checked):
                                      bound=bound(n_bytes, 4 * toks * hq * HD))
 
     _, case, kw = checked['paged_prefill_int8']
-    q, kp, vp, row = case
-    off, tl, C = PREFILL_OFFSET, PREFILL_TRUE_LEN, PREFILL_C
-    ms = time_ms(torch, lambda: pa.paged_prefill_attention(
-        *case, off, tl, **kw), 50, flush)
-    plain = time_ms(torch, lambda: pa.paged_prefill_attention_reference(
-        *case, off, tl, **kw), 10, flush)
-    S = off + C
-    kd, vd = dequantized(kp, vp, kw)
-    idx = row[:S // PAGE].long()
-    kg = kd[:, idx].reshape(1, HKV, S, HD)
-    vg = vd[:, idx].reshape(1, HKV, S, HD)
-    qs = q.reshape(C, hq, HD).permute(1, 0, 2)[None].contiguous()
-    mask = (torch.arange(S, device='cuda')[None, :]
-            <= off + torch.arange(C, device='cuda')[:, None])
-    lib = time_ms(torch, lambda: sdpa(torch, qs, kg, vg, mask), 50, flush)
-    n_bytes = (tl * hq * HD * (2 + 4) + (off + tl) * HKV * (HD + 4) * 2
-               + -(-(off + tl) // PAGE) * 4)
-    flops = 4 * HD * hq * sum(off + c + 1 for c in range(tl))
-    rows['paged_prefill_int8'] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                      bound=bound(n_bytes, flops))
+    rows['paged_prefill_int8'] = time_prefill(
+        torch, pa, case, kw, PREFILL_OFFSET, PREFILL_TRUE_LEN, flush)
+    rows['paged_prefill_int8_long'] = time_prefill(
+        torch, pa, case, kw, PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN,
+        flush)
     for name, r in rows.items():
         print(f'{name}: {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
               f'library {r["library_ms"]:.4f} ms, bound '

@@ -15,8 +15,8 @@ implementations with one contract:
   passes, as the reference computes it in XLA.
 
 On CUDA tensors the three passes launch ``csrc/flash_fwd.cu`` (forward)
-and ``csrc/flash_bwd.cu`` (dQ, then dK/dV; the forward and dK/dV run
-wgmma products on TMA-loaded tiles); on CPU tensors they run the
+and ``csrc/flash_bwd.cu`` (dQ, then dK/dV; all three run wgmma
+products on TMA-loaded tiles); on CPU tensors they run the
 plain blockwise versions below, which the CPU tests hold to the JAX
 kernels and ``chip_smoke.py`` holds the CUDA kernels to. Each wrapper
 adds one to its entry of :data:`launches` where it launches its kernel,

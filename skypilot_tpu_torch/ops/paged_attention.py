@@ -74,11 +74,15 @@ CUDA_MAX_ROWS = 64
 # consecutive pages to a split (by page index alone); it equals
 # kPagesPerSplit in csrc/paged_decode.cu, checked at the first launch.
 PAGES_PER_SPLIT = 4
+# The same for the prefill kernel: a chunk's prefix pages split across
+# blocks, kPagesPerSplit in csrc/paged_prefill.cu.
+PREFILL_PAGES_PER_SPLIT = 16
 
-# Per CUDA device: the decode/verify kernel's split workspace and
-# counters, grown when a launch needs more (launches that share them are
-# ordered on one stream).
-_split_buffers: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+# Per (kernel, CUDA device): a split kernel's workspace and counters,
+# grown when a launch needs more (launches that share them are ordered on
+# one stream).
+_split_buffers: Dict[Tuple[str, torch.device],
+                     Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -217,8 +221,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> (csrc library, argument types): the pointers (q,
 # pages, the int8 flavor's scales, tables/lengths or the table row, out,
-# and for decode and verify the split workspace and counters), the
-# integer shape arguments, sm_scale and the stream.
+# the split workspace and counters), the integer shape arguments,
+# sm_scale and the stream; and each source's pages per split.
 _SIGNATURES = {
     'paged_decode_attention_bf16': (
         'paged_decode', [_P] * 8 + [_I] * 7 + [_F, _P]),
@@ -230,9 +234,10 @@ _SIGNATURES = {
         'paged_decode', [_P] * 10 + [_I] * 8 + [_F, _P]),
     'paged_pages_per_split': ('paged_decode', []),
     'paged_prefill_attention_bf16': (
-        'paged_prefill', [_P] * 5 + [_I] * 8 + [_F, _P]),
-    'paged_prefill_attention_int8': (
         'paged_prefill', [_P] * 7 + [_I] * 8 + [_F, _P]),
+    'paged_prefill_attention_int8': (
+        'paged_prefill', [_P] * 9 + [_I] * 8 + [_F, _P]),
+    'paged_prefill_pages_per_split': ('paged_prefill', []),
 }
 
 
@@ -321,31 +326,50 @@ def _check_cuda(name: str, q, k_pages, v_pages, k_scales, v_scales,
 
 
 @functools.lru_cache(maxsize=None)
-def _checked_pages_per_split() -> int:
-    """PAGES_PER_SPLIT, once the built decode/verify library agrees."""
-    built = _kernel('paged_pages_per_split')()
-    if built != PAGES_PER_SPLIT:
-        raise RuntimeError(f'csrc/paged_decode.cu splits every {built} '
-                           f'pages, the wrapper every {PAGES_PER_SPLIT}')
+def _checked_pages_per_split(symbol: str = 'paged_pages_per_split',
+                             wrapper: int = PAGES_PER_SPLIT) -> int:
+    """``wrapper`` (a kernel's pages per split as this module holds it),
+    once the built library's ``symbol`` agrees."""
+    built = _kernel(symbol)()
+    if built != wrapper:
+        raise RuntimeError(f'csrc/{_SIGNATURES[symbol][0]}.cu splits every '
+                           f'{built} pages, the wrapper every {wrapper}')
     return built
+
+
+def _scratch(kind: str, device: torch.device, n_ws: int, n_counters: int):
+    """The workspace (``n_ws`` fp32) and counters (``n_counters`` int32,
+    zero between launches: the kernels return them to zero) that ``kind``
+    keeps on ``device``, grown when this launch needs more."""
+    ws, counters = _split_buffers.get((kind, device), (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _split_buffers[kind, device] = ws, counters
+    return ws, counters
 
 
 def _split_scratch(q: torch.Tensor, slots: int, hkv: int, rows: int,
                    hd: int, max_pages: int):
     """This device's decode/verify workspace (room for one fp32 partial
     of ``rows`` x (hd + 2) per slot, KV head and split) and counters
-    (slots x hkv int32, zero between launches: the kernel returns them to
-    zero), grown when this launch needs more."""
+    (slots x hkv)."""
     n_splits = -(-max_pages // _checked_pages_per_split())
-    n_ws, n_counters = slots * hkv * n_splits * rows * (hd + 2), slots * hkv
-    ws, counters = _split_buffers.get(q.device, (None, None))
-    if ws is None or ws.numel() < n_ws:
-        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(n_counters, dtype=torch.int32,
-                               device=q.device)
-    _split_buffers[q.device] = ws, counters
-    return ws, counters
+    return _scratch('decode', q.device,
+                    slots * hkv * n_splits * rows * (hd + 2), slots * hkv)
+
+
+def _prefill_scratch(q: torch.Tensor, hkv: int, rows: int, hd: int,
+                     live_pages: int):
+    """This device's prefill workspace (room for one fp32 partial of the
+    chunk's ``rows`` x (hd + 2) per KV head and split of the
+    ``live_pages`` pages up to the frontier) and counters (one per KV
+    head and 16-row tile: enough for any row tile the kernel takes)."""
+    n_splits = -(-live_pages // _checked_pages_per_split(
+        'paged_prefill_pages_per_split', PREFILL_PAGES_PER_SPLIT))
+    return _scratch('prefill', q.device, hkv * n_splits * rows * (hd + 2),
+                    hkv * -(-rows // 16))
 
 
 def _launch(name: str, quantized: bool, q, k_pages, v_pages, k_scales,
@@ -491,7 +515,9 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return _launch(name, quantized, q, k_pages, v_pages, k_scales, v_scales,
                    (table_row,),
                    (C, hkv, group, hd, n_pages, page, offset, true_len),
-                   hd ** -0.5 if sm_scale is None else sm_scale)
+                   hd ** -0.5 if sm_scale is None else sm_scale,
+                   _prefill_scratch(q, hkv, C * group, hd,
+                                    -(-(offset + true_len) // page)))
 
 
 # ---------------------------------------------------------------------------

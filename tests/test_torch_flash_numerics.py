@@ -1,30 +1,41 @@
 """The arithmetic of the tensor-core flash kernels, emulated on the CPU.
 
-``csrc/flash_fwd.cu`` and the dK/dV kernel of ``csrc/flash_bwd.cu`` run
-their products as bf16 ``wgmma`` instructions with fp32 accumulation,
-while the reference (``skypilot_tpu/ops/attention.py``) and the port's
-plain versions keep P and dS in fp32. The kernels therefore:
+``csrc/flash_fwd.cu`` and the dQ and dK/dV kernels of
+``csrc/flash_bwd.cu`` run their products as bf16 ``wgmma`` instructions
+with fp32 accumulation, while the reference
+(``skypilot_tpu/ops/attention.py``) and the port's plain versions keep P
+and dS in fp32. The kernels therefore:
 
 - form S = q kᵀ (and dP = dO vᵀ) from the bf16 operands, exact per
-  product, and scale S in fp32 after the product (the reference scales q
-  first: a relative change of about 1e-7);
-- split each fp32 operand x of P @ V, Pᵀ dO and dSᵀ Q into
+  product, and scale S in fp32 after the product (the reference's
+  forward scales q first: a relative change of about 1e-7);
+- give a masked key p = 0 (the backward kernels explicitly, not through
+  exp(-1e30 - lse));
+- split each fp32 operand x of P @ V, dS K, Pᵀ dO and dSᵀ Q into
   ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` and run both halves against
   the same bf16 tile into one fp32 accumulator (relative error about
   2^-16).
 
 This file emulates exactly that in torch, over the kernels' 64-key and
 64-row tiles, and holds the result to ``flash_forward_reference`` /
-``flash_bwd_dkv_reference`` at ``chip_smoke.py``'s tolerances. It also
-shows that the split matters: with a single bf16 P (and dS) the fp32
-results are measurably further from the plain versions.
+``flash_bwd_dq_reference`` / ``flash_bwd_dkv_reference`` at
+``chip_smoke.py``'s tolerances, and the dQ emulation at one small size
+to the JAX backward itself (its Pallas kernels in interpret mode). It
+also shows that the split matters: with a single bf16 P (and dS) the
+fp32 results are measurably further from the plain versions.
 """
 import numpy as np
 import pytest
+
+import jax
+import jax.numpy as jnp
 import torch
 
 import chip_smoke
+from skypilot_tpu.ops import attention as jatt
 from skypilot_tpu_torch.ops import attention as tatt
+
+jax.config.update('jax_default_matmul_precision', 'highest')
 
 TILE = 64        # the kernels' key tile (forward) and q tile (dK/dV)
 NEG_INF = -1e30
@@ -80,6 +91,29 @@ def emulate_forward(q, k, v, causal, sm_scale, split=True):
         m = m_new
     l = torch.clamp(l, min=1e-30)
     return acc / l, (m + torch.log(l))[..., 0][:, :, None, :]
+
+
+def emulate_dq(q, k, v, do, lse, delta, causal, sm_scale, split=True):
+    """dQ fp32 as the dQ kernel computes it: per 64-key tile, S = q kᵀ
+    scaled after the product and dP = dO vᵀ, P = exp(S - lse) with p = 0
+    where masked, dS = P (dP - delta) in fp32, then dQ += dS K with dS
+    split into bf16 halves against the bf16 K tile; scaled once at the
+    end."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    dq = torch.zeros((b, hq, s, d))
+    for k0 in range(0, s, TILE):
+        kt, vt = kf[:, :, k0:k0 + TILE], vf[:, :, k0:k0 + TILE]
+        sc = (qf @ kt.transpose(-1, -2)) * sm_scale
+        p = torch.exp(sc - lse[:, :, 0, :, None])
+        if causal:
+            p = torch.where(_keep(0, s, k0, TILE), p, torch.zeros_like(p))
+        ds = p * (dof @ vt.transpose(-1, -2) - delta[:, :, 0, :, None])
+        dq = dq + _split_product(ds, kt, split)
+    return dq * sm_scale
 
 
 def emulate_dkv(q, k, v, do, lse, delta, causal, sm_scale, split=True):
@@ -168,3 +202,51 @@ def test_dkv_arithmetic_meets_the_chip_tolerances(hd, group, s, causal):
         err_split, err_single = _max_err(got, want), _max_err(single, want)
         assert err_single > SPLIT_GAIN * err_split, (name, err_single,
                                                      err_split)
+
+
+DQ_CASES = [(hd, group, causal) for hd in (64, 128) for group in (1, 2, 4)
+            for causal in (True, False)]
+
+
+@pytest.mark.parametrize('hd,group,causal', DQ_CASES)
+def test_dq_arithmetic_meets_the_chip_tolerances(hd, group, causal):
+    """s 192: an odd multiple of 64, so the last 128-row CTA only half
+    fits."""
+    s = 192
+    q, k, v, do = _bf16_inputs(3 * hd + group, 1, 2 * group, 2, s, hd)
+    scale = hd ** -0.5
+    out, lse = tatt.flash_forward_reference(q, k, v, causal=causal,
+                                            sm_scale=scale, block_k=TILE)
+    delta = (do.float() * out.float()).sum(-1)[:, :, None, :]
+    kw = dict(causal=causal, sm_scale=scale, block_k=TILE)
+    ref = tatt.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    dq = emulate_dq(q, k, v, do, lse, delta, causal, scale)
+    _within(dq.to(torch.bfloat16), ref, chip_smoke.BF16_RTOL,
+            chip_smoke.BF16_ATOL_FRAC, 'dq')
+    want = tatt.flash_bwd_dq_reference(q.float(), k.float(), v.float(),
+                                       do.float(), lse, delta, **kw)
+    err_split = _max_err(dq, want)
+    err_single = _max_err(emulate_dq(q, k, v, do, lse, delta, causal, scale,
+                                     split=False), want)
+    assert err_single > SPLIT_GAIN * err_split, (err_single, err_split)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_dq_arithmetic_matches_the_jax_backward(causal):
+    """The JAX ``_flash_backward`` (its Pallas kernels in interpret mode)
+    on the same bf16-valued inputs, with its own out and lse: the
+    emulated dQ, rounded to bf16, within the chip tolerances."""
+    b, hq, hkv, s, d = 1, 4, 2, 128, 64
+    q, k, v, do = _bf16_inputs(11, b, hq, hkv, s, d)
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    out, lse = jatt._flash_forward(jq, jk, jv, causal, scale, 64, 64,
+                                   interpret=True)
+    jdq, _, _ = jatt._flash_backward(jq, jk, jv, out, lse, jdo, causal,
+                                     scale, 64, 64, True)
+    out = torch.from_numpy(np.array(out))
+    lse = torch.from_numpy(np.array(lse))
+    delta = (do.float() * out).sum(-1)[:, :, None, :]
+    dq = emulate_dq(q, k, v, do, lse, delta, causal, scale)
+    _within(dq.to(torch.bfloat16), torch.from_numpy(np.array(jdq)),
+            chip_smoke.BF16_RTOL, chip_smoke.BF16_ATOL_FRAC, 'dq')
