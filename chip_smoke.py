@@ -10,9 +10,10 @@ Phases, in order; any failure exits non-zero:
    source, all five started together) and prints the seconds and the
    compiler's register/spill report and warnings; then reads the
    compiled kernels back (``cuobjdump -sass``) and fails unless every
-   instance of the flash forward, dQ and dK/dV kernels holds wgmma
-   products (``HGMMA``), TMA tile loads (``UTMALDG``) and mbarrier
-   operations (``SYNCS``), and every instance of the paged decode/verify
+   instance of the flash forward, dQ and dK/dV kernels and the fused
+   cross-entropy forward holds wgmma products (``HGMMA``), TMA tile
+   loads (``UTMALDG``) and mbarrier operations (``SYNCS``), and every
+   instance of the paged decode/verify
    and prefill kernels (bf16 and int8) ``mma.sync`` products (``HMMA``)
    and ``cp.async`` copies (``LDGSTS``).
 3. Kernel vs plain: each kernel is held against its plain PyTorch
@@ -37,9 +38,12 @@ Phases, in order; any failure exits non-zero:
    64/128 x group 1/2/4/8 x causal/not, at s 192 (an odd multiple of
    64: the forward's and dK/dV's 128-row CTAs only half fit at the
    end); the fused cross-entropy
-   forward (nll, lse) at T 12288, d 1536, V 32768, then at a vocabulary
-   that is not a multiple of its tile, with targets in the last tile and
-   outside the vocabulary.
+   forward (nll, lse) at T 12288, d 1536, V 32768, where it must also
+   give the same bits on two runs, then at a vocabulary that is not a
+   multiple of its tile, with targets in the last tile and outside the
+   vocabulary, at vocabularies one tile short of, on and one tile past
+   the edge of its vocabulary splits (``ce_split_edges``), at llama-350m's
+   d 1024 x V 32768 and at Llama-3's head, d 4096 x V 128,256.
 4. Timing: each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls:
    ``scaled_dot_product_attention`` for attention, its backward through
@@ -181,14 +185,15 @@ PROFILE_PROMPT, PROFILE_STEPS = 512, 20
 
 # Phase 2: instructions each tensor-core kernel's compiled code must
 # hold (cuobjdump -sass), by source and kernel: wgmma products, TMA tile
-# loads and mbarrier waits in the flash kernels; mma.sync products and
-# cp.async copies in the paged kernels.
+# loads and mbarrier waits in the flash and cross-entropy kernels;
+# mma.sync products and cp.async copies in the paged kernels.
 _WGMMA_TMA = ('HGMMA', 'UTMALDG', 'SYNCS')
 _MMA_CP_ASYNC = ('HMMA', 'LDGSTS')
 SASS_REQUIRED = {
     'flash_fwd': (('flash_fwd_kernel', _WGMMA_TMA),),
     'flash_bwd': (('flash_bwd_dq_kernel', _WGMMA_TMA),
                   ('flash_bwd_dkv_kernel', _WGMMA_TMA)),
+    'ce_fwd': (('ce_fwd_kernel', _WGMMA_TMA),),
     'paged_decode': (('paged_attention_kernel', _MMA_CP_ASYNC),),
     'paged_prefill': (('paged_prefill_kernel', _MMA_CP_ASYNC),)}
 
@@ -277,6 +282,14 @@ def variant_pages(pa):
     """Block-table width of the small variant cases: 8 pages, or three
     splits where a split holds more (room for split_edges' third)."""
     return max(8, 3 * pa.PAGES_PER_SPLIT)
+
+
+def ce_split_edges(ce):
+    """Vocabularies one tile short of the cross-entropy kernel's split
+    edge E (one split), on it (one full split) and one tile past it (a
+    second split of one tile), and E + 8 (a second split of 8 columns)."""
+    edge = ce.CE_BLOCK_V * ce.CE_TILES_PER_SPLIT
+    return [edge - ce.CE_BLOCK_V, edge, edge + ce.CE_BLOCK_V, edge + 8]
 
 
 def prefill_split_edges(pa, page):
@@ -1406,12 +1419,29 @@ def check_training_kernels(torch, att, ce):
     if not all(oks.values()):
         fail(f'ce_fwd disagrees with its plain version: {errs}')
     results['fused_cross_entropy_fwd'] = (max(errs.values()), case, None)
-    # V 1000 is not a multiple of the 128-column tile; T 100 not of 64;
-    # targets in the last tile, at V - 1 and outside the vocabulary.
-    for T, d, V in ((100, 64, 1000), (64, 128, 256)):
+    # The splits merge in a fixed order, without atomics: the same bits
+    # every run.
+    x, w, t = case
+    runs = [ce._fused_fwd(x, w, t, BLOCK) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail('the cross-entropy kernel gives different bits run to run')
+    print('fused cross-entropy: nll, lse bitwise equal over two runs',
+          flush=True)
+    del runs
+    # V 1000 is not a multiple of the 256-column tile; T 100 not of 128;
+    # T 5 and V 8 are smaller than one TMA box; targets in the last tile,
+    # at V - 1 and outside the vocabulary, and on the first column of the
+    # second split; vocabularies around the split edge; llama-350m's and
+    # Llama-3's heads.
+    shapes = [(100, 64, 1000), (64, 128, 256), (5, 64, 8)]
+    shapes += [(200, 128, V) for V in ce_split_edges(ce)]
+    shapes += [(4 * 2048, 1024, 32768), (512, 4096, 128256)]
+    edge = ce.CE_BLOCK_V * ce.CE_TILES_PER_SPLIT
+    for T, d, V in shapes:
         x, w, t = ce_inputs(torch, gen, T, d, V)
-        t[:4] = torch.tensor([V - 1, V - 100, -1, V], dtype=torch.int32)
-        errs, oks = ce_check(torch, ce, (x, w, t), 8)
+        t[:5] = torch.tensor([V - 1, (V - 100) % V, -1, V, edge % V],
+                             dtype=torch.int32)
+        errs, oks = ce_check(torch, ce, (x, w, t), BLOCK)
         print(f'fused cross-entropy vs plain at T={T} d={d} V={V}: '
               + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()),
               flush=True)

@@ -11,8 +11,12 @@ Two ``torch.autograd.Function``s with the reference's numerics:
   (each ``[bt, bv]`` logits tile computed, folded into an online
   logsumexp and a target pick, and dropped); on CUDA tensors it launches
   ``csrc/ce_fwd.cu``, on CPU tensors it runs the plain version
-  :func:`fused_forward_reference`. The backward is plain torch with one
-  logits recompute, exactly the reference's ``_fused_bwd_rule``: one
+  :func:`fused_forward_reference`. The kernel splits the vocabulary
+  across CTAs (``CE_TILES_PER_SPLIT`` tiles of ``CE_BLOCK_V`` columns a
+  split, for each 128-row tile of T); each split's partial statistics go
+  to a per-device fp32 workspace, and the last CTA of a row tile merges
+  them in split order in the same launch. The backward is plain torch
+  with one logits recompute, exactly the reference's ``_fused_bwd_rule``: one
   fp32 ``[T, V]`` recompute up to ``ONE_SHOT_BWD_MAX_VOCAB``, the chunked
   backward above it. Those products are outside any kernel in the
   reference too, so they are ``torch.matmul``.
@@ -29,6 +33,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from skypilot_tpu_torch.ops import paged_attention
+
 # Vocab size above which the fused backward switches from the one-shot
 # fp32 recompute to the chunked backward (fp32 [T, V] logits alone
 # exceed 6 GB at Llama-3's 128k vocab). Module-level so tests can lower
@@ -41,6 +47,13 @@ launches: Dict[str, int] = {'fused_cross_entropy_fwd': 0}
 # multiple of 8 (16-byte rows); any T.
 CUDA_DIM_MULTIPLE = 64
 CUDA_VOCAB_MULTIPLE = 8
+# The kernel's tiles: CE_BLOCK_T rows of T by CE_BLOCK_V vocabulary
+# columns, CE_TILES_PER_SPLIT consecutive V tiles to a split. They equal
+# kBT, kBN and kTilesPerSplit in csrc/ce_fwd.cu; the last two are checked
+# against the built library at the first launch.
+CE_BLOCK_T = 128
+CE_BLOCK_V = 256
+CE_TILES_PER_SPLIT = 32
 
 
 def reset_launches() -> None:
@@ -155,16 +168,38 @@ def fused_forward_reference(x: torch.Tensor, w: torch.Tensor,
     return (lse - tl)[:, 0], lse
 
 
-_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# x, w, targets, nll, lse, the split workspace and counters; T, d, V;
+# the stream.
+_SIGNATURE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
+    """The C entry point, its library built and bound on first use, once
+    the built tiles agree with CE_BLOCK_V and CE_TILES_PER_SPLIT."""
     from skypilot_tpu_torch.ops import _build
-    fn = _build.library('ce_fwd').ce_fwd_bf16
+    lib = _build.library('ce_fwd')
+    for symbol, wrapper in (('ce_fwd_block_v', CE_BLOCK_V),
+                            ('ce_fwd_tiles_per_split', CE_TILES_PER_SPLIT)):
+        built = getattr(lib, symbol)()
+        if built != wrapper:
+            raise RuntimeError(f'csrc/ce_fwd.cu: {symbol} is {built}, the '
+                               f'wrapper holds {wrapper}')
+    fn = lib.ce_fwd_bf16
     fn.argtypes = _SIGNATURE
     fn.restype = ctypes.c_int
     return fn
+
+
+def _scratch(device: torch.device, t: int, v: int):
+    """This device's workspace (one fp32 (m, l, tl) partial of 128 rows
+    per row tile and split) and counters (one int32 per row tile, zero
+    between launches: the kernel returns them to zero)."""
+    n_rt = -(-t // CE_BLOCK_T)
+    n_vt = -(-v // CE_BLOCK_V)
+    n_splits = -(-n_vt // CE_TILES_PER_SPLIT)
+    return paged_attention._scratch('ce_fwd', device,
+                                    n_rt * n_splits * 3 * CE_BLOCK_T, n_rt)
 
 
 def check_cuda_shape(x_shape, w_shape) -> None:
@@ -206,11 +241,14 @@ def _fused_fwd(x, w, targets, block_v: int):
     v = w.shape[1]
     if targets.numel() != t:
         raise ValueError(f'{name}: {targets.numel()} targets for {t} rows')
+    kernel = _kernel()
+    ws, counters = _scratch(x.device, t, v)
     nll = torch.empty((t,), dtype=torch.float32, device=x.device)
     lse = torch.empty((t, 1), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), w.data_ptr(), targets.data_ptr(),
-                    nll.data_ptr(), lse.data_ptr(), t, d, v, stream)
+    err = kernel(x.data_ptr(), w.data_ptr(), targets.data_ptr(),
+                 nll.data_ptr(), lse.data_ptr(), ws.data_ptr(),
+                 counters.data_ptr(), t, d, v, stream)
     if err == -1:
         raise ValueError(f'{name}: the CUDA kernel does not take x '
                          f'{tuple(x.shape)}, w {tuple(w.shape)}')
@@ -279,7 +317,10 @@ def fused_cross_entropy(x: torch.Tensor, w: torch.Tensor,
     default to the largest divisors of T / V up to 512, as in the
     reference, and T / V must divide by them; the plain version walks
     the vocabulary in ``block_v`` tiles, while the CUDA kernel picks its
-    own tiles (64 rows by 128 vocab columns) and masks the edges.
+    own tiles (``CE_BLOCK_T`` = 128 rows by ``CE_BLOCK_V`` = 256 vocab
+    columns), masks the edges, splits the vocabulary across CTAs
+    (``CE_TILES_PER_SPLIT`` tiles a split) and merges the splits in a
+    per-device workspace.
     """
     t, v = x.shape[0], w.shape[1]
     bt = block_t or _auto_block(t, 512)
