@@ -24,8 +24,9 @@ Phases, in order; any failure exits non-zero:
    the block table's coverage edge) and the int8 flavors of decode,
    prefill and verify (pages and scales from ``quantize_rows`` of random
    bf16 rows) at the same shapes, then at every head_dim, group, page
-   size and (verify) query count, where each verify run's query 0 must
-   also be bitwise the decode kernel's output at lengths + 1; decode and
+   size and (verify) query count, where each verify run's query i must
+   also be bitwise the decode kernel's output at lengths + i + 1 (capped
+   at the table's coverage), for every i; decode and
    verify also at lengths on the edges of the kernel's page splits
    (``split_edges``), and prefill at prefixes on its own split edges
    (``prefill_split_edges``) and at the long prefix of phase 4, at the
@@ -55,7 +56,9 @@ Phases, in order; any failure exits non-zero:
    at offset 192 and the last 256-token chunk of a 2048-token prompt.
 5. Serving end to end: starts ``python -m skypilot_tpu_torch.infer.server
    --model 8b --slots 8 --max-seq-len 2048 --spec-k 4`` (full width and
-   depth, random weights from a seed) in a subprocess, serves
+   depth, random weights from a seed; the server's default control loop:
+   fcfs, pipeline depth 1, the decode and verify steps replayed as CUDA
+   graphs) in a subprocess, serves
    mixed-length requests (one streamed) twice through ``/generate``, then
    a burst of short prompts that decodes on all 8 slots; checks token
    counts and that a repeated greedy request gives the same tokens,
@@ -66,15 +69,23 @@ Phases, in order; any failure exits non-zero:
    the same against a second server with ``--kv-dtype int8 --spec-k 4``,
    whose three int8 kernels must all launch, printed beside the bf16
    numbers with ``kv_page_bytes``.
-5b. Speculation in process at full 8B width and depth (random weights,
-   seed 0): speculation-off greedy tokens for 8 prompts x 64 new tokens,
-   then speculation on with an oracle drafter that proposes that
-   continuation (wrong at a fixed draft index for half the prompts): the
-   tokens must be the same (one divergence is tolerated, only at a
-   near-tie of speculation-off's top-2 logits, printed), drafts must be
-   accepted, and no page may leak; the wall time of each pass is
-   printed; then the int8-vs-bf16 decode-logit delta at these shapes,
-   which must be > 0.
+5b. The control loop in process at full 8B width and depth (random
+   weights, seed 0), 8 prompts x 64 new tokens, for bf16 and for int8
+   pages: the synchronous eager loop (pipeline depth 0, CUDA graphs off)
+   and the default loop (depth 1, graphs on) must give identical greedy
+   tokens, with speculation off and with it on (an oracle drafter that
+   proposes the speculation-off continuation, wrong at a fixed draft
+   index for half the prompts); speculation on must give
+   speculation-off's tokens exactly and accept drafts; no page may leak;
+   the default loop must hold one decode graph and one verify graph;
+   the wall time of each pass is printed.
+5c. The default loop with speculation on over a pool cut to 20 usable
+   pages (the requests need 33): it must preempt, give the uncut pool's
+   tokens (a preempted request, whose K/V the resume recomputes through
+   prefill's products, may part after its resume only at a near-tie of
+   the uncut continuation's top-2 logits, printed), return every page
+   and keep one decode and one verify graph; then the int8-vs-bf16
+   decode-logit delta at these shapes, which must be > 0.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -95,8 +106,9 @@ Then it prints one ``{"kernels": [...]}`` line and, last, the
 Run from the root of the repository: ``python3 chip_smoke.py`` (one
 card). ``--kernels-only`` stops after phase 3; ``--profile`` adds, at
 the end, ``torch.profiler`` breakdowns of decode steps and of verify
-steps (bf16 and int8 pages) of an in-process engine and of a bench_1b
-training step. Subprocess logs go to
+steps (bf16 and int8 pages; the synchronous eager loop, then the default
+one with CUDA graphs) of an in-process engine and of a bench_1b training
+step. Subprocess logs go to
 ``chiprun_out/chip_smoke_*.log``.
 """
 from __future__ import annotations
@@ -148,13 +160,20 @@ PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN = MAX_SEQ - PREFILL_C, PREFILL_C
 # (2044 + 5 > 2048: its last queries see the whole table).
 VERIFY_R = 5
 VERIFY_LENGTHS = DECODE_LENGTHS[:-1] + [MAX_SEQ - 4]
-# Phase 5b: 8 prompts x 64 new tokens; the oracle drafter is wrong at
-# this draft index for every other prompt. Speculation on and off may
-# part only where speculation-off's top-2 logit margin is at most
-# NEAR_TIE of the top logit (the verify step's matmuls see other shapes
-# than decode's, so their sums may round differently).
+# Phases 5b and 5c: 8 prompts x 64 new tokens; the oracle drafter is
+# wrong at this draft index for every other prompt. The prompts and their
+# tokens need 33 pages of 64 rows; phase 5c cuts the pool to POOL_CUT
+# (the sink included), which holds the longest request (9 pages) but
+# not all of them at once, so the engine must preempt.
 SPEC_PROMPT_LENGTHS = [64, 100, 17, 300, 64, 129, 500, 200]
-SPEC_NEW, ORACLE_WRONG_AT, NEAR_TIE = 64, 2, 1e-2
+SPEC_NEW, ORACLE_WRONG_AT = 64, 2
+POOL_CUT = 21
+# A preempted request resumes by recomputing its K/V through prefill,
+# whose products run at other shapes than the decode and verify steps'
+# (so cuBLAS may round them differently): its tokens after the resume may
+# part from the uncut pool's only where the uncut continuation's top-2
+# logit margin is at most NEAR_TIE of the top logit.
+NEAR_TIE = 1e-2
 
 # bench_1b attention (b 6, 12 heads of 128, group 1, s 2048, causal) and
 # its loss (T = 6 x 2048 tokens, d 1536, V 32768); the plain versions
@@ -385,19 +404,30 @@ def prefill_err(torch, pa, case, offset, true_len, **kw) -> float:
 
 def verify_err(torch, pa, case, **kw) -> float:
     """The verify kernel against its plain version; fails unless every
-    slot's query 0 is bitwise the decode kernel's output at lengths + 1
-    (the exact-greedy acceptance rule rests on it)."""
+    slot's query i is bitwise the decode kernel's output at lengths + i +
+    1 (capped at the block table's coverage), for every i: the
+    exact-greedy acceptance rule rests on query 0, and speculation's
+    tokens equal speculation-off's bit for bit only if every query
+    is."""
     q, k_pages, v_pages, tables, lengths = case
     out = pa.paged_verify_attention(*case, **kw)
-    dec = pa.paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages,
-                                    tables, lengths + 1, **kw)
+    cover = tables.shape[1] * k_pages.shape[2]
+    decs = [pa.paged_decode_attention(
+        q[:, i].contiguous(), k_pages, v_pages, tables,
+        torch.clamp(lengths + i + 1, max=cover), **kw)
+        for i in range(q.shape[1])]
     torch.cuda.synchronize()
     if not torch.isfinite(out).all().item():
         fail('paged_verify: non-finite output')
-    if not torch.equal(out[:, 0], dec):
-        fail(f'paged_verify: query 0 is not bitwise the decode kernel at '
-             f'lengths + 1 (max diff {(out[:, 0] - dec).abs().max().item()}'
-             f', shape {tuple(q.shape)}, int8 {bool(kw)})')
+    for i, dec in enumerate(decs):
+        if not torch.equal(out[:, i], dec):
+            rows = [b for b in range(q.shape[0])
+                    if not torch.equal(out[b, i], dec[b])]
+            fail(f'paged_verify: query {i} is not bitwise the decode kernel '
+                 f'at lengths + {i + 1}: rows {rows}, R {q.shape[1]}, '
+                 f'lengths {lengths[rows].tolist()}, max diff '
+                 f'{(out[:, i] - dec).abs().max().item()}, shape '
+                 f'{tuple(q.shape)}, int8 {bool(kw)}')
     ref = pa.paged_verify_attention_reference(*case, **kw)
     return (out - ref).abs().max().item()
 
@@ -525,7 +555,8 @@ def check_spec_int8_kernels(torch, pa):
         err = runs[name.replace('_int8', '')](case, kw)
         print(f'{name} vs plain at the 8B shapes: max_abs_err={err:.3e} '
               f'(atol {ATOL})' + (f', R={VERIFY_R} lengths={VERIFY_LENGTHS}, '
-                                  f'query 0 bitwise = decode'
+                                  f'every query i bitwise = decode at '
+                                  f'lengths + i + 1'
                                   if 'verify' in name else ''), flush=True)
         if err > ATOL:
             fail(f'{name} disagrees with its plain version: {err}')
@@ -557,7 +588,8 @@ def check_spec_int8_kernels(torch, pa):
             worst = max(worst, err)
     print(f'paged_decode and paged_verify (bf16, int8) vs plain at the split '
           f'edges {edges} (8B shapes, {pa.PAGES_PER_SPLIT} pages a split): '
-          f'max_abs_err={worst:.3e} (atol {ATOL}), query 0 bitwise = decode',
+          f'max_abs_err={worst:.3e} (atol {ATOL}), every verify query i '
+          f'bitwise = decode at lengths + i + 1',
           flush=True)
 
     # Every variant: verify at every query count from an empty slot to a
@@ -600,7 +632,8 @@ def check_spec_int8_kernels(torch, pa):
                         worst[key] = max(worst.get(key, 0.0), err)
                         n += 1
     print(f'all {n} verify / int8 kernel variants vs plain (every verify '
-          f'run\'s query 0 bitwise = decode): max_abs_err '
+          f'run\'s query i bitwise = decode at lengths + i + 1): '
+          f'max_abs_err '
           + ', '.join(f'{k} {v:.3e}' for k, v in sorted(worst.items()))
           + f' (atol {ATOL})', flush=True)
     return results
@@ -931,9 +964,15 @@ def serve_and_check(base: str, vocab: int, card: str, kernels, label: str):
         'kv_dtype': metrics['kv_dtype'],
         'kv_page_bytes': metrics['kv_page_bytes'],
         'kernel_launches': launches,
+        **{k: metrics[k] for k in ('scheduler', 'pipeline_depth',
+                                   'cuda_graphs', 'step_programs',
+                                   'preemptions')},
     }
     print(f'end to end (Llama-3-8B, random weights, 8 slots, {label}, '
           + card + '): ' + json.dumps(summary), flush=True)
+    if metrics['pipeline_depth'] != 1 or not metrics['cuda_graphs']:
+        fail(f'the server did not run its default loop (depth 1, CUDA '
+             f'graphs): {label}')
     for name in kernels:
         if launches.get(name, 0) <= 0:
             fail(f'{name} was not launched on the main path ({label})')
@@ -1028,10 +1067,23 @@ def prefill_logits(torch, model_lib, pc_lib, cfg, params, rope, tokens,
     return logits, cache, row
 
 
-def spec_in_process(torch, pa, card: str):
-    """Phase 5b: speculation-off greedy tokens for 8 prompts x 64 new
-    tokens on an 8B engine, then the same with speculation on (spec_k 4)
-    and the oracle drafter; then the int8-vs-bf16 decode-logit delta."""
+def serving_in_process(torch, pa, card: str):
+    """Phases 5b and 5c, in process at full 8B width and depth (random
+    weights, seed 0), 8 prompts x SPEC_NEW new tokens on 8 slots.
+
+    5b, for bf16 and for int8 pages: greedy tokens of the synchronous
+    eager loop (depth 0, CUDA graphs off) and of the default loop (depth
+    1, graphs on) must be identical, speculation off, and again with
+    speculation on (spec_k 4, an oracle drafter that proposes the
+    speculation-off continuation, wrong at a fixed draft index for half
+    the prompts); speculation on must give speculation-off's tokens
+    (every verify query is bitwise decode, phase 3), accept drafts and
+    leak no page. 5c: the default loop with speculation on over a pool
+    cut to POOL_CUT pages, which must preempt, gives the uncut pool's
+    tokens (a preempted request may part after its resume only at a
+    near-tie, NEAR_TIE), every page comes back and ``compiled_counts()``
+    stays at one decode and one verify graph. Then the int8-vs-bf16
+    decode-logit delta, which must be > 0."""
     import random
     from skypilot_tpu_torch.infer import engine as engine_lib
     from skypilot_tpu_torch.infer import model as model_lib
@@ -1042,65 +1094,110 @@ def spec_in_process(torch, pa, card: str):
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
     params = llama.init_params(cfg, gen, 'cuda')
-
-    def engine(**kw):
-        return engine_lib.InferenceEngine(
-            cfg, params, engine_lib.EngineConfig(
-                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE, **kw),
-            seed=0, device='cuda')
-
     rnd = random.Random(4)
     prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
                for n in SPEC_PROMPT_LENGTHS]
-    off_engine = engine()
-    t1 = time.perf_counter()
-    off = [r.output_tokens for r in off_engine.generate(prompts, SPEC_NEW)]
-    torch.cuda.synchronize()
-    off_wall = time.perf_counter() - t1
-    off_steps = off_engine.metrics()['decode_steps']
-    del off_engine
-    on = engine(spec_k=VERIFY_R - 1)
-    on._drafter = OracleDrafter(prompts, off, prompts[1::2], ORACLE_WRONG_AT,
-                                cfg.vocab_size)
-    pa.reset_launches()
-    t1 = time.perf_counter()
-    got = [r.output_tokens for r in on.generate(prompts, SPEC_NEW)]
-    torch.cuda.synchronize()
-    on_wall = time.perf_counter() - t1
-    launches = dict(pa.launches)
-    m = on.metrics()
-    al = on.allocator
-    leaked = al.n_pages - 1 - al.free_pages
-    refs = sum(al.refcount(pid) for pid in range(1, al.n_pages))
-    rope = on._rope
-    del on
-    diverged = [(i, next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
-                         min(len(x), len(y))))
-                for i, (x, y) in enumerate(zip(off, got)) if x != y]
-    summary = {
-        'card': card, 'prompt_tokens': SPEC_PROMPT_LENGTHS,
-        'max_new_tokens': SPEC_NEW, 'spec_k': VERIFY_R - 1,
-        'oracle_wrong_at': ORACLE_WRONG_AT,
-        'decode_steps_spec_off': off_steps, 'decode_steps_spec_on':
-            m['decode_steps'], 'wall_s_spec_off': off_wall,
-        'wall_s_spec_on': on_wall,
-        **{k: m[k] for k in ('spec_steps', 'spec_drafted_tokens',
-                             'spec_accepted_tokens', 'spec_accept_rate',
-                             'accepted_len_mean')},
-        'diverged': diverged, 'pages_leaked': leaked, 'refcounts': refs,
-        'kernel_launches': launches}
-    # A divergence is tolerated only at a near-tie (and only after the
-    # bitwise query-0 check of phase 3 passed, which fails the run
-    # otherwise): speculation-off's top-2 margin there, recomputed by
-    # prefill.
-    for i, j in diverged[:1]:
-        logits, _, _ = prefill_logits(torch, model_lib, pc_lib, cfg, params,
-                                      rope, prompts[i] + off[i][:j],
-                                      torch.bfloat16)
+
+    def run(kv_dtype, depth, graphs, oracle=None, n_pages=None):
+        """One engine over ``prompts``: its tokens and what it did."""
+        eng = engine_lib.InferenceEngine(
+            cfg, params, engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                kv_dtype=kv_dtype, pipeline_depth=depth,
+                cuda_graphs=graphs, n_pages=n_pages,
+                spec_k=VERIFY_R - 1 if oracle else 0),
+            seed=0, device='cuda')
+        if oracle:
+            eng._drafter = OracleDrafter(prompts, oracle, prompts[1::2],
+                                         ORACLE_WRONG_AT, cfg.vocab_size)
+        # Which request each preemption evicted, and after how many of
+        # its tokens (ids count from 1 in submission order).
+        preempted = []
+        evict = eng._preempt
+
+        def logged(slot):
+            req = eng._slots[slot]
+            preempted.append((req.request_id - 1, len(req.output_tokens)))
+            evict(slot)
+        eng._preempt = logged
+        pa.reset_launches()
+        t1 = time.perf_counter()
+        tokens = [r.output_tokens for r in eng.generate(prompts, SPEC_NEW)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        m = eng.metrics()
+        al = eng.allocator
+        out = {'tokens': tokens, 'wall_s': wall, 'preempted': preempted,
+               'launches': {k: v for k, v in pa.launches.items() if v},
+               'compiled_counts': eng.compiled_counts(),
+               'pages_leaked': al.n_pages - 1 - al.free_pages,
+               'refcounts': sum(al.refcount(p) for p in range(1, al.n_pages)),
+               **{k: m.get(k) for k in (
+                   'decode_steps', 'preemptions', 'pipeline_depth',
+                   'cuda_graphs', 'spec_steps', 'spec_drafted_tokens',
+                   'spec_accepted_tokens', 'accepted_len_mean')}}
+        rope = eng._rope
+        del eng
+        torch.cuda.empty_cache()
+        return out, rope
+
+    def parted(a, b):
+        return [(i, next((j for j, (x, y) in enumerate(zip(p, q))
+                          if x != y), min(len(p), len(q))))
+                for i, (p, q) in enumerate(zip(a, b)) if p != q]
+
+    def brief(r):
+        return {k: v for k, v in r.items() if k != 'tokens'}
+
+    summary = {'card': card, 'prompt_tokens': SPEC_PROMPT_LENGTHS,
+               'max_new_tokens': SPEC_NEW, 'spec_k': VERIFY_R - 1,
+               'oracle_wrong_at': ORACLE_WRONG_AT}
+    lanes = {}
+    for kv in ('bfloat16', 'int8'):
+        suffix = '_int8' if kv == 'int8' else ''
+        eager, rope = run(kv, 0, False)
+        fast, _ = run(kv, 1, True)
+        spec_eager, _ = run(kv, 0, False, oracle=eager['tokens'])
+        spec_fast, _ = run(kv, 1, True, oracle=eager['tokens'])
+        lanes[kv] = (eager, fast, spec_eager, spec_fast)
+        summary[kv] = {
+            'depth0_graphs_off': brief(eager), 'depth1_graphs_on': brief(fast),
+            'spec_depth0_graphs_off': brief(spec_eager),
+            'spec_depth1_graphs_on': brief(spec_fast),
+            'parted_graphs_depth': parted(eager['tokens'], fast['tokens']),
+            'parted_graphs_depth_spec': parted(spec_eager['tokens'],
+                                               spec_fast['tokens']),
+            'parted_spec_on_off': parted(eager['tokens'],
+                                         spec_eager['tokens'])}
+        for r in (eager, fast, spec_eager, spec_fast):
+            for name in ('paged_decode_attention', 'paged_prefill_attention'):
+                if r['launches'].get(name + suffix, 0) <= 0:
+                    fail(f'{name + suffix} was not launched in phase 5b')
+        for r in (spec_eager, spec_fast):
+            if r['launches'].get('paged_verify_attention' + suffix, 0) <= 0:
+                fail(f'paged_verify_attention{suffix} was not launched in '
+                     f'phase 5b')
+    # 5c: the default loop, speculation on, over a cut pool.
+    cut, _ = run('bfloat16', 1, True, oracle=lanes['bfloat16'][0]['tokens'],
+                 n_pages=POOL_CUT)
+    uncut = lanes['bfloat16'][3]['tokens']
+    summary['pool_cut'] = {'n_pages': POOL_CUT, **brief(cut),
+                           'parted_from_uncut': parted(uncut,
+                                                       cut['tokens'])}
+    # Where the cut run parts from the uncut one: the uncut
+    # continuation's top-2 margin there, recomputed by prefill.
+    ties = []
+    for i, j in summary['pool_cut']['parted_from_uncut']:
+        logits, cache, _ = prefill_logits(torch, model_lib, pc_lib, cfg,
+                                          params, rope,
+                                          prompts[i] + uncut[i][:j],
+                                          torch.bfloat16)
+        del cache
         top2 = torch.topk(logits.float(), 2).values.tolist()
-        summary['near_tie'] = {'request': i, 'step': j,
-                               'margin': top2[0] - top2[1],
-                               'top_logit': top2[0]}
+        resumed = [n for r, n in cut['preempted'] if r == i]
+        ties.append({'request': i, 'step': j, 'resumed_at': resumed,
+                     'margin': top2[0] - top2[1], 'top_logit': top2[0]})
+    summary['pool_cut']['near_ties'] = ties
     # int8 vs bf16 at these shapes: prefill the first prompt into each
     # kind of cache, decode one step, compare the logits.
     step = {}
@@ -1114,28 +1211,43 @@ def spec_in_process(torch, pa, card: str):
     delta = (step[torch.bfloat16] - step[torch.int8]).abs().max().item()
     summary['int8_vs_bf16_decode_logit_delta'] = delta
     summary['wall_s'] = time.perf_counter() - t0
-    print('speculation in process (Llama-3-8B, random weights, 8 slots, '
+    print('serving loop in process (Llama-3-8B, random weights, 8 slots, '
           + card + '): ' + json.dumps(summary), flush=True)
-    if len(diverged) > 1:
-        fail(f'speculation on parted from speculation off in '
-             f'{len(diverged)} requests: {diverged}')
-    if diverged:
-        tie = summary['near_tie']
-        print(f'speculation on parted from off at request {tie["request"]}, '
-              f'output step {tie["step"]}: speculation-off top-2 logit '
-              f'margin {tie["margin"]:.4e} (top logit '
-              f'{tie["top_logit"]:.4f}; tolerated at <= {NEAR_TIE} x top)',
-              flush=True)
-        if not tie['margin'] <= NEAR_TIE * abs(tie['top_logit']):
-            fail('speculation changed greedy tokens away from a near-tie')
-    if m['spec_accepted_tokens'] < 1:
-        fail('the oracle run accepted no draft: the check is vacuous')
-    if leaked or refs:
-        fail(f'speculation leaked pages: {leaked} pages, refcounts {refs}')
-    for name in ('paged_verify_attention', 'paged_decode_attention',
-                 'paged_prefill_attention'):
-        if launches[name] <= 0:
-            fail(f'{name} was not launched in the speculation run')
+    for kv, (eager, fast, spec_eager, spec_fast) in lanes.items():
+        s = summary[kv]
+        if s['parted_graphs_depth'] or s['parted_graphs_depth_spec']:
+            fail(f'{kv}: depth 1 with CUDA graphs parted from depth 0 '
+                 f'eager: {s["parted_graphs_depth"]} (spec off), '
+                 f'{s["parted_graphs_depth_spec"]} (spec on)')
+        if s['parted_spec_on_off']:
+            fail(f'{kv}: speculation on parted from speculation off: '
+                 f'{s["parted_spec_on_off"]}')
+        for r in (spec_eager, spec_fast):
+            if r['spec_accepted_tokens'] < 1:
+                fail(f'{kv}: the oracle run accepted no draft: the check '
+                     f'is vacuous')
+        for r in (eager, fast, spec_eager, spec_fast):
+            if r['pages_leaked'] or r['refcounts']:
+                fail(f'{kv}: pages leaked: {brief(r)}')
+        if fast['compiled_counts'] != {'decode': 1} or \
+                spec_fast['compiled_counts'] != {'decode': 1, 'verify': 1}:
+            fail(f'{kv}: step graphs {fast["compiled_counts"]} (spec off), '
+                 f'{spec_fast["compiled_counts"]} (spec on); want one '
+                 f'decode and one verify graph')
+        if not (fast['cuda_graphs'] and not eager['cuda_graphs']):
+            fail(f'{kv}: the graph switch did not take')
+    c = summary['pool_cut']
+    if c['preemptions'] < 1:
+        fail(f'the cut pool of {POOL_CUT} pages never preempted')
+    if c['pages_leaked'] or c['refcounts']:
+        fail(f'the preempting run leaked pages: {c}')
+    for t in ties:
+        if not (t['resumed_at'] and t['step'] >= min(t['resumed_at'])
+                and t['margin'] <= NEAR_TIE * abs(t['top_logit'])):
+            fail(f'the preempting run parted from the uncut pool away from '
+                 f'a near-tie after a resume: {t}')
+    if c['compiled_counts'] != {'decode': 1, 'verify': 1}:
+        fail(f'the preempting run captured {c["compiled_counts"]} graphs')
     if not delta > 0:
         fail('int8 and bf16 pages gave the same decode logits: the int8 '
              'path did not run')
@@ -1169,18 +1281,27 @@ class RepeatDrafter:
         return [context[-1]] * k
 
 
-def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
-    """An in-process 8B engine (``kv_dtype`` pages) with all 8 slots at
-    PROFILE_PROMPT tokens of context, stepping decode steps or (``verify``,
-    spec_k VERIFY_R - 1 with :class:`RepeatDrafter`) verify steps: the
-    host-clock time of a step over PROFILE_STEPS steps (and, for bf16
-    decode, over as many with the dense block one row wide instead of
-    ``STEP_ROWS``: what the padding that keeps decode and verify steps
-    bitwise alike costs), then the synchronizing CUDA calls of one step
-    (the step's readback is one), then ``torch.profiler`` over a few
-    more: device time by kernel, the paged decode/verify kernel's time
-    and launches, the device's busy share of the window, and the host
-    ops with the most self time."""
+# Launch calls a step makes from the host, by CUDA API name in the
+# profiler's trace: kernels one by one, or a whole CUDA graph at once.
+LAUNCH_APIS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+               'cuLaunchKernelEx', 'cudaGraphLaunch')
+
+
+def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
+                   graphs: bool, depth: int) -> None:
+    """An in-process 8B engine (``kv_dtype`` pages, pipeline ``depth``,
+    the step's CUDA graph on or off) with all 8 slots at PROFILE_PROMPT
+    tokens of context, stepping decode steps or (``verify``, spec_k
+    VERIFY_R - 1 with :class:`RepeatDrafter`) verify steps: the
+    host-clock time of a step over PROFILE_STEPS steps (and, for eager
+    bf16 decode, over as many with the dense block one row wide instead
+    of ``STEP_ROWS``: what the padding that keeps decode and verify
+    steps bitwise alike costs), then the synchronizing CUDA calls of one
+    step, then ``torch.profiler`` over a few more: device time by kernel,
+    the paged decode/verify kernel's time and launches (by the profiler
+    and by the wrapper's counter, which counts a graph's launches once
+    per replay), the launch calls the host makes, the device's busy
+    share of the window, and the host ops with the most self time."""
     import random
     import warnings
     from torch.autograd import DeviceType
@@ -1189,7 +1310,8 @@ def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
     from skypilot_tpu_torch.infer import server as server_lib
     eng = server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None, 'cuda',
                                   kv_dtype=kv_dtype,
-                                  spec_k=VERIFY_R - 1 if verify else 0)
+                                  spec_k=VERIFY_R - 1 if verify else 0,
+                                  pipeline_depth=depth, cuda_graphs=graphs)
     if verify:
         eng._drafter = RepeatDrafter()
     slots, vocab = eng.ecfg.n_slots, eng.config.vocab_size
@@ -1208,7 +1330,7 @@ def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
     narrow_ms = None
-    if kv_dtype == 'bfloat16' and not verify:
+    if kv_dtype == 'bfloat16' and not verify and not graphs:
         rows, model_lib.STEP_ROWS = model_lib.STEP_ROWS, 1
         try:
             eng.step()
@@ -1229,6 +1351,7 @@ def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
             torch.cuda.set_sync_debug_mode('default')
     n = 5
     spec_before = eng.metrics().get('spec_steps', 0)
+    wrapper_before = dict(pa.launches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1237,10 +1360,13 @@ def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     spec_steps = eng.metrics().get('spec_steps', 0) - spec_before
+    wrapper = sum(pa.launches[k] - wrapper_before[k] for k in pa.launches)
     if verify and spec_steps != n:
         fail(f'the verify-step profile ran {spec_steps} verify steps of {n}')
-    kernels, host_ops = {}, {}
+    kernels, host_ops, api = {}, {}, {}
     for e in prof.key_averages():
+        if e.key in LAUNCH_APIS:
+            api[e.key] = e.count / n
         us = getattr(e, 'self_device_time_total', 0)
         if e.device_type == DeviceType.CUDA and us > 0:
             kernels[e.key] = (us / 1e3 / n, e.count / n)
@@ -1257,8 +1383,11 @@ def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
     step = 'verify' if verify else 'decode'
     print(f'{step} step profile (Llama-3-8B, {kv_dtype} pages, 8 slots at '
           f'{PROFILE_PROMPT} tokens'
-          + (f', spec_k {VERIFY_R - 1}' if verify else '') + f', {card}): '
-          + json.dumps({
+          + (f', spec_k {VERIFY_R - 1}' if verify else '')
+          + f', depth {depth}, CUDA graphs {"on" if graphs else "off"}, '
+          f'{card}): ' + json.dumps({
+              'pipeline_depth': depth, 'cuda_graphs': graphs,
+              'step_programs': eng.compiled_counts(),
               'step_ms': step_ms,
               'step_ms_one_row_block': narrow_ms,
               'synchronizing_calls_per_step': sorted(
@@ -1272,6 +1401,8 @@ def profile_decode(torch, card: str, kv_dtype: str, verify: bool) -> None:
               f'paged_{step}_kernel_ms_per_step': sum(ms for ms, _ in paged),
               f'paged_{step}_kernel_launches_per_step':
                   sum(c for _, c in paged),
+              'paged_kernel_wrapper_count_per_step': wrapper / n,
+              'host_launch_calls_per_step': api,
               'device_ms_per_step_by_kind': kinds,
               'top_kernels': [{'name': k[:100], 'ms_per_step': ms,
                                'launches_per_step': c}
@@ -1786,7 +1917,7 @@ def main() -> int:
            / int8['kv_page_bytes']}), flush=True)
 
     # Phase 5b: speculation in process at full width and depth.
-    spec_in_process(torch, pa, card)
+    serving_in_process(torch, pa, card)
 
     # Phase 6: the training slice against its plain path.
     check_slice(torch, att, ce)
@@ -1805,7 +1936,10 @@ def main() -> int:
     if args.profile:
         for kv_dtype in ('bfloat16', 'int8'):
             for verify in (False, True):
-                profile_decode(torch, card, kv_dtype, verify)
+                # The synchronous eager loop, then the default one.
+                for graphs, depth in ((False, 0), (True, 1)):
+                    profile_decode(torch, pa, card, kv_dtype, verify,
+                                   graphs, depth)
         profile_train(torch, card)
 
     rows = [

@@ -1,33 +1,53 @@
 """Continuous-batching inference engine, paged flavor (counterpart of
-``skypilot_tpu/infer/engine.py``, limited to the first slice of the port).
+``skypilot_tpu/infer/engine.py``).
 
-What this slice keeps from the reference:
+What the port keeps from the reference:
 
-- slots with FCFS admission from an inline waiting queue (the
-  reference's ``sched/`` fcfs policy, round-robin chunk cursor included);
+- slots filled by a pluggable scheduler (``sched/``: fcfs, deadline,
+  wfq) with bounded admission (``AdmissionError``, carrying a
+  queue-drain Retry-After), per-tenant accounting, cancel and
+  wall-clock deadlines, queued or active;
 - chunked prefill with the page-aligned bucket ladder and the chunk-cap
   checks, over a paged KV cache whose page 0 is the garbage sink;
 - one decode step over ALL slots with an ``active`` mask, as the
   reference does, so inactive slots write into the sink page or their own
   frontier and never advance their length;
+- recompute preemption under page pressure: the scheduler's victim goes
+  back to the front of the queue and resumes by prefilling prompt +
+  generated tokens (its TTFT is not recorded again), through the
+  reference's drain -> preempt -> ``cache_full`` ladder;
 - self-speculative decoding (``spec_k`` > 0): the prompt-lookup drafter
-  proposes up to ``spec_k`` tokens per greedy slot, one verify step
-  scores them all, the longest exact-greedy prefix plus one corrected
-  token lands, and rejected-draft pages roll back; greedy outputs equal
-  speculation-off's token for token;
+  proposes up to the scheduler's ``spec_budget`` tokens per greedy slot,
+  one verify step scores them all, the longest exact-greedy prefix plus
+  one corrected token lands, and rejected-draft pages roll back; greedy
+  outputs equal speculation-off's token for token;
 - int8 KV pages (``kv_dtype='int8'``): quantized on write, dequantized in
   the kernels;
-- a synchronous loop (``pipeline_depth`` 0): each step reads its token
-  rows back before the next one starts.
+- the dispatch-ahead loop (``pipeline_depth``, default 1): step N + 1 is
+  dispatched before step N's token rows are read back; each dispatched
+  step copies its rows into a pinned host ring of ``depth + 1`` buffers
+  and records an event, the host syncs on that event alone, and every
+  record keeps its slot -> request map from dispatch time (a token whose
+  slot changed hands meanwhile is dropped). Page, preempt and finish
+  decisions drain the in-flight steps first, so greedy outputs are the
+  same at every depth.
 
-What it leaves out (ROADMAP queue 1): dispatch-ahead pipelining,
-preemption and resume, the fused mixed step, the prefix cache (and so the
-copy-on-write of shared pages before a draft run), the wfq and deadline
-schedulers (and so their ``spec_budget``: drafts get the fcfs budget,
-``spec_k``), the flight recorder and the SDC sentinel. Where the
-reference preempts under page pressure, this engine finishes the request
-with ``finish_reason='cache_full'``; the default pool
-(``n_slots * max_pages_per_slot + 1`` pages) never runs dry.
+The reference jits each step into one program. The port's counterpart is
+a CUDA graph per step kind: the decode step (model, sampling and the
+token pair) and the verify step (model, acceptance and the device-side
+advance) are captured once per (kind, queries per slot, whether any slot
+samples) and replayed every step, reading fixed device buffers that the
+host refreshes with ``copy_`` (last tokens, block table, active mask,
+temperatures, drafts). A key's first run goes eagerly on the capture
+stream (the warm-up), its second is captured and replayed. Prefill
+chunks stay eager (their length varies by bucket). Graphs are on
+whenever the device is CUDA (``EngineConfig.cuda_graphs`` turns them off
+for the on == off gate); on the CPU the same static-buffer code runs
+eagerly. A capture that fails raises; nothing falls back to eager.
+
+What it leaves out (ROADMAP queue 1): the fused mixed step, the prefix
+cache (and so the copy-on-write of shared pages), ``resume_from``, the
+flight recorder and the SDC sentinel.
 
 Device placement is explicit: the engine runs on ``device`` (default
 ``'cuda'``) and raises if CUDA was asked for and is missing.
@@ -39,7 +59,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,8 +68,13 @@ from skypilot_tpu_torch.infer import drafter as drafter_lib
 from skypilot_tpu_torch.infer import model as model_lib
 from skypilot_tpu_torch.infer import paged_cache as paged_cache_lib
 from skypilot_tpu_torch.infer import sampling as sampling_lib
+from skypilot_tpu_torch.infer import sched as sched_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import paged_attention as paged_attn
+
+# The server catches admission refusals by this name, as the
+# reference's does.
+AdmissionError = sched_lib.AdmissionError
 
 
 def resolve_device(device) -> torch.device:
@@ -71,13 +96,16 @@ class EngineConfig:
     max_new_tokens: int = 256
     top_k: int = 0
     cache_dtype: str = 'bfloat16'
-    # Only 0 (the synchronous loop) exists in this slice.
-    pipeline_depth: int = 0
+    # Dispatch-ahead decode: up to this many steps in flight on the
+    # device before the host reads one back. 0 = the synchronous loop.
+    # Greedy outputs are the same at any depth.
+    pipeline_depth: int = 1
     prefill_chunk: int = 256
     prefill_chunks_per_step: int = 4
     page_size: int = 64
     # Total pool pages (page 0 is the sink). None -> dense-equivalent
-    # capacity, n_slots * max_seq_len / page_size + 1.
+    # capacity, n_slots * max_seq_len / page_size + 1. A smaller pool
+    # preempts under pressure.
     n_pages: Optional[int] = None
     # KV page value dtype: 'bfloat16' (pages of cache_dtype) or 'int8'
     # (int8 values plus one fp32 absmax scale per row per KV head,
@@ -85,6 +113,11 @@ class EngineConfig:
     # KV bytes per token). Greedy outputs under int8 are not
     # bit-identical to bf16; the reference pins the tolerance.
     kv_dtype: str = 'bfloat16'
+    # Admission bounds on the waiting queue (requests, and prompt +
+    # generated tokens); past them submit() raises AdmissionError. None
+    # = unbounded. Under 'wfq' they split into per-tenant quotas.
+    max_queue_requests: Optional[int] = None
+    max_queue_tokens: Optional[int] = None
     # Self-speculative decoding: a prompt-lookup drafter proposes up to
     # spec_k tokens per greedy slot and one verify step scores them all;
     # a step emits 1..spec_k+1 tokens per slot and greedy outputs stay
@@ -93,6 +126,14 @@ class EngineConfig:
     # Longest trailing n-gram the drafter matches (it falls back to
     # shorter grams down to 1).
     spec_ngram: int = 3
+    # Scheduling policy (sched/): 'fcfs', 'deadline' or 'wfq'.
+    scheduler: str = 'fcfs'
+    # tenant -> relative weight for 'wfq' (unknown tenants weigh 1.0).
+    tenant_weights: Optional[Any] = None
+    # Capture the decode and verify steps as CUDA graphs on a CUDA
+    # device (ignored on the CPU). Off only to hold graph-on against
+    # graph-off.
+    cuda_graphs: bool = True
 
 
 @dataclasses.dataclass
@@ -106,10 +147,19 @@ class Request:
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     finish_reason: Optional[str] = None
+    # Fair-queueing identity (X-SkyTpu-Tenant end to end).
+    tenant: str = sched_lib.DEFAULT_TENANT
+    # When the first prefill chunk dispatched (not re-stamped on a
+    # preemption resume): submit -> here is the queue wait.
     first_dispatch_at: Optional[float] = None
-    # Prompt tokens served from a prefix cache; always 0 in this slice
-    # (reported by the server like the reference's).
+    # Prompt tokens served from a prefix cache; always 0 in the port so
+    # far (reported by the server like the reference's).
     cached_tokens: int = 0
+    # Absolute wall-clock cutoff (time.time()); past it the engine
+    # finishes the request ('deadline'), queued or active. None = none.
+    deadline: Optional[float] = None
+    # Set by cancel(); only the engine thread acts on it.
+    cancelled: bool = False
     # Per-request speculation opt-out (body {"spec": false}): never
     # drafted for; outputs are the same either way.
     spec: bool = True
@@ -118,7 +168,8 @@ class Request:
     # accepted_len_mean.
     spec_steps: int = 0
     spec_emitted: int = 0
-    # The drafter's incremental n-gram index over prompt + output.
+    # The drafter's incremental n-gram index over prompt + output; it
+    # survives preemption with the request.
     draft_memo: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
     _cond: threading.Condition = dataclasses.field(
@@ -158,12 +209,24 @@ class Request:
             return self._cond.wait_for(lambda: self.done, timeout)
 
 
+@dataclasses.dataclass
+class _StepProgram:
+    """One step kind's program: its runs so far and, once captured, the
+    CUDA graph, its output pair and the kernel launches one replay
+    makes."""
+    runs: int = 0
+    graph: Any = None
+    out: Optional[torch.Tensor] = None
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
 class InferenceEngine:
     """Slot-based continuous batching over one model replica.
 
-    HTTP handler threads call ``submit()``/``metrics()``/``idle()``; one
-    engine thread runs ``step()``. ``_lock`` guards the waiting queue,
-    the slot list and the counters those readers see; device state and
+    HTTP handler threads call ``submit()``/``cancel()``/``metrics()``/
+    ``idle()``; one engine thread runs ``step()``. ``_lock`` guards the
+    scheduler (which owns the waiting queue), the slot list and the
+    counters those readers see; device state, the in-flight queue and
     the page allocator belong to the engine thread."""
 
     def __init__(self, config: llama.LlamaConfig, params: llama.Params,
@@ -172,11 +235,9 @@ class InferenceEngine:
         self.config = config
         self.ecfg = ecfg = engine_config or EngineConfig()
         self.device = resolve_device(device)
-        if int(ecfg.pipeline_depth) != 0:
-            raise ValueError(
-                f'pipeline_depth={ecfg.pipeline_depth}: only the '
-                f'synchronous loop (0) is ported so far; dispatch-ahead '
-                f'decode is a follow-up (ROADMAP.md, queue 1 item 6)')
+        if int(ecfg.pipeline_depth) < 0:
+            raise ValueError(f'pipeline_depth must be >= 0, got '
+                             f'{ecfg.pipeline_depth}')
         if ecfg.max_seq_len > config.max_seq_len:
             raise ValueError(
                 f'cache max_seq_len {ecfg.max_seq_len} exceeds model '
@@ -199,7 +260,8 @@ class InferenceEngine:
         if ecfg.kv_dtype not in ('bfloat16', 'int8'):
             raise ValueError(f"kv_dtype must be 'bfloat16' or 'int8', got "
                              f'{ecfg.kv_dtype!r}')
-        if self.device.type == 'cuda':
+        on_cuda = self.device.type == 'cuda'
+        if on_cuda:
             paged_attn.check_cuda_shape(
                 config.head_dim, config.n_heads // config.n_kv_heads, page)
         ladder = set()
@@ -232,27 +294,70 @@ class InferenceEngine:
         self._generator.manual_seed(seed)
         self._ids = itertools.count(1)
         self._lock = threading.RLock()
-        self._waiting: collections.deque = collections.deque()
+        self._sched = sched_lib.make(
+            ecfg.scheduler, sched_lib.SchedulerConfig(
+                max_queue_requests=ecfg.max_queue_requests,
+                max_queue_tokens=ecfg.max_queue_tokens,
+                tenant_weights=ecfg.tenant_weights))
         self._slots: List[Optional[Request]] = [None] * ecfg.n_slots
-        # slot -> prompt tokens already prefilled; a slot decodes only
-        # once its prompt is fully cached.
+        # slot -> tokens already prefilled; a slot decodes only once its
+        # prompt (plus, after a preemption, its output) is fully cached.
         self._prefilling: Dict[int, int] = {}
-        self._rr = 0   # round-robin cursor over prefilling slots
-        # Last sampled token per slot stays on the device: decode reads
-        # it directly, the host sees tokens through the step's pair.
-        self._last_dev = torch.zeros((ecfg.n_slots,), dtype=torch.int32,
-                                     device=self.device)
         self._slot_len = np.zeros((ecfg.n_slots,), np.int64)
         self._temps = np.zeros((ecfg.n_slots,), np.float32)
-        self._table_dev: Optional[torch.Tensor] = None
+        # ---- static device inputs of the step programs ----------------
+        # A captured graph reads these very tensors, so they are only
+        # ever written in place. The last sampled token per slot stays
+        # on the device: decode reads it directly, the host sees tokens
+        # through the step's pair.
+        slots = ecfg.n_slots
+        dev = self.device
+        self._last = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self._table = torch.zeros((slots, max_pages_per_slot),
+                                  dtype=torch.int32, device=dev)
+        self._active = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self._temps_dev = torch.zeros((slots,), dtype=torch.float32,
+                                      device=dev)
+        self._draft_lens = torch.zeros((slots,), dtype=torch.int32,
+                                       device=dev)
+        self._drafts: Dict[int, torch.Tensor] = {}   # R -> [slots, R-1]
         self._table_version = -1
-        self._active_dev: Optional[torch.Tensor] = None
         self._active_key: Optional[tuple] = None
+        self._temps_dirty = True
+        # ---- step programs (CUDA graphs on the card) ------------------
+        self._graphs_on = on_cuda and bool(ecfg.cuda_graphs)
+        self._programs: Dict[tuple, _StepProgram] = {}
+        self._capture_stream = torch.cuda.Stream(dev) if on_cuda else None
+        if on_cuda:
+            # A graph keeps the split kernel's workspace pointer: size
+            # it for the widest verify step before any capture.
+            paged_attn.reserve_split_scratch(
+                dev, slots, config.n_kv_heads, config.head_dim,
+                max_pages_per_slot)
+        # ---- dispatch-ahead state -------------------------------------
+        # Dispatched, unread steps (<= _depth of them), oldest first:
+        # (host rows, event, decoded, prefilled, spec_r), where decoded
+        # and prefilled pin the slot -> request map at dispatch time.
+        self._depth = int(ecfg.pipeline_depth)
+        self._queue: collections.deque = collections.deque()
+        # Tokens in flight per slot: page coverage must reach what the
+        # device will have written before the host reads it.
+        self._inflight_tok = [0] * slots
+        self._ring: List[torch.Tensor] = []
+        self._ring_i = 0
         self._decode_steps = 0
         self._decode_tokens = 0
         self._decode_time = 0.0
         self._prefill_tokens = 0
         self._prefill_chunks = 0
+        self._preemptions = 0
+        # Queued requests dropped because the client went away,
+        # requests cut by their deadline, active requests cancelled.
+        self._abandoned = 0
+        self._expired = 0
+        self._cancelled = 0
+        # Deadline and cancel sweeps read the local wall clock.
+        self.wallclock_cancel = True
         self._ttfts: collections.deque = collections.deque(maxlen=1024)
         self._queue_waits: collections.deque = collections.deque(
             maxlen=1024)
@@ -268,10 +373,11 @@ class InferenceEngine:
         self._spec_k = 0
         self.set_spec_k(ecfg.spec_k)
 
+    # ---- runtime knobs ---------------------------------------------------
     def set_spec_k(self, k: int) -> None:
         """Runtime draft width (0 = off); greedy outputs are the same at
-        every width. On CUDA a width the verify kernel does not take
-        raises."""
+        every width. Each width is its own verify program. On CUDA a
+        width the verify kernel does not take raises."""
         k = max(0, int(k))
         if k and self.device.type == 'cuda':
             paged_attn.check_cuda_shape(
@@ -281,13 +387,59 @@ class InferenceEngine:
         with self._lock:
             self._spec_k = k
 
+    def set_pipeline_depth(self, depth: int) -> None:
+        """Change the dispatch-ahead depth at runtime (in-flight steps
+        beyond it are consumed now)."""
+        self._depth = max(0, int(depth))
+        while len(self._queue) > self._depth:
+            self._consume_one()
+
+    def set_wallclock_cancel(self, enabled: bool) -> None:
+        """Enable/disable the deadline and client-cancel sweeps."""
+        self.wallclock_cancel = bool(enabled)
+
+    def set_scheduler(self, name: str, tenant_weights=None) -> None:
+        """Swap the scheduling policy at runtime. Queued requests
+        migrate in the old policy's service order; per-tenant windows
+        and counters restart with the new policy."""
+        cfg = sched_lib.SchedulerConfig(
+            max_queue_requests=self.ecfg.max_queue_requests,
+            max_queue_tokens=self.ecfg.max_queue_tokens,
+            tenant_weights=(tenant_weights if tenant_weights is not None
+                            else self.ecfg.tenant_weights))
+        with self._lock:
+            new = sched_lib.make(name, cfg)
+            old = self._sched
+            while True:
+                req = old.pop_next()
+                if req is None:
+                    break
+                new.enqueue(req)
+            self._sched = new
+
+    def set_tenant_weights(self, weights) -> None:
+        """Update wfq weights mid-flight (queued work keeps its
+        position; future decisions use the new weights)."""
+        with self._lock:
+            self._sched.set_tenant_weights(weights)
+
+    def sched_snapshot(self) -> Dict[str, Any]:
+        """Locked export of the scheduler's per-tenant raw stats."""
+        with self._lock:
+            return self._sched.snapshot()
+
     # ---- submission ------------------------------------------------------
     def submit(self, prompt_tokens: Sequence[int],
                max_new_tokens: Optional[int] = None,
-               temperature: float = 0.0, spec: bool = True) -> Request:
+               temperature: float = 0.0, spec: bool = True,
+               deadline: Optional[float] = None,
+               tenant: str = sched_lib.DEFAULT_TENANT) -> Request:
         """Queue a request. ``spec=False`` opts it out of speculative
-        drafting. Raises ValueError for a prompt the cache or the page
-        pool can never hold."""
+        drafting; ``deadline`` is an absolute wall-clock cutoff;
+        ``tenant`` its fair-queueing identity. Raises ValueError for a
+        prompt the cache or the page pool can never hold, and
+        :class:`AdmissionError` when the scheduler's queue bound is
+        hit."""
         if not prompt_tokens:
             raise ValueError('empty prompt')
         total = len(prompt_tokens)
@@ -319,10 +471,29 @@ class InferenceEngine:
         req = Request(request_id=next(self._ids),
                       prompt_tokens=list(map(int, prompt_tokens)),
                       max_new_tokens=int(max_new_tokens),
-                      temperature=float(temperature), spec=bool(spec))
+                      temperature=float(temperature), spec=bool(spec),
+                      deadline=deadline,
+                      tenant=str(tenant) or sched_lib.DEFAULT_TENANT)
         with self._lock:
-            self._waiting.append(req)
+            # The scheduler's call (global bounds under fcfs/deadline,
+            # per-tenant quotas under wfq); the Retry-After estimate
+            # divides by the recent emitted tokens per second.
+            self._sched.admit(req, drain_tps=(
+                self._decode_tokens / self._decode_time
+                if self._decode_time else 0.0))
+            self._sched.enqueue(req)
         return req
+
+    def cancel(self, req: Request) -> bool:
+        """Flag ``req`` cancelled (thread-safe); the engine thread drops
+        it at its next step: a queued request never admits, an active
+        one finishes 'cancelled' and frees its pages. False when it
+        already finished."""
+        with self._lock:
+            if req.done:
+                return False
+            req.cancelled = True
+        return True
 
     # ---- internals -------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -332,14 +503,37 @@ class InferenceEngine:
         raise AssertionError(f'prompt length {n} has no bucket (max '
                              f'{self._buckets[-1]})')
 
+    @staticmethod
+    def _source_tokens(req: Request) -> List[int]:
+        """What prefill must cache: the prompt plus, after a preemption,
+        everything already generated (resume by recompute: the final
+        chunk's sample is then the next new token)."""
+        return req.prompt_tokens + req.output_tokens
+
+    def _host_to_device(self, array: np.ndarray,
+                        out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """Copy a host array to the device without a host sync: on CUDA
+        staged through pinned memory (the caching host allocator keeps
+        the block until the copy has run). Into ``out`` in place when
+        given."""
+        src = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == 'cuda':
+            src = src.pin_memory()
+        if out is None:
+            return src.to(self.device, non_blocking=True)
+        out.copy_(src, non_blocking=True)
+        return out
+
     def _do_chunk(self, slot: int) -> Optional[bool]:
-        """Advance one prefilling slot by ONE chunk. Returns True when
-        the prompt is fully cached (the slot joins this step's decode),
-        False on progress, None when the pool cannot cover the chunk
-        right now (deferred)."""
+        """Advance one prefilling slot by ONE chunk, with no host sync
+        (the sampled token stays on the device; a later step's pair
+        carries it). Returns True when the source is fully cached (the
+        slot joins this step's decode), False on progress, None when the
+        pool cannot cover the chunk right now (deferred)."""
         req = self._slots[slot]
         off = self._prefilling[slot]
-        source = req.prompt_tokens
+        source = self._source_tokens(req)
         n = len(source)
         remaining = n - off
         bucket = self._bucket(min(remaining, self._chunk_cap))
@@ -347,25 +541,32 @@ class InferenceEngine:
             bucket = max(b for b in self._buckets if b < bucket)
         tl = min(remaining, bucket)
         if not self.allocator.extend(slot, off + bucket):
-            return None
+            # Dry by stale accounting: in-flight steps may be about to
+            # free pages. Catch up before deferring, so page decisions
+            # are the same at every depth.
+            self._drain_inflight()
+            if not self.allocator.extend(slot, off + bucket):
+                return None
         if req.first_dispatch_at is None:
             req.first_dispatch_at = time.time()
+            wait = req.first_dispatch_at - req.submitted_at
             with self._lock:
-                self._queue_waits.append(req.first_dispatch_at
-                                         - req.submitted_at)
+                self._queue_waits.append(wait)
+                self._sched.note_queue_wait(req, wait)
         padded = np.zeros((bucket,), np.int32)
         padded[:tl] = source[off:off + tl]
-        table_row = torch.from_numpy(self.allocator.table()[slot]).to(
-            self.device)
-        tokens = torch.from_numpy(padded).to(self.device)
+        table_row = self._host_to_device(self.allocator.table()[slot])
+        tokens = self._host_to_device(padded)
         self.cache, logits = model_lib.paged_prefill_chunk(
             self.config, self.params, self.cache, slot, table_row, tokens,
             off, tl, self._rope)
+        sampled = req.temperature > 0
+        temp = np.array([req.temperature], np.float32)
         tok = sampling_lib.sample(
             logits[None], self._generator,
-            torch.tensor([req.temperature], dtype=torch.float32),
-            top_k=self.ecfg.top_k)[0]
-        self._last_dev[slot] = tok
+            self._host_to_device(temp) if sampled else torch.from_numpy(temp),
+            top_k=self.ecfg.top_k, sampled=sampled)[0]
+        self._last[slot] = tok
         with self._lock:
             self._prefill_tokens += tl
             self._prefill_chunks += 1
@@ -376,6 +577,7 @@ class InferenceEngine:
         del self._prefilling[slot]
         self._slot_len[slot] = n
         self._temps[slot] = req.temperature
+        self._temps_dirty = True
         return True
 
     def _finished(self, req: Request, slot: int, token: int) -> bool:
@@ -390,52 +592,149 @@ class InferenceEngine:
             return True
         return False
 
+    def _release_slot(self, slot: int) -> None:  # holds: _lock
+        """Free the slot's pages and zero its device length (the
+        reference's ``_release_slot_pages`` plus ``_free``; without a
+        prefix cache nothing is donated)."""
+        self._slots[slot] = None
+        self.allocator.free(slot)
+        self._slot_len[slot] = 0
+        self.cache = paged_cache_lib.free_slot(self.cache, slot)
+
     def _finish(self, slot: int, req: Request) -> None:
         with self._lock:
             req.finished_at = time.time()
             if req.first_token_at is None and req.output_tokens:
                 req.first_token_at = req.finished_at
-                self._ttfts.append(req.finished_at - req.submitted_at)
-            self._slots[slot] = None
+                ttft = req.finished_at - req.submitted_at
+                self._ttfts.append(ttft)
+                self._sched.note_first_token(req, ttft)
             self._prefilling.pop(slot, None)
-            self.allocator.free(slot)
-            self._slot_len[slot] = 0
-            self.cache = paged_cache_lib.free_slot(self.cache, slot)
+            self._release_slot(slot)
         req._notify()
 
-    def _cache_full(self, slot: int) -> None:
-        req = self._slots[slot]
-        req.finish_reason = 'cache_full'
-        self._finish(slot, req)
+    def _finish_queued(self, req: Request, reason: str) -> None:
+        """Finish a request that never reached a slot (abandoned or
+        expired while waiting). Under the engine lock."""
+        req.finish_reason = reason
+        req.finished_at = time.time()
+        req._notify()
+
+    def _finish_early(self, slot: int, req: Request, reason: str) -> None:
+        """Tear an active slot down outside the natural finish path
+        (client gone, deadline passed), mid-prefill included. In-flight
+        steps for the slot drop their tokens by the stale-by-one rule."""
+        with self._lock:
+            self._prefilling.pop(slot, None)
+            req.finish_reason = reason
+            req.finished_at = time.time()
+            self._release_slot(slot)
+        req._notify()
+
+    def _sweep_dead_requests(self) -> None:  # holds: _lock
+        """Drop queued requests whose client is gone or whose deadline
+        passed, and finish active ones ('cancelled' / 'deadline')."""
+        if not self.wallclock_cancel:
+            return
+        now = time.time()
+        for r, reason in self._sched.sweep(now):
+            if reason == 'cancelled':
+                self._abandoned += 1
+            else:
+                self._expired += 1
+            self._finish_queued(r, reason)
+        for slot, r in enumerate(self._slots):
+            if r is None:
+                continue
+            if r.cancelled:
+                self._cancelled += 1
+                self._sched.note_outcome(r, 'cancelled')
+                self._finish_early(slot, r, 'cancelled')
+            elif r.deadline is not None and now > r.deadline:
+                self._expired += 1
+                self._sched.note_outcome(r, 'deadline')
+                self._finish_early(slot, r, 'deadline')
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot`` to reclaim its pages: the request goes back to
+        the FRONT of the queue and resumes by recomputing prompt +
+        generated tokens. Streamed output is kept; TTFT is not
+        re-recorded."""
+        with self._lock:
+            req = self._slots[slot]
+            self._prefilling.pop(slot, None)
+            self._release_slot(slot)
+            self._sched.requeue(req)
+            self._preemptions += 1
 
     def _ensure_decode_pages(self, decoding: List[int]) -> List[int]:
-        """Every decoding slot must own the page its next token writes.
-        Without preemption in this slice, a slot the pool cannot cover
-        finishes 'cache_full'."""
-        out = []
-        for slot in decoding:
-            if self.allocator.extend(slot, int(self._slot_len[slot]) + 1):
-                out.append(slot)
-            else:
-                self._cache_full(slot)
-        return out
+        """Every decoding slot must own the page its next token writes,
+        counting the tokens still in flight (slot_len + in-flight + 1).
+        Where the pool is dry: drain the in-flight steps, then preempt
+        the scheduler's victim, then finish 'cache_full' (the slot
+        outgrew its ceiling or is alone). Decisions follow a drain only,
+        so they are the same at every depth. Returns the slots still
+        decoding."""
+        decoding = list(decoding)
+
+        def target(s: int) -> int:
+            return int(self._slot_len[s]) + self._inflight_tok[s] + 1
+
+        for slot in list(decoding):
+            if slot not in decoding:
+                continue   # preempted as an earlier slot's victim
+            if self._slots[slot] is None:
+                decoding.remove(slot)
+                continue
+            while not self.allocator.extend(slot, target(slot)):
+                if self._queue:
+                    self._drain_inflight()
+                    if self._slots[slot] is None:
+                        break
+                    continue
+                if (self.allocator.pages_needed(target(slot))
+                        > self.allocator.max_pages_per_slot):
+                    req = self._slots[slot]
+                    req.finish_reason = 'cache_full'
+                    self._finish(slot, req)
+                    break
+                victims = [s for s, r in enumerate(self._slots)
+                           if r is not None and s != slot]
+                if not victims:
+                    req = self._slots[slot]
+                    req.finish_reason = 'cache_full'
+                    self._finish(slot, req)
+                    break
+                with self._lock:
+                    victim = self._sched.pick_victim(victims, self._slots)
+                self._preempt(victim)
+                if victim in decoding:
+                    decoding.remove(victim)
+        return [s for s in decoding
+                if self._slots[s] is not None
+                and s not in self._prefilling]
 
     # ---- the step --------------------------------------------------------
     def step(self) -> int:
-        """Refill free slots, advance at most ``prefill_chunks_per_step``
-        prefill chunks (round-robin across prefilling slots), then decode
-        one token for every fully prefilled slot and read the tokens back.
-        Returns the number of slots worked on."""
+        """Refill free slots from the scheduler, advance at most
+        ``prefill_chunks_per_step`` prefill chunks (the scheduler picks
+        which), then dispatch one decode (or verify) step for every
+        fully prefilled slot, and read back steps until at most
+        ``pipeline_depth`` remain in flight. Returns the number of slots
+        worked on."""
         with torch.no_grad():
             return self._step()
 
     def _step(self) -> int:
         with self._lock:
+            self._sweep_dead_requests()
+            spec_k = self._spec_k
             for slot in range(self.ecfg.n_slots):
                 if self._slots[slot] is None:
-                    if not self._waiting:
+                    req = self._sched.pop_next()
+                    if req is None:
                         break
-                    self._slots[slot] = self._waiting.popleft()
+                    self._slots[slot] = req
                     self._prefilling[slot] = 0
         just_prefilled: List[int] = []
         deferred: set = set()
@@ -444,8 +743,9 @@ class InferenceEngine:
                                 if s not in deferred)
             if not candidates:
                 break
-            self._rr = (self._rr + 1) % len(candidates)
-            slot = candidates[self._rr]
+            with self._lock:
+                slot = self._sched.next_prefill_slot(candidates,
+                                                     self._slots)
             result = self._do_chunk(slot)
             if result is None:
                 deferred.add(slot)
@@ -453,73 +753,209 @@ class InferenceEngine:
                 just_prefilled.append(slot)
         if deferred and not any(r is not None and s not in self._prefilling
                                 for s, r in enumerate(self._slots)):
-            # Nothing decodes, so nothing will free pages: the youngest
-            # other page-holding slot gives way to the oldest deferred
-            # one (the reference preempts it; this slice finishes it), or
-            # the deferred request alone has outgrown the pool.
+            # Nothing decodes, so nothing will free pages: the
+            # scheduler's victim among the other page-holding slots gives
+            # way to the oldest deferred one, or the deferred request
+            # alone has outgrown the pool.
             keep = min(deferred, key=lambda s: self._slots[s].submitted_at)
             victims = [s for s, r in enumerate(self._slots)
                        if r is not None and s != keep
                        and self.allocator.pages_of(s) > 0]
             if victims:
-                self._cache_full(max(
-                    victims, key=lambda s: self._slots[s].submitted_at))
+                with self._lock:
+                    victim = self._sched.pick_victim(victims, self._slots)
+                self._preempt(victim)
             else:
-                self._cache_full(keep)
+                req = self._slots[keep]
+                req.finish_reason = 'cache_full'
+                self._finish(keep, req)
+        if spec_k:
+            # Drafting continues the host-known tokens, which an
+            # in-flight step is about to extend: catch up first, unless
+            # no slot could draft (then keep the overlap).
+            fresh = set(just_prefilled)
+            eligible = [s for s in range(self.ecfg.n_slots)
+                        if self._spec_eligible(s, fresh)]
+            if not eligible:
+                spec_k = 0
+            elif self._queue and not any(
+                    self._drafter.propose(
+                        drafter_lib.cached_context(
+                            self._slots[s].prompt_tokens,
+                            self._slots[s].output_tokens,
+                            self._slots[s].draft_memo),
+                        1, memo=self._slots[s].draft_memo)
+                    for s in eligible):
+                spec_k = 0
+        if spec_k and self._queue:
+            t0 = time.perf_counter()
+            self._drain_inflight()
+            with self._lock:
+                self._decode_time += time.perf_counter() - t0
         decoding = [s for s, r in enumerate(self._slots)
                     if r is not None and s not in self._prefilling]
         if decoding:
             decoding = self._ensure_decode_pages(decoding)
-        if not decoding:
+        if not decoding and not self._queue:
             return len(self._prefilling)
         t0 = time.perf_counter()
-        with self._lock:
-            spec_k = self._spec_k
-        # No drafts this step (speculation off, no eligible slot, or no
-        # n-gram matched): the plain decode step is the cheaper one.
-        drafts = (self._build_drafts(decoding, just_prefilled, spec_k)
-                  if spec_k else None)
-        if drafts is not None:
-            self._verify(decoding, just_prefilled, *drafts)
-        else:
-            self._decode(decoding, just_prefilled)
+        if decoding:
+            # No drafts this step (speculation off, no eligible slot, or
+            # no n-gram matched): the plain decode step is the cheaper.
+            drafts = (self._build_drafts(decoding, just_prefilled, spec_k)
+                      if spec_k else None)
+            if drafts is not None:
+                self._dispatch_verify(decoding, just_prefilled, *drafts)
+            else:
+                self._dispatch_decode(decoding, just_prefilled)
+        # At most _depth steps stay in flight; with nothing dispatched
+        # there is no overlap to win, so drain (finished requests
+        # surface and idle() can flip).
+        allowed = self._depth if decoding else 0
+        while len(self._queue) > allowed:
+            self._consume_one()
         with self._lock:
             self._decode_time += time.perf_counter() - t0
         return len(decoding) + len(self._prefilling)
 
-    def _refresh_dispatch_state(self, decoding: List[int]) -> None:
-        """Upload the block table and the active mask where they changed
-        (shared by the decode and the verify step)."""
+    def _refresh_dispatch_state(self, decoding: List[int]) -> bool:
+        """Copy the block table, the active mask and the temperatures
+        into their static device buffers where they changed. Returns
+        whether any decoding slot samples (it selects the program)."""
         if self._table_version != self.allocator.version:
-            self._table_dev = torch.from_numpy(self.allocator.table()).to(
-                self.device)
+            self._host_to_device(self.allocator.table(), self._table)
             self._table_version = self.allocator.version
         key = tuple(decoding)
         if key != self._active_key:
             mask = np.zeros((self.ecfg.n_slots,), np.bool_)
             mask[decoding] = True
-            self._active_dev = torch.from_numpy(mask).to(self.device)
+            self._host_to_device(mask, self._active)
             self._active_key = key
+        if self._temps_dirty:
+            self._host_to_device(self._temps, self._temps_dev)
+            self._temps_dirty = False
+        return bool((self._temps[decoding] > 0).any())
 
-    def _decode(self, decoding: List[int],
-                just_prefilled: List[int]) -> None:
-        """One decode step over every slot, then its host bookkeeping.
-        The step's [2, slots] pair is read back at once: row 0 echoes the
+    def _run_program(self, key: tuple, body: Callable[[], torch.Tensor]
+                     ) -> torch.Tensor:
+        """Run the step program ``key`` = (kind, queries per slot,
+        samples) and return its token pair on the device. Eager where
+        graphs are off. On the card: the first run goes eagerly on the
+        capture stream (it builds what the step needs: kernels, cuBLAS
+        handles, workspaces), the second captures a CUDA graph, and
+        every run from then on replays it."""
+        prog = self._programs.setdefault(key, _StepProgram())
+        prog.runs += 1
+        if not self._graphs_on:
+            return body()
+        if prog.graph is None:
+            stream = self._capture_stream
+            current = torch.cuda.current_stream(self.device)
+            if prog.runs == 1:
+                stream.wait_stream(current)
+                with torch.cuda.stream(stream):
+                    out = body()
+                current.wait_stream(stream)
+                out.record_stream(current)
+                return out
+            graph = torch.cuda.CUDAGraph()
+            if key[2]:
+                # The sampled program draws from the engine's generator:
+                # each replay must advance it.
+                graph.register_generator_state(self._generator)
+            before = dict(paged_attn.captured)
+            try:
+                with torch.cuda.graph(graph, stream=stream):
+                    out = body()
+            except Exception as e:
+                raise RuntimeError(
+                    f'CUDA graph capture of the {key[0]} step (R={key[1]}, '
+                    f'sampled={key[2]}) failed; no eager fallback') from e
+            prog.graph, prog.out = graph, out
+            prog.launches = {k: paged_attn.captured[k] - before[k]
+                             for k in before
+                             if paged_attn.captured[k] != before[k]}
+        prog.graph.replay()
+        paged_attn.count_replay(prog.launches)
+        return prog.out
+
+    def _decode_body(self, sampled: bool) -> torch.Tensor:
+        """The decode step over every slot: [2, slots] int32, row 0 the
         input tokens (the first token of each slot that finished prefill
-        this step), row 1 holds the new tokens."""
-        self._refresh_dispatch_state(decoding)
-        assigned = [(s, self._slots[s]) for s in decoding]
-        prefilled = [(s, self._slots[s]) for s in just_prefilled]
+        this step), row 1 the new tokens; the new tokens become the next
+        input."""
         logits, self.cache = model_lib.paged_decode_step(
-            self.config, self.params, self.cache, self._table_dev,
-            self._last_dev, self._rope, self._active_dev)
-        sampled = sampling_lib.sample(logits, self._generator,
-                                      torch.from_numpy(self._temps.copy()),
-                                      top_k=self.ecfg.top_k)
-        toks_out = torch.where(self._active_dev, sampled, self._last_dev)
-        pair = torch.stack([self._last_dev, toks_out]).cpu().numpy()
-        self._last_dev = toks_out
-        self._consume(pair, prefilled, assigned, None)
+            self.config, self.params, self.cache, self._table, self._last,
+            self._rope, self._active)
+        toks = sampling_lib.sample(logits, self._generator, self._temps_dev,
+                                   top_k=self.ecfg.top_k, sampled=sampled)
+        toks_out = torch.where(self._active, toks, self._last)
+        pair = torch.stack([self._last, toks_out])
+        self._last.copy_(toks_out)
+        return pair
+
+    def _verify_body(self, r: int, sampled: bool) -> torch.Tensor:
+        """The verify step over every slot: the run's K/V writes, every
+        candidate's logits, exact-greedy acceptance and the device-side
+        advance (lengths += accepted + 1 on active slots, the corrected
+        token becomes the next input). [r + 2, slots] int32: row 0 the
+        input tokens, rows 1..r the model's token at each position, row
+        r + 1 the accepted count."""
+        drafts = self._drafts[r]
+        tokens = torch.cat([self._last[:, None], drafts], dim=1)
+        logits, self.cache = model_lib.paged_verify_step(
+            self.config, self.params, self.cache, self._table, tokens,
+            self._rope)
+        emitted, accepted = sampling_lib.speculative_accept(
+            logits, drafts, self._draft_lens, self._generator,
+            self._temps_dev, top_k=self.ecfg.top_k, sampled=sampled)
+        active = self._active
+        accepted = torch.where(active, accepted, torch.zeros_like(accepted))
+        next_tok = emitted.gather(1, accepted.long()[:, None])[:, 0]
+        lengths = self.cache.lengths
+        lengths += (accepted + 1).to(lengths.dtype) * active.to(lengths.dtype)
+        pair = torch.cat([tokens[:, :1].T, emitted.T, accepted[None]], dim=0)
+        self._last.copy_(torch.where(active, next_tok, tokens[:, 0]))
+        return pair
+
+    def _enqueue_readback(self, pair: torch.Tensor, decoded, prefilled,
+                          spec_r: Optional[int]) -> None:
+        """Start the pair's copy into the next host ring buffer (pinned
+        on CUDA, the copy asynchronous on the step's stream, so the next
+        replay cannot overwrite the pair first), record an event after
+        it, and queue the step for consumption. The ring is rebuilt when
+        the depth changes or a pair outgrows it (room for a verify pair of
+        the current width); steps in flight keep their own buffers."""
+        if (len(self._ring) != self._depth + 1
+                or self._ring[0].shape[0] < pair.shape[0]):
+            pin = self.device.type == 'cuda'
+            rows = max(pair.shape[0], self._spec_k + 3)
+            self._ring = [torch.empty((rows, self.ecfg.n_slots),
+                                      dtype=torch.int32, pin_memory=pin)
+                          for _ in range(self._depth + 1)]
+            self._ring_i = 0
+        host = self._ring[self._ring_i][:pair.shape[0]]
+        self._ring_i = (self._ring_i + 1) % len(self._ring)
+        host.copy_(pair, non_blocking=True)
+        event = None
+        if self.device.type == 'cuda':
+            event = torch.cuda.Event()
+            event.record()
+        self._queue.append((host, event, decoded, prefilled, spec_r))
+
+    def _dispatch_decode(self, decoding: List[int],
+                         just_prefilled: List[int]) -> None:
+        """Dispatch one decode step (no host sync)."""
+        sampled = self._refresh_dispatch_state(decoding)
+        pair = self._run_program(('decode', 1, sampled),
+                                 lambda: self._decode_body(sampled))
+        with self._lock:
+            self._decode_steps += 1
+            for s in decoding:
+                self._inflight_tok[s] += 1
+        self._enqueue_readback(
+            pair, [(s, self._slots[s]) for s in decoding],
+            [(s, self._slots[s]) for s in just_prefilled], None)
 
     # ---- speculative decoding -------------------------------------------
     def _spec_eligible(self, s: int, fresh: set) -> bool:
@@ -536,20 +972,25 @@ class InferenceEngine:
         """Prompt-lookup drafts for this step's decoding slots:
         ``(draft_mat [slots, spec_k], draft_lens [slots])`` int32,
         zero-padded, or None when nobody drafted. A slot's width is the
-        fcfs scheduler's budget (``spec_k``), cut so every drafted
-        position and the corrected token fit in the cache and no token
-        past the request's budget is drafted; a pool that cannot cover
-        the run trims the draft, never the workload."""
+        scheduler's ``spec_budget``, cut so every drafted position and
+        the corrected token fit in the cache and no token past the
+        request's budget is drafted; a pool that cannot cover the run
+        trims the draft, never the workload."""
         lens = np.zeros((self.ecfg.n_slots,), np.int32)
         mat = np.zeros((self.ecfg.n_slots, spec_k), np.int32)
         fresh = set(just_prefilled)
+        eligible = [s for s in decoding if self._spec_eligible(s, fresh)]
+        if not eligible:
+            return None
+        with self._lock:
+            budgets = {s: self._sched.spec_budget(self._slots[s], spec_k)
+                       for s in eligible}
         any_draft = False
-        for s in decoding:
-            if not self._spec_eligible(s, fresh):
-                continue
+        for s in eligible:
             req = self._slots[s]
             base = int(self._slot_len[s])
-            budget = min(spec_k, self.ecfg.max_seq_len - 2 - base,
+            budget = min(int(budgets[s]), spec_k,
+                         self.ecfg.max_seq_len - 2 - base,
                          req.max_new_tokens - len(req.output_tokens) - 1)
             if budget <= 0:
                 continue
@@ -569,38 +1010,80 @@ class InferenceEngine:
             any_draft = True
         return (mat, lens) if any_draft else None
 
-    def _verify(self, decoding: List[int], just_prefilled: List[int],
-                draft_mat: np.ndarray, draft_lens: np.ndarray) -> None:
-        """One verify step over every slot: the run's K/V writes, every
-        candidate's logits, exact-greedy acceptance and the device-side
-        advance (lengths += accepted + 1 on active slots, the corrected
-        token becomes the next input), then its host bookkeeping. The
-        [R + 2, slots] rows read back: row 0 the input tokens, rows
-        1..R the model's token at each position, row R + 1 the accepted
-        count."""
-        self._refresh_dispatch_state(decoding)
-        decoded = [(s, self._slots[s], int(draft_lens[s])) for s in decoding]
-        prefilled = [(s, self._slots[s]) for s in just_prefilled]
-        drafts = torch.from_numpy(draft_mat).to(self.device)
-        lens = torch.from_numpy(draft_lens).to(self.device)
-        tokens = torch.cat([self._last_dev[:, None], drafts], dim=1)
-        logits, self.cache = model_lib.paged_verify_step(
-            self.config, self.params, self.cache, self._table_dev, tokens,
-            self._rope)
-        emitted, accepted = sampling_lib.speculative_accept(
-            logits, drafts, lens, self._generator,
-            torch.from_numpy(self._temps.copy()), top_k=self.ecfg.top_k)
-        active = self._active_dev
-        accepted = torch.where(active, accepted, torch.zeros_like(accepted))
-        next_tok = emitted.gather(1, accepted.long()[:, None])[:, 0]
-        self._last_dev = torch.where(active, next_tok, tokens[:, 0])
-        self.cache.lengths += (accepted + 1).to(
-            self.cache.lengths.dtype) * active.to(self.cache.lengths.dtype)
-        pair = torch.cat([tokens[:, :1].T, emitted.T, accepted[None]],
-                         dim=0).cpu().numpy()
+    def _dispatch_verify(self, decoding: List[int],
+                         just_prefilled: List[int],
+                         draft_mat: np.ndarray,
+                         draft_lens: np.ndarray) -> None:
+        """Dispatch one verify step (no host sync); its pair rides the
+        in-flight queue like a decode pair."""
+        sampled = self._refresh_dispatch_state(decoding)
+        r = draft_mat.shape[1] + 1
+        if r not in self._drafts:
+            self._drafts[r] = torch.zeros((self.ecfg.n_slots, r - 1),
+                                          dtype=torch.int32,
+                                          device=self.device)
+        self._host_to_device(draft_mat, self._drafts[r])
+        self._host_to_device(draft_lens, self._draft_lens)
+        pair = self._run_program(('verify', r, sampled),
+                                 lambda: self._verify_body(r, sampled))
         with self._lock:
+            self._decode_steps += 1
             self._spec_steps += 1
-        self._consume(pair, prefilled, decoded, tokens.shape[1])
+            for s in decoding:
+                self._inflight_tok[s] += int(draft_lens[s]) + 1
+        self._enqueue_readback(
+            pair, [(s, self._slots[s], int(draft_lens[s])) for s in decoding],
+            [(s, self._slots[s]) for s in just_prefilled], r)
+
+    # ---- host bookkeeping ------------------------------------------------
+    def _consume_one(self) -> None:
+        """Read back the OLDEST in-flight step (waiting on its event
+        alone) and apply it: first tokens of the slots that finished
+        prefill at its dispatch (row 0), then each decoding slot's new
+        token (row 1), or its accepted run on a verify step. Stale-by-one:
+        a slot that no longer holds the request it held at dispatch
+        (finished or preempted since) drops its token."""
+        host, event, decoded, prefilled, spec_r = self._queue.popleft()
+        if event is not None:
+            event.synchronize()
+        pair = host.numpy().copy()
+        now = time.time()
+        touched: List[Request] = []
+        with self._lock:
+            for slot, req in prefilled:
+                if req is None or req.done or self._slots[slot] is not req:
+                    continue
+                first = int(pair[0, slot])
+                if req.first_token_at is None:
+                    req.first_token_at = now
+                    self._ttfts.append(now - req.submitted_at)
+                    self._sched.note_first_token(req, now - req.submitted_at)
+                req.output_tokens.append(first)
+                self._decode_tokens += 1
+                self._sched.note_tokens(req)
+                touched.append(req)
+                if self._finished(req, slot, first):
+                    # The token decoded this same step dies with the slot.
+                    self._finish(slot, req)
+            if spec_r is not None:
+                self._consume_verify(pair, decoded, spec_r, touched)
+                decoded = ()
+            for slot, req in decoded:
+                self._inflight_tok[slot] = max(
+                    0, self._inflight_tok[slot] - 1)
+                if req is None or req.done or self._slots[slot] is not req:
+                    continue
+                token = int(pair[1, slot])
+                req.output_tokens.append(token)
+                self._slot_len[slot] += 1
+                self._decode_tokens += 1
+                self._sched.note_tokens(req)
+                touched.append(req)
+                if self._finished(req, slot, token):
+                    self._finish(slot, req)
+        for req in touched:
+            if not req.done:
+                req._notify()
 
     def _consume_verify(self, pair: np.ndarray, decoded, spec_r: int,
                         touched: List[Request]) -> None:  # holds: _lock
@@ -612,7 +1095,9 @@ class InferenceEngine:
         rows are (slot, request, draft_len); the accepted count sits in
         row ``spec_r + 1``."""
         for slot, req, dl in decoded:
-            if req.done or self._slots[slot] is not req:
+            self._inflight_tok[slot] = max(
+                0, self._inflight_tok[slot] - (dl + 1))
+            if req is None or req.done or self._slots[slot] is not req:
                 continue
             accepted = min(int(pair[spec_r + 1, slot]), dl)
             if dl > 0:
@@ -630,6 +1115,7 @@ class InferenceEngine:
                 if dl > 0:
                     self._spec_emitted += 1
                     req.spec_emitted += 1
+                self._sched.note_tokens(req)
                 if self._finished(req, slot, token):
                     self._finish(slot, req)
                     break
@@ -640,52 +1126,18 @@ class InferenceEngine:
             # write page is kept) return to the pool now.
             self.allocator.shrink(slot, int(self._slot_len[slot]) + 1)
 
-    # ---- host bookkeeping ------------------------------------------------
-    def _consume(self, pair: np.ndarray, prefilled, decoded,
-                 spec_r: Optional[int]) -> None:
-        """Apply a step's read-back rows: first tokens of the slots that
-        finished prefill this step (row 0), then each decoding slot's new
-        token (row 1), or its accepted run on a verify step
-        (``spec_r`` = R)."""
-        now = time.time()
-        touched: List[Request] = []
-        with self._lock:
-            self._decode_steps += 1
-            for slot, req in prefilled:
-                if req.done or self._slots[slot] is not req:
-                    continue
-                first = int(pair[0, slot])
-                if req.first_token_at is None:
-                    req.first_token_at = now
-                    self._ttfts.append(now - req.submitted_at)
-                req.output_tokens.append(first)
-                self._decode_tokens += 1
-                touched.append(req)
-                if self._finished(req, slot, first):
-                    # The token decoded this same step dies with the slot.
-                    self._finish(slot, req)
-            if spec_r is not None:
-                self._consume_verify(pair, decoded, spec_r, touched)
-                decoded = ()
-            for slot, req in decoded:
-                if req.done or self._slots[slot] is not req:
-                    continue
-                token = int(pair[1, slot])
-                req.output_tokens.append(token)
-                self._slot_len[slot] += 1
-                self._decode_tokens += 1
-                touched.append(req)
-                if self._finished(req, slot, token):
-                    self._finish(slot, req)
-        for req in touched:
-            if not req.done:
-                req._notify()
+    def _drain_inflight(self) -> None:
+        """Consume every in-flight step (host state catches up with the
+        device): before page-pressure decisions and drafting."""
+        while self._queue:
+            self._consume_one()
 
     # ---- driving ---------------------------------------------------------
     def idle(self) -> bool:
         with self._lock:
-            return (not self._waiting
-                    and all(r is None for r in self._slots))
+            return (not self._sched.pending()
+                    and all(r is None for r in self._slots)
+                    and not self._queue)
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> None:
         for _ in range(max_steps):
@@ -703,10 +1155,25 @@ class InferenceEngine:
         return reqs
 
     # ---- metrics ---------------------------------------------------------
+    def compiled_counts(self) -> Dict[str, int]:
+        """Step programs per kind: on the card, the CUDA graphs captured
+        or about to be (one per (queries per slot, samples) key); on the
+        CPU or with graphs off, the distinct step shapes run eagerly.
+        Greedy steady state: decode 1, and verify 1 per draft width once
+        speculation ran. Prefill chunks and slot frees run eagerly and
+        are not counted."""
+        out = {'decode': 0}
+        # A copy: metrics() calls this from HTTP threads while the engine
+        # thread may add a program.
+        for kind, _, _ in list(self._programs):
+            out[kind] = out.get(kind, 0) + 1
+        return out
+
     def metrics(self) -> Dict[str, Any]:
         with self._lock:
             ttfts = sorted(self._ttfts)
             waits = sorted(self._queue_waits)
+            snap = self._sched.snapshot()
             c = dict(steps=self._decode_steps, tokens=self._decode_tokens,
                      time=self._decode_time, spec_k=self._spec_k,
                      spec_steps=self._spec_steps,
@@ -716,8 +1183,14 @@ class InferenceEngine:
                      spec_emitted=self._spec_emitted,
                      prefill_tokens=self._prefill_tokens,
                      prefill_chunks=self._prefill_chunks,
-                     waiting=len(self._waiting),
+                     scheduler=self._sched.name,
+                     waiting=self._sched.pending(),
+                     queued_tokens=self._sched.queued_tokens(),
                      active=sum(1 for r in self._slots if r is not None),
+                     abandoned=self._abandoned, expired=self._expired,
+                     cancelled=self._cancelled,
+                     preemptions=self._preemptions,
+                     in_flight=sum(self._inflight_tok),
                      pages_free=self.allocator.free_pages)
         return {
             'decode_steps': c['steps'],
@@ -744,19 +1217,32 @@ class InferenceEngine:
             'ttft_p50_s': ttfts[len(ttfts) // 2] if ttfts else None,
             'queue_wait_p50_ms': (round(waits[len(waits) // 2] * 1e3, 3)
                                   if waits else None),
-            'scheduler': 'fcfs',
+            'queue_wait_p99_ms': (round(
+                waits[min(len(waits) - 1, int(len(waits) * 0.99))] * 1e3,
+                3) if waits else None),
+            'scheduler': c['scheduler'],
             'num_waiting': c['waiting'],
+            'queued_tokens': c['queued_tokens'],
+            'tenants': sched_lib.aggregate_stats([snap], c['time']),
             'num_active': c['active'],
-            'pipeline_depth': 0,
+            'requests_abandoned': c['abandoned'],
+            'requests_expired': c['expired'],
+            'requests_cancelled': c['cancelled'],
+            'pipeline_depth': self._depth,
+            'tokens_in_flight': c['in_flight'],
+            'cuda_graphs': self._graphs_on,
+            'step_programs': self.compiled_counts(),
             'paged': True,
             'page_size': self.allocator.page_size,
             'pages_total': self.allocator.n_pages,
             'pages_free': c['pages_free'],
+            'preemptions': c['preemptions'],
             'kv_dtype': self.ecfg.kv_dtype,
             'kv_page_bytes': self._kv_page_bytes(),
             'device': str(self.device),
             # Launches of each hand-written kernel in this process (the
-            # wrappers' counters): shows the path ran through them.
+            # wrappers' counters, graph replays included): shows the
+            # path ran through them.
             'kernel_launches': dict(paged_attn.launches),
         }
 

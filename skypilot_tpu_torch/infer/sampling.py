@@ -2,9 +2,12 @@
 ``skypilot_tpu/infer/sampling.py``).
 
 Greedy is argmax (the first maximal index on ties, as in the reference).
-Temperature sampling draws with ``torch.multinomial`` from the engine's
-``torch.Generator``; its bits can never match ``jax.random``, so tests
-compare distributions, not tokens.
+Temperature sampling draws from the engine's ``torch.Generator`` by the
+exponential race ``argmax(probs / Exp(1))``, which is what
+``torch.multinomial`` computes for one sample, bit for bit, without its
+host-side checks (so a step that samples can be captured in a CUDA
+graph). Its bits can never match ``jax.random``, so tests compare
+distributions, not tokens.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ class SamplingParams:
 def speculative_accept(logits: torch.Tensor, drafts: torch.Tensor,
                        draft_len: torch.Tensor,
                        generator: Optional[torch.Generator],
-                       temperature: torch.Tensor, top_k: int = 0
+                       temperature: torch.Tensor, top_k: int = 0,
+                       sampled: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact-greedy draft acceptance over the verify logits.
 
@@ -44,7 +48,8 @@ def speculative_accept(logits: torch.Tensor, drafts: torch.Tensor,
     emits ``emitted[:, :accepted + 1]``: every emitted token is the
     model's own, so greedy outputs equal speculation-off's."""
     k = logits.shape[1] - 1
-    first = sample(logits[:, 0], generator, temperature, top_k=top_k)
+    first = sample(logits[:, 0], generator, temperature, top_k=top_k,
+                   sampled=sampled)
     preds = torch.argmax(logits[:, 1:], dim=-1).to(torch.int32)
     emitted = torch.cat([first[:, None], preds], dim=1)
     match = ((drafts == emitted[:, :k])
@@ -55,22 +60,27 @@ def speculative_accept(logits: torch.Tensor, drafts: torch.Tensor,
 
 
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
-           temperature: torch.Tensor, top_k: int = 0) -> torch.Tensor:
+           temperature: torch.Tensor, top_k: int = 0,
+           sampled: Optional[bool] = None) -> torch.Tensor:
     """logits [slots, vocab], temperature [slots] -> tokens [slots]
     int32. Slots at temperature 0 take the argmax; the others draw from
     softmax(logits / temperature), truncated to the top_k logits when
-    top_k > 0."""
+    top_k > 0. ``sampled`` says whether any slot samples, decided by the
+    caller on its host copy of the temperatures (the engine keys its
+    step graphs by it); None decides it here from ``temperature``, which
+    then should lie on the host (on the device that is a sync)."""
     if top_k > 0:
         kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
         logits = torch.where(logits < kth,
                              torch.full_like(logits, float('-inf')), logits)
     greedy = torch.argmax(logits, dim=-1)
-    # Decided on the caller's copy of the temperatures (the engine keeps
-    # them on the host), so an all-greedy step never waits on the device.
-    if not bool((temperature > 0).any()):
+    if sampled is None:
+        sampled = bool((temperature > 0).any())
+    if not sampled:
         return greedy.to(torch.int32)
     temperature = temperature.to(logits.device, torch.float32)
     temp = torch.clamp(temperature, min=1e-6)[:, None]
     probs = torch.softmax(logits / temp, dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
-    return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    drawn = torch.argmax(probs / race, dim=-1)
+    return torch.where(temperature > 0, drawn, greedy).to(torch.int32)

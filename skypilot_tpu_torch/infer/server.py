@@ -5,17 +5,28 @@ wire format for what this slice ports).
 Endpoints:
 
 - ``GET  /health``   -> 200 ``{"status": "ok"}`` once the engine is warm,
-  503 ``{"status": "warming"}`` before (``"dead"`` if the loop died).
+  503 ``{"status": "warming"}`` before (``"dead"`` if the loop died,
+  ``"draining"`` once a drain began).
 - ``POST /generate`` -> {"tokens": [int] | "prompt": str, optional
-  "max_new_tokens", "temperature", "stream", "spec"}. The answer is one
-  JSON object, or with ``"stream": true`` JSON lines: ``{"tokens",
-  "text"}`` per token batch and a final ``{"done": true, ...}`` line.
-  ``"spec": false`` opts the request out of speculative drafting; both
-  answers carry its ``accepted_len_mean`` (tokens per verify step it
-  drafted in, None when it never drafted).
+  "max_new_tokens", "temperature", "stream", "spec", "tenant"}. The
+  answer is one JSON object, or with ``"stream": true`` JSON lines:
+  ``{"tokens", "text"}`` per token batch and a final ``{"done": true,
+  ...}`` line. ``"spec": false`` opts the request out of speculative
+  drafting; both answers carry its ``accepted_len_mean`` (tokens per
+  verify step it drafted in, None when it never drafted). The
+  ``X-SkyTpu-Tenant`` header (or the body's ``tenant``) names the
+  request's tenant for the scheduler; ``X-SkyTpu-Deadline-S`` gives it a
+  wall-clock budget (504 when spent before the first token). Past the
+  engine's queue bounds the answer is 429 with a computed
+  ``Retry-After``; once draining, 503 with ``Retry-After: 1``.
+- ``POST /drain``    -> {optional "deadline_s" (default 30)}: stop
+  admitting, then answer once every in-flight request finished (or the
+  deadline lapsed): ``{"status": "drained" | "draining", "inflight",
+  "drain_duration_s"}``.
 - ``GET  /metrics``  -> engine metrics as JSON (TTFT p50, decode tokens,
-  steps, the KV dtype and page bytes, the speculation counters, each
-  kernel's launch count).
+  steps, the scheduler and its per-tenant stats, the pipeline depth,
+  preemptions, the KV dtype and page bytes, the speculation counters,
+  each kernel's launch count) plus the server's drain and shed state.
 
 It uses the standard library's ``ThreadingHTTPServer``: one thread per
 connection enqueues its request and waits on the request's condition,
@@ -26,7 +37,9 @@ Without a checkpoint the server serves random weights sized by
 ``--model``, drawn from ``--seed``. Run:
 ``python -m skypilot_tpu_torch.infer.server --port 8000 --model 8b``
 (add ``--device cpu`` to run on the CPU, ``--spec-k 4`` to decode
-speculatively, ``--kv-dtype int8`` for int8 KV pages).
+speculatively, ``--kv-dtype int8`` for int8 KV pages, ``--scheduler wfq
+--tenant-weights gold=4,free=1`` for weighted fair queueing,
+``--max-queue-requests N`` to shed load past N waiting requests).
 """
 from __future__ import annotations
 
@@ -44,6 +57,11 @@ from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.models import llama
 
 logger = logging.getLogger(__name__)
+
+# The request headers the serve load balancer forwards (the reference's
+# utils/common.py names).
+DEADLINE_HEADER = 'X-SkyTpu-Deadline-S'
+TENANT_HEADER = 'X-SkyTpu-Tenant'
 
 MODELS = {
     'tiny': llama.LlamaConfig.tiny,
@@ -108,6 +126,30 @@ class IncrementalDecoder:
         return delta
 
 
+def parse_tenant_weights(spec: Optional[str]) -> Optional[dict]:
+    """``'tenantA=4,tenantB=1'`` -> ``{'tenantA': 4.0, 'tenantB': 1.0}``
+    (None/empty -> None); a malformed entry exits loudly (a copy of the
+    reference's)."""
+    if not spec:
+        return None
+    out = {}
+    for part in spec.split(','):
+        part = part.strip()
+        if not part:
+            continue
+        name, sep, val = part.partition('=')
+        try:
+            weight = float(val)
+        except ValueError:
+            weight = -1.0
+        if not sep or not name.strip() or weight <= 0:
+            raise SystemExit(
+                f'bad --tenant-weights entry {part!r}: expected '
+                f'name=positive_number')
+        out[name.strip()] = weight
+    return out or None
+
+
 class InferenceServer:
     """The engine loop thread plus the HTTP front end."""
 
@@ -118,8 +160,15 @@ class InferenceServer:
         # One-way flags written by the engine thread, read by handlers.
         self.ready = False
         self.dead = ''
+        # In-flight /generate handlers, the drain state and the 429
+        # count, under _active_lock (handler threads).
         self._active = 0
         self._active_lock = threading.Lock()
+        self.draining = False
+        self._drain_started: Optional[float] = None
+        self.drain_duration_s: Optional[float] = None
+        self._drained = threading.Event()
+        self._requests_shed = 0
         self._stop = threading.Event()
         self._woken = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -130,7 +179,9 @@ class InferenceServer:
     def _loop(self) -> None:
         try:
             t0 = time.time()
-            warm = self.engine.submit([1], max_new_tokens=2)
+            # Four tokens: the decode step runs at least twice, so its
+            # program is warmed and (on the card) captured before ready.
+            warm = self.engine.submit([1], max_new_tokens=4)
             while not warm.done:
                 self.engine.step()
             logger.info('engine warm in %.1fs', time.time() - t0)
@@ -183,6 +234,9 @@ class InferenceServer:
     def health(self):
         if self.dead:
             return 503, {'status': 'dead', 'error': self.dead}
+        with self._active_lock:
+            if self.draining:
+                return 503, {'status': 'draining', 'inflight': self._active}
         if not self.ready:
             return 503, {'status': 'warming'}
         return 200, {'status': 'ok'}
@@ -191,33 +245,110 @@ class InferenceServer:
         m = self.engine.metrics()
         with self._active_lock:
             m['server_inflight'] = self._active
-        m['draining'] = False
-        m['requests_shed'] = 0
+            m['draining'] = self.draining
+            m['requests_shed'] = self._requests_shed
+            if self.drain_duration_s is not None:
+                m['drain_duration_s'] = round(self.drain_duration_s, 4)
         m['role'] = 'mixed'
         return 200, m
 
-    def admit(self, body: dict):
-        """Parse and submit one /generate body. Returns (request, None)
-        or (None, (status, error payload))."""
+    # ---- graceful drain --------------------------------------------------
+    def enter_generate(self) -> bool:
+        """Count a /generate handler in flight; False (and not counted)
+        once draining."""
+        with self._active_lock:
+            if self.draining:
+                return False
+            self._active += 1
+            return True
+
+    def exit_generate(self) -> None:
+        with self._active_lock:
+            self._active -= 1
+            if self.draining and self._active == 0:
+                self._mark_drained()
+
+    def _mark_drained(self) -> None:  # holds: _active_lock
+        if self.drain_duration_s is None:
+            self.drain_duration_s = time.time() - self._drain_started
+        self._drained.set()
+
+    def drain(self, deadline_s: float):
+        """Stop admitting, then wait until every in-flight request
+        finished or ``deadline_s`` lapsed (the reference's long poll)."""
+        with self._active_lock:
+            if not self.draining:
+                self.draining = True
+                self._drain_started = time.time()
+                logger.info('drain: stopped admitting (%d in flight)',
+                            self._active)
+                if self._active == 0:
+                    self._mark_drained()
+        self._drained.wait(max(0.0, deadline_s))
+        with self._active_lock:
+            return 200, {'status': ('drained' if self._drained.is_set()
+                                    else 'draining'),
+                         'inflight': self._active,
+                         'drain_duration_s': self.drain_duration_s}
+
+    def admit(self, body: dict, headers=None):
+        """Parse and submit one /generate body (``headers``: the
+        request's, for the deadline and tenant). Returns (request, None)
+        or (None, (status, error payload, extra headers))."""
+        headers = headers or {}
         if self.dead:
-            return None, (500, {'error': f'engine died: {self.dead}'})
+            return None, (500, {'error': f'engine died: {self.dead}'}, {})
+        with self._active_lock:
+            if self.draining:
+                # Drain began while the body was read: refuse at the
+                # admission edge (this handler still holds the drain
+                # open, so it cannot have completed).
+                return None, (503, {'error': 'replica draining',
+                                    'draining': True},
+                              {'Retry-After': '1'})
+        deadline = None
+        hdr = headers.get(DEADLINE_HEADER)
+        if hdr:
+            try:
+                budget_s = float(hdr)
+            except ValueError:
+                return None, (400, {'error': f'bad {DEADLINE_HEADER} '
+                                             f'header: {hdr!r}'}, {})
+            if budget_s <= 0:
+                return None, (504, {'error': 'deadline already exceeded'},
+                              {})
+            deadline = time.time() + budget_s
+        tenant = (headers.get(TENANT_HEADER) or str(body.get('tenant') or '')
+                  or 'default')
+        if len(tenant) > 128:
+            return None, (400, {'error': 'tenant id too long (>128 chars)'},
+                          {})
         if 'tokens' in body:
             try:
                 tokens = [int(t) for t in body['tokens']]
             except (TypeError, ValueError):
                 return None, (400, {'error': '"tokens" must be a list of '
-                                             'token ids'})
+                                             'token ids'}, {})
         elif 'prompt' in body:
             tokens = self.tokenizer.encode(str(body['prompt']))
         else:
-            return None, (400, {'error': 'need "tokens" or "prompt"'})
+            return None, (400, {'error': 'need "tokens" or "prompt"'}, {})
         try:
             req = self.engine.submit(
                 tokens, max_new_tokens=body.get('max_new_tokens'),
                 temperature=float(body.get('temperature', 0.0)),
-                spec=bool(body.get('spec', True)))
+                spec=bool(body.get('spec', True)), deadline=deadline,
+                tenant=tenant)
+        except engine_lib.AdmissionError as e:
+            # Bounded admission: shed instead of queueing unboundedly
+            # (the LB tries another replica first).
+            with self._active_lock:
+                self._requests_shed += 1
+            return None, (429, {'error': str(e)},
+                          {'Retry-After':
+                           str(max(1, int(round(e.retry_after_s))))})
         except (TypeError, ValueError) as e:
-            return None, (400, {'error': str(e)})
+            return None, (400, {'error': str(e)}, {})
         self._woken.set()
         return req, None
 
@@ -250,13 +381,24 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def log_message(self, fmt, *args) -> None:
         logger.debug('%s - ' + fmt, self.address_string(), *args)
 
-    def _json(self, status: int, payload: dict) -> None:
+    def _json(self, status: int, payload: dict, headers=None) -> None:
         data = json.dumps(payload).encode()
         self.send_response(status)
         self.send_header('Content-Type', 'application/json')
         self.send_header('Content-Length', str(len(data)))
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
         self.end_headers()
         self.wfile.write(data)
+
+    def _body(self) -> dict:
+        """The request's JSON object; raises ValueError when it is
+        not one."""
+        n = int(self.headers.get('Content-Length') or 0)
+        body = json.loads(self.rfile.read(n) or b'{}')
+        if not isinstance(body, dict):
+            raise ValueError('body is not a JSON object')
+        return body
 
     def do_GET(self) -> None:
         path = self.path.split('?', 1)[0]
@@ -268,37 +410,59 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             self._json(404, {'error': f'no route {path}'})
 
     def do_POST(self) -> None:
-        if self.path.split('?', 1)[0] != '/generate':
+        path = self.path.split('?', 1)[0]
+        if path == '/drain':
+            try:
+                body = self._body()
+            except (ValueError, UnicodeDecodeError):
+                body = {}
+            try:
+                deadline_s = float(body.get('deadline_s', 30.0))
+            except (TypeError, ValueError):
+                deadline_s = 30.0
+            self._json(*self.srv.drain(deadline_s))
+            return
+        if path != '/generate':
             self._json(404, {'error': f'no route {self.path}'})
             return
-        with self.srv._active_lock:
-            self.srv._active += 1
+        # Counted in flight before the body is read, so a drain cannot
+        # report 'drained' while this handler goes on to admit work.
+        if not self.srv.enter_generate():
+            self._json(503, {'error': 'replica draining', 'draining': True},
+                       {'Retry-After': '1'})
+            return
         try:
             self._generate()
         finally:
-            with self.srv._active_lock:
-                self.srv._active -= 1
+            self.srv.exit_generate()
 
     def _generate(self) -> None:
         try:
-            n = int(self.headers.get('Content-Length') or 0)
-            body = json.loads(self.rfile.read(n) or b'{}')
-            if not isinstance(body, dict):
-                raise ValueError('body is not a JSON object')
+            body = self._body()
         except (ValueError, UnicodeDecodeError):
             self._json(400, {'error': 'malformed JSON'})
             return
-        req, err = self.srv.admit(body)
+        req, err = self.srv.admit(body, self.headers)
         if err is not None:
             self._json(*err)
             return
         if body.get('stream'):
-            self._stream(req)
+            try:
+                self._stream(req)
+            except (BrokenPipeError, ConnectionResetError):
+                # The client went away mid-stream: free the slot now
+                # instead of generating to nobody.
+                self.srv.engine.cancel(req)
             return
         while not req.wait_done(timeout=1.0):
             if self.srv.dead:
                 self._json(500, {'error': f'engine died: {self.srv.dead}'})
                 return
+        if req.finish_reason == 'deadline' and not req.output_tokens:
+            # Expired before producing anything: a real timeout.
+            self._json(504, {'error': 'deadline exceeded before first '
+                                      'token', 'finish_reason': 'deadline'})
+            return
         self._json(200, self.srv.answer(req))
 
     def _stream(self, req) -> None:
@@ -336,7 +500,11 @@ class _Handler(http.server.BaseHTTPRequestHandler):
 def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
                  n_pages: Optional[int], device: str, seed: int = 0,
                  kv_dtype: str = 'bfloat16', spec_k: int = 0,
-                 spec_ngram: int = 3) -> engine_lib.InferenceEngine:
+                 spec_ngram: int = 3, pipeline_depth: int = 1,
+                 scheduler: str = 'fcfs', tenant_weights=None,
+                 max_queue_requests: Optional[int] = None,
+                 max_queue_tokens: Optional[int] = None,
+                 cuda_graphs: bool = True) -> engine_lib.InferenceEngine:
     """Random weights for ``model`` drawn from ``seed`` on ``device``,
     and a paged engine over them."""
     dev = engine_lib.resolve_device(device)
@@ -349,7 +517,11 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
         engine_lib.EngineConfig(
             n_slots=slots, max_seq_len=min(max_seq_len, config.max_seq_len),
             page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype,
-            spec_k=spec_k, spec_ngram=spec_ngram),
+            spec_k=spec_k, spec_ngram=spec_ngram,
+            pipeline_depth=pipeline_depth, scheduler=scheduler,
+            tenant_weights=tenant_weights,
+            max_queue_requests=max_queue_requests,
+            max_queue_tokens=max_queue_tokens, cuda_graphs=cuda_graphs),
         seed=seed, device=dev)
 
 
@@ -379,6 +551,25 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument('--spec-ngram', type=int, default=3,
                         help='longest trailing n-gram the drafter '
                              'matches')
+    parser.add_argument('--pipeline-depth', type=int, default=1,
+                        help='dispatch-ahead decode depth: step N+1 is '
+                             'dispatched before step N is read back; 0 = '
+                             'the synchronous loop')
+    parser.add_argument('--scheduler', default='fcfs',
+                        choices=['fcfs', 'deadline', 'wfq'],
+                        help='step-loop scheduling policy: fcfs, deadline '
+                             '(EDF over X-SkyTpu-Deadline-S budgets) or '
+                             'wfq (per-tenant weighted fair queueing over '
+                             'X-SkyTpu-Tenant)')
+    parser.add_argument('--tenant-weights', default=None,
+                        help="wfq weights as 'tenantA=4,tenantB=1' "
+                             '(unlisted tenants weigh 1.0)')
+    parser.add_argument('--max-queue-requests', type=int, default=None,
+                        help='refuse new work (429 + Retry-After) once '
+                             'this many requests wait; default unbounded')
+    parser.add_argument('--max-queue-tokens', type=int, default=None,
+                        help='cap on the prompt + generated tokens '
+                             'waiting in the queue')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default; raises without a card) or "
                              "'cpu'")
@@ -394,7 +585,13 @@ def engine_from_args(args: argparse.Namespace) -> engine_lib.InferenceEngine:
     return build_engine(args.model, args.slots, args.max_seq_len,
                         args.page_size, args.n_pages, args.device, args.seed,
                         kv_dtype=args.kv_dtype, spec_k=args.spec_k,
-                        spec_ngram=args.spec_ngram)
+                        spec_ngram=args.spec_ngram,
+                        pipeline_depth=args.pipeline_depth,
+                        scheduler=args.scheduler,
+                        tenant_weights=parse_tenant_weights(
+                            args.tenant_weights),
+                        max_queue_requests=args.max_queue_requests,
+                        max_queue_tokens=args.max_queue_tokens)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -31,7 +31,10 @@ lie on the CPU; on CUDA tensors it launches its kernel or raises (int8
 pages never reach a bf16 kernel or a plain version). Each wrapper adds
 one to its entry of :data:`launches` where it launches its kernel, and
 nowhere else, so a run can show that its main path went through the
-kernels.
+kernels. A launch recorded into a CUDA graph runs when the graph
+replays: under capture the wrapper counts it in :data:`captured`
+instead, and whoever replays the graph adds the capture's counts to
+:data:`launches` once per replay (:func:`count_replay`).
 
 The cache writes (``write_chunk_pages``, ``append_token_pages``,
 ``append_run_pages``) are the reference's XLA scatters as indexed
@@ -78,16 +81,30 @@ PAGES_PER_SPLIT = 4
 # blocks, kPagesPerSplit in csrc/paged_prefill.cu.
 PREFILL_PAGES_PER_SPLIT = 16
 
+# Launches recorded into CUDA graphs under capture (same keys); a graph's
+# share of it is what one replay launches.
+captured: Dict[str, int] = dict.fromkeys(launches, 0)
+
 # Per (kernel, CUDA device): a split kernel's workspace and counters,
 # grown when a launch needs more (launches that share them are ordered on
-# one stream).
+# one stream). A CUDA graph keeps the pointers it was captured with, so
+# once a launch was captured its buffers may no longer be replaced:
+# growth then raises (reserve the room first, :func:`reserve_split_scratch`).
 _split_buffers: Dict[Tuple[str, torch.device],
                      Tuple[torch.Tensor, torch.Tensor]] = {}
+_captured_buffers: set = set()
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def count_replay(per_replay: Dict[str, int]) -> None:
+    """Add one replay of a graph whose capture recorded ``per_replay``
+    launches (a delta of :data:`captured`) to :data:`launches`."""
+    for name, n in per_replay.items():
+        launches[name] += n
 
 
 # ---------------------------------------------------------------------------
@@ -339,15 +356,44 @@ def _checked_pages_per_split(symbol: str = 'paged_pages_per_split',
 
 def _scratch(kind: str, device: torch.device, n_ws: int, n_counters: int):
     """The workspace (``n_ws`` fp32) and counters (``n_counters`` int32,
-    zero between launches: the kernels return them to zero) that ``kind``
-    keeps on ``device``, grown when this launch needs more."""
-    ws, counters = _split_buffers.get((kind, device), (None, None))
-    if ws is None or ws.numel() < n_ws:
+    zero between launches: the kernels return them to zero, which is
+    also what a graph replay needs) that ``kind`` keeps on ``device``,
+    grown when this launch needs more; raises where growing would move
+    buffers a CUDA graph holds, or would allocate under capture."""
+    key = (kind, device)
+    ws, counters = _split_buffers.get(key, (None, None))
+    grow_ws = ws is None or ws.numel() < n_ws
+    grow_counters = counters is None or counters.numel() < n_counters
+    capturing = (device.type == 'cuda'
+                 and torch.cuda.is_current_stream_capturing())
+    if (grow_ws or grow_counters) and (capturing
+                                       or key in _captured_buffers):
+        raise RuntimeError(
+            f'the {kind} workspace must grow to {n_ws} floats and '
+            f'{n_counters} counters, but a CUDA graph holds the current '
+            f'buffers: reserve the widest step before the first capture '
+            f'(reserve_split_scratch)')
+    if grow_ws:
         ws = torch.empty(n_ws, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_counters:
+    if grow_counters:
         counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
-    _split_buffers[kind, device] = ws, counters
+    _split_buffers[key] = ws, counters
+    if capturing:
+        _captured_buffers.add(key)
     return ws, counters
+
+
+def reserve_split_scratch(device, slots: int, hkv: int, hd: int,
+                          max_pages: int) -> None:
+    """Size ``device``'s decode/verify workspace for the widest launch
+    the kernel takes over ``slots`` x ``hkv`` blocks of ``max_pages``
+    pages (``CUDA_MAX_ROWS`` query rows): a step graph captured after
+    this never sees its buffers move."""
+    n_splits = -(-max_pages // PAGES_PER_SPLIT)
+    # Keyed as a launch keys it: by its tensors' device, index included.
+    device = torch.empty(0, device=device).device
+    _scratch('decode', device,
+             slots * hkv * n_splits * CUDA_MAX_ROWS * (hd + 2), slots * hkv)
 
 
 def _split_scratch(q: torch.Tensor, slots: int, hkv: int, rows: int,
@@ -391,7 +437,9 @@ def _launch(name: str, quantized: bool, q, k_pages, v_pages, k_scales,
     if err:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{err}')
-    launches[name + ('_int8' if quantized else '')] += 1
+    counts = captured if torch.cuda.is_current_stream_capturing() \
+        else launches
+    counts[name + ('_int8' if quantized else '')] += 1
     return out
 
 

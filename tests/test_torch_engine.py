@@ -37,7 +37,8 @@ def params():
 def _port(tparams, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**ENGINE_KW, **kw}), device='cpu')
+        tengine.EngineConfig(**{**ENGINE_KW, 'pipeline_depth': 0, **kw}),
+        device='cpu')
 
 
 def test_greedy_outputs_identical_to_jax_engine(params):
@@ -82,7 +83,7 @@ def test_max_seq_len_cap_finishes_cache_full(params):
 def test_engine_config_guards(params):
     _, _, tparams = params
     with pytest.raises(ValueError, match='pipeline_depth'):
-        _port(tparams, pipeline_depth=1)
+        _port(tparams, pipeline_depth=-1)
     with pytest.raises(ValueError, match='multiple of page_size'):
         _port(tparams, page_size=24)
     te = _port(tparams)

@@ -22,7 +22,9 @@ bad = sorted(m for m in sys.modules
              or m == 'skypilot_tpu' or m.startswith('skypilot_tpu.'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 23, names
+assert len(names) >= 27, names
+assert {'skypilot_tpu_torch.infer.sched.' + m
+        for m in ('base', 'deadline', 'wfq')} <= set(names), names
 '''
 
 

@@ -148,7 +148,7 @@ def test_metrics_answers(served):
         'paged_decode_attention', 'paged_prefill_attention',
         'paged_verify_attention', 'paged_decode_attention_int8',
         'paged_prefill_attention_int8', 'paged_verify_attention_int8'}
-    assert m['paged'] is True and m['pipeline_depth'] == 0
+    assert m['paged'] is True and m['pipeline_depth'] == 1
 
 
 def test_spec_body_key_and_accepted_len_mean(served_int8_spec):

@@ -86,7 +86,8 @@ def params():
 def _port(tparams, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**ENGINE_KW, **kw}), device='cpu')
+        tengine.EngineConfig(**{**ENGINE_KW, 'pipeline_depth': 0, **kw}),
+        device='cpu')
 
 
 def _jax(cfg, jparams, **kw):
