@@ -32,7 +32,10 @@ Phases, in order; any failure exits non-zero:
    (``prefill_split_edges``) and at the long prefix of phase 4, at the
    8B shapes and in every variant; prefill must also leave its output
    bitwise unchanged when the K/V rows past the slot's frontier hold
-   NaN;
+   NaN, and at every one of its cases its device-scalar entry (offset
+   and true_len read on the card from 0-d int32 tensors, a grid over the
+   whole table row: what the engine's chunk graphs launch) must give the
+   host-scalar entry's output bit for bit;
    the flash attention forward (out, lse) and backward (dq, dk, dv) at
    the bench_1b shapes (b 6, 12 heads, s 2048, d 128, causal), where the
    backward must also give the same bits on two runs, then at head_dim
@@ -53,7 +56,8 @@ Phases, in order; any failure exits non-zero:
    ahead of each, so the events time the device's work and not the
    host's enqueueing; plus the least time the card could take for the
    same work (``bound_ms``). Prefill is timed twice: a 256-token chunk
-   at offset 192 and the last 256-token chunk of a 2048-token prompt.
+   at offset 192 and the last 256-token chunk of a 2048-token prompt,
+   each from its host-scalar and its device-scalar entry.
 5. Serving end to end: starts ``python -m skypilot_tpu_torch.infer.server
    --model 8b --slots 8 --max-seq-len 2048 --spec-k 4`` (full width and
    depth, random weights from a seed; the server's default control loop:
@@ -86,6 +90,18 @@ Phases, in order; any failure exits non-zero:
    the uncut continuation's top-2 logits, printed), return every page
    and keep one decode and one verify graph; then the int8-vs-bf16
    decode-logit delta at these shapes, which must be > 0.
+5d. Fused mixed steps in process at full 8B width and depth, bf16 and
+   int8 pages: 5b's prompts plus a 768-token aggressor arriving
+   mid-decode; fused on vs off, at depth 0 eager and at depth 1 with
+   CUDA graphs, speculation off and on, every token list identical, one
+   mixed graph per chunk bucket; the SDC sentinel off gives the same
+   tokens, steps and programs; a NaN planted in the embedding row of a
+   token only one prompt holds finishes that request ``'sdc'`` and turns
+   the server's ``/health`` 503 ``corrupt``, and the requests served
+   after it keep the clean run's tokens. Then
+   ``skypilot_tpu_torch.bench_ttft --sweep chunked`` at one level (7
+   victims and the aggressor on 8 slots, chunk buckets 64 and 128): its
+   JSON document on a line of its own.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -107,8 +123,10 @@ Run from the root of the repository: ``python3 chip_smoke.py`` (one
 card). ``--kernels-only`` stops after phase 3; ``--profile`` adds, at
 the end, ``torch.profiler`` breakdowns of decode steps and of verify
 steps (bf16 and int8 pages; the synchronous eager loop, then the default
-one with CUDA graphs) of an in-process engine and of a bench_1b training
-step. Subprocess logs go to
+one with CUDA graphs) of an in-process engine, of mixed steps and of
+standalone prefill chunks (eager and with their graphs), the decode step
+with the flight recorder on and off, and of a bench_1b training step.
+Subprocess logs go to
 ``chiprun_out/chip_smoke_*.log``.
 """
 from __future__ import annotations
@@ -167,6 +185,10 @@ VERIFY_LENGTHS = DECODE_LENGTHS[:-1] + [MAX_SEQ - 4]
 # not all of them at once, so the engine must preempt.
 SPEC_PROMPT_LENGTHS = [64, 100, 17, 300, 64, 129, 500, 200]
 SPEC_NEW, ORACLE_WRONG_AT = 64, 2
+# Phase 5d: the aggressor's prompt (three chunks of 256) and the new
+# tokens of 5b's 17-token prompt, whose slot frees for the aggressor
+# while the other seven decode.
+FUSED_AGGRESSOR, FUSED_SHORT = 768, 16
 POOL_CUT = 21
 # A preempted request resumes by recomputing its K/V through prefill,
 # whose products run at other shapes than the decode and verify steps'
@@ -200,6 +222,9 @@ TRAINING_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                     'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd')
 # --profile: decode steps with every slot at this context.
 PROFILE_PROMPT, PROFILE_STEPS = 512, 20
+# --profile's chunk steps: a prompt of seven 256-token chunks, timed over
+# this many prompts.
+PROFILE_AGGRESSOR, PROFILE_WINDOWS = 1792, 5
 
 
 # Phase 2: instructions each tensor-core kernel's compiled code must
@@ -390,14 +415,36 @@ def decode_err(torch, pa, case, **kw) -> float:
     return (out - ref).abs().max().item()
 
 
+# Prefill cases whose device-scalar entry was held bitwise to the host-
+# scalar entry (phase 3), by page type.
+DEVICE_SCALAR_CHECKS = {'bf16': 0, 'int8': 0}
+
+
+def device_scalars(torch, offset: int, true_len: int):
+    """offset and true_len as the engine passes them: 0-d int32 tensors
+    on the card, views of one staged buffer."""
+    meta = torch.tensor([offset, true_len], dtype=torch.int32, device='cuda')
+    return meta[0], meta[1]
+
+
 def prefill_err(torch, pa, case, offset, true_len, **kw) -> float:
     """Max abs error of the prefill kernel's rows below true_len; fails
     unless every row, pad rows too, is finite (the model writes pad rows
-    back into the pages)."""
+    back into the pages), and unless the device-scalar entry (offset and
+    true_len read on the card, a grid over the whole table row) gives
+    the host-scalar entry's output bit for bit."""
     out = pa.paged_prefill_attention(*case, offset, true_len, **kw)
+    dev = pa.paged_prefill_attention(
+        *case, *device_scalars(torch, offset, true_len), **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all().item():
         fail('paged_prefill: non-finite output')
+    if not torch.equal(out, dev):
+        fail(f'paged_prefill: the device-scalar entry is not bitwise the '
+             f'host-scalar entry at offset {offset}, true_len {true_len}, '
+             f'q {tuple(case[0].shape)}, pages {tuple(case[1].shape)}, '
+             f'int8 {bool(kw)}: max diff {(out - dev).abs().max().item()}')
+    DEVICE_SCALAR_CHECKS['int8' if kw else 'bf16'] += 1
     ref = pa.paged_prefill_attention_reference(*case, offset, true_len, **kw)
     return (out[:true_len] - ref[:true_len]).abs().max().item()
 
@@ -484,11 +531,13 @@ def check_kernels(torch, pa):
         p[:, row[total // PAGE + 1].long()] = float('nan')
         poisoned.append(p)
     out = pa.paged_prefill_attention(q, *poisoned, row, PREFILL_OFFSET, tl)
-    if not torch.equal(out, clean):
+    dev = pa.paged_prefill_attention(q, *poisoned, row, *device_scalars(
+        torch, PREFILL_OFFSET, tl))
+    if not (torch.equal(out, clean) and torch.equal(dev, clean)):
         fail('paged_prefill: NaN in K/V rows past the frontier changed the '
              'output')
     print('paged_prefill: NaN K/V past the frontier leaves the output '
-          'bitwise unchanged', flush=True)
+          'bitwise unchanged (host- and device-scalar entries)', flush=True)
 
     # Every variant: lengths of 1, a page, a page + 1 and a few pages;
     # a 4-page chunk at a 3-page offset (page- but not chunk-aligned)
@@ -659,12 +708,17 @@ def dequantized(torch, k_pages, v_pages, kw):
 
 def time_prefill(torch, pa, case, kw, off, tl, flush):
     """Phase 4, one prefill case at the 8B shapes (int8 with ``kw``'s
-    scales): the kernel, its plain version, and SDPA over the gathered
-    (dequantized) K/V with a boolean causal mask."""
+    scales): the kernel, its device-scalar entry (``dev_ms``: offset and
+    true_len read on the card, a grid over the whole table row, as the
+    engine's chunk graphs launch it), its plain version, and SDPA over
+    the gathered (dequantized) K/V with a boolean causal mask."""
     q, kp, vp, row = case
     C, hq = q.shape[0], HKV * GROUP
     ms = time_ms(torch, lambda: pa.paged_prefill_attention(
         *case, off, tl, **kw), 50, flush)
+    scalars = device_scalars(torch, off, tl)
+    dev_ms = time_ms(torch, lambda: pa.paged_prefill_attention(
+        *case, *scalars, **kw), 50, flush)
     plain = time_ms(torch, lambda: pa.paged_prefill_attention_reference(
         *case, off, tl, **kw), 10, flush)
     S = off + C
@@ -683,8 +737,17 @@ def time_prefill(torch, pa, case, kw, off, tl, flush):
     n_bytes = (tl * hq * HD * (2 + 4) + (off + tl) * HKV * row_bytes * 2
                + -(-(off + tl) // PAGE) * 4)
     flops = 4 * HD * hq * sum(off + c + 1 for c in range(tl))
-    return dict(ms=ms, plain_ms=plain, library_ms=lib,
+    return dict(ms=ms, dev_ms=dev_ms, plain_ms=plain, library_ms=lib,
                 bound=bound(n_bytes, flops))
+
+
+def print_timed(rows) -> None:
+    for name, r in rows.items():
+        dev = (f', device-scalar entry {r["dev_ms"]:.4f} ms'
+               if 'dev_ms' in r else '')
+        print(f'{name}: {r["ms"]:.4f} ms{dev}, plain {r["plain_ms"]:.4f} ms, '
+              f'library {r["library_ms"]:.4f} ms, bound '
+              f'{r["bound"][0]:.4f} ms ({r["bound"][1]})', flush=True)
 
 
 def time_kernels(torch, pa, checked):
@@ -724,10 +787,7 @@ def time_kernels(torch, pa, checked):
     rows['paged_prefill_long'] = time_prefill(
         torch, pa, case, {}, PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN,
         flush)
-    for name, r in rows.items():
-        print(f'{name}: {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
-              f'library {r["library_ms"]:.4f} ms, bound '
-              f'{r["bound"][0]:.4f} ms ({r["bound"][1]})', flush=True)
+    print_timed(rows)
     return rows
 
 
@@ -800,10 +860,7 @@ def time_spec_int8_kernels(torch, pa, checked):
     rows['paged_prefill_int8_long'] = time_prefill(
         torch, pa, case, kw, PREFILL_LONG_OFFSET, PREFILL_LONG_TRUE_LEN,
         flush)
-    for name, r in rows.items():
-        print(f'{name}: {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
-              f'library {r["library_ms"]:.4f} ms, bound '
-              f'{r["bound"][0]:.4f} ms ({r["bound"][1]})', flush=True)
+    print_timed(rows)
     return rows
 
 
@@ -1067,6 +1124,22 @@ def prefill_logits(torch, model_lib, pc_lib, cfg, params, rope, tokens,
     return logits, cache, row
 
 
+# The engine's default chunk buckets at page 64 and chunk cap 256.
+CHUNK_BUCKETS = (64, 128, 256)
+
+
+def one_graph_each(counts, verify: bool, mixed: bool = False) -> bool:
+    """The greedy steady state of the step programs: one decode graph,
+    one verify graph with speculation, one prefill graph (and, fused,
+    one mixed graph) per chunk bucket used, none of another kind."""
+    kinds = {'prefill', 'decode'} | ({'verify'} if verify else set()) \
+        | ({'mixed'} if mixed else set())
+    return (set(counts) == kinds and counts['decode'] == 1
+            and counts.get('verify', 1) == 1
+            and 1 <= counts['prefill'] <= len(CHUNK_BUCKETS)
+            and (not mixed or 1 <= counts['mixed'] <= len(CHUNK_BUCKETS)))
+
+
 def serving_in_process(torch, pa, card: str):
     """Phases 5b and 5c, in process at full 8B width and depth (random
     weights, seed 0), 8 prompts x SPEC_NEW new tokens on 8 slots.
@@ -1082,8 +1155,9 @@ def serving_in_process(torch, pa, card: str):
     cut to POOL_CUT pages, which must preempt, gives the uncut pool's
     tokens (a preempted request may part after its resume only at a
     near-tie, NEAR_TIE), every page comes back and ``compiled_counts()``
-    stays at one decode and one verify graph. Then the int8-vs-bf16
-    decode-logit delta, which must be > 0."""
+    stays at one decode and one verify graph (and one prefill graph per
+    chunk bucket). Then the int8-vs-bf16 decode-logit delta, which must
+    be > 0."""
     import random
     from skypilot_tpu_torch.infer import engine as engine_lib
     from skypilot_tpu_torch.infer import model as model_lib
@@ -1229,11 +1303,12 @@ def serving_in_process(torch, pa, card: str):
         for r in (eager, fast, spec_eager, spec_fast):
             if r['pages_leaked'] or r['refcounts']:
                 fail(f'{kv}: pages leaked: {brief(r)}')
-        if fast['compiled_counts'] != {'decode': 1} or \
-                spec_fast['compiled_counts'] != {'decode': 1, 'verify': 1}:
+        if not (one_graph_each(fast['compiled_counts'], False)
+                and one_graph_each(spec_fast['compiled_counts'], True)):
             fail(f'{kv}: step graphs {fast["compiled_counts"]} (spec off), '
                  f'{spec_fast["compiled_counts"]} (spec on); want one '
-                 f'decode and one verify graph')
+                 f'decode and one verify graph, and at most one prefill '
+                 f'graph per chunk bucket')
         if not (fast['cuda_graphs'] and not eager['cuda_graphs']):
             fail(f'{kv}: the graph switch did not take')
     c = summary['pool_cut']
@@ -1246,7 +1321,7 @@ def serving_in_process(torch, pa, card: str):
                 and t['margin'] <= NEAR_TIE * abs(t['top_logit'])):
             fail(f'the preempting run parted from the uncut pool away from '
                  f'a near-tie after a resume: {t}')
-    if c['compiled_counts'] != {'decode': 1, 'verify': 1}:
+    if not one_graph_each(c['compiled_counts'], True):
         fail(f'the preempting run captured {c["compiled_counts"]} graphs')
     if not delta > 0:
         fail('int8 and bf16 pages gave the same decode logits: the int8 '
@@ -1257,10 +1332,220 @@ def serving_in_process(torch, pa, card: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: fused mixed steps, the SDC sentinel and the chunked sweep
+# ---------------------------------------------------------------------------
+def fused_in_process(torch, pa, card: str):
+    """Phase 5d, in process at full 8B width and depth (random weights,
+    seed 0), 8 slots, bf16 and int8 pages: 5b's prompts (SPEC_NEW new
+    tokens each, FUSED_SHORT for the 17-token one, whose slot frees
+    mid-decode) and a FUSED_AGGRESSOR-token aggressor submitted once every
+    request has decoded a few tokens, so its chunks arrive mid-decode.
+
+    Fused on vs off must give identical token lists at depth 0 eager
+    (graphs off) and at depth 1 with graphs, speculation off and on (the
+    oracle drafter of 5b); fused runs must dispatch mixed steps and never
+    stall the decode batch on a standalone chunk, and hold one mixed graph
+    per chunk bucket used; the sentinel off must give the same tokens,
+    decode_steps and programs. Then a NaN planted in the embedding row of
+    a token that only one prompt holds: that request finishes 'sdc', the
+    engine turns integrity_suspect and the server's /health answers 503
+    corrupt; the requests run after it on the same engine give the clean
+    run's tokens (their prefill chunks take the dead request's freed
+    pages first and overwrite them whole)."""
+    import random
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import llama
+    t0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, 'cuda')
+    rnd = random.Random(4)
+    prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in SPEC_PROMPT_LENGTHS]
+    aggressor = [rnd.randrange(cfg.vocab_size)
+                 for _ in range(FUSED_AGGRESSOR)]
+    budgets = [FUSED_SHORT if n == 17 else SPEC_NEW
+               for n in SPEC_PROMPT_LENGTHS]
+
+    def workload(eng):
+        """The prompts, then the aggressor once all have decoded 4
+        tokens; returns every request's tokens (aggressor last)."""
+        reqs = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+        while any(len(r.output_tokens) < 4 and not r.done for r in reqs):
+            eng.step()
+        reqs.append(eng.submit(aggressor, SPEC_NEW))
+        eng.run_until_idle()
+        return [r.output_tokens for r in reqs], [r.finish_reason
+                                                 for r in reqs]
+
+    def run(kv_dtype, depth, graphs, fused, oracle=None, sentinel=True):
+        """One engine over the workload: its tokens and what it did."""
+        eng = engine_lib.InferenceEngine(
+            cfg, params, engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                kv_dtype=kv_dtype, pipeline_depth=depth,
+                cuda_graphs=graphs, fused_prefill=fused,
+                sdc_sentinel=sentinel,
+                spec_k=VERIFY_R - 1 if oracle else 0),
+            seed=0, device='cuda')
+        if oracle:
+            eng._drafter = OracleDrafter(prompts + [aggressor], oracle,
+                                         prompts[1::2], ORACLE_WRONG_AT,
+                                         cfg.vocab_size)
+        pa.reset_launches()
+        t1 = time.perf_counter()
+        tokens, reasons = workload(eng)
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        al = eng.allocator
+        out = {'tokens': tokens, 'reasons': reasons,
+               'wall_s': time.perf_counter() - t1,
+               'launches': {k: v for k, v in pa.launches.items() if v},
+               'compiled_counts': eng.compiled_counts(),
+               'pages_leaked': al.n_pages - 1 - al.free_pages,
+               **{k: m.get(k) for k in (
+                   'decode_steps', 'fused_steps', 'decode_stall_steps',
+                   'prefill_tokens_per_step', 'preemptions', 'spec_steps',
+                   'spec_accepted_tokens', 'integrity',
+                   'sdc_events_total')}}
+        del eng
+        return out
+
+    def brief(r):
+        return {k: v for k, v in r.items() if k != 'tokens'}
+
+    summary = {'card': card, 'prompt_tokens': SPEC_PROMPT_LENGTHS,
+               'aggressor_tokens': FUSED_AGGRESSOR, 'new_tokens': budgets}
+    checks = []
+    for kv in ('bfloat16', 'int8'):
+        suffix = '_int8' if kv == 'int8' else ''
+        lane = {}
+        for depth, graphs in ((0, False), (1, True)):
+            for fused in (False, True):
+                lane[(depth, fused, False)] = run(kv, depth, graphs, fused)
+        reference = lane[(0, False, False)]['tokens']
+        if kv == 'bfloat16':
+            lanes_bf16 = lane
+        for depth, graphs in ((0, False), (1, True)):
+            for fused in (False, True):
+                lane[(depth, fused, True)] = run(kv, depth, graphs, fused,
+                                                 oracle=reference)
+        torch.cuda.empty_cache()
+        summary[kv] = {f'depth{d}_{"fused" if f else "unfused"}'
+                       f'{"_spec" if sp else ""}': brief(r)
+                       for (d, f, sp), r in lane.items()}
+        for key, r in lane.items():
+            depth, fused, spec = key
+            parted = [i for i, (a, b) in enumerate(zip(r['tokens'],
+                                                       reference)) if a != b]
+            if parted:
+                checks.append(f'{kv} {key}: requests {parted} parted from '
+                              f'depth 0 unfused')
+            if r['pages_leaked']:
+                checks.append(f'{kv} {key}: {r["pages_leaked"]} pages leaked')
+            for name in ('paged_decode_attention', 'paged_prefill_attention'):
+                if r['launches'].get(name + suffix, 0) <= 0:
+                    checks.append(f'{kv} {key}: {name + suffix} never '
+                                  f'launched')
+            if fused and (r['fused_steps'] <= 0
+                          or r['decode_stall_steps'] != 0):
+                checks.append(f'{kv} {key}: fused run dispatched '
+                              f'{r["fused_steps"]} mixed steps and stalled '
+                              f'{r["decode_stall_steps"]}')
+            if not fused and r['decode_stall_steps'] <= 0:
+                checks.append(f'{kv} {key}: the unfused run never stalled: '
+                              f'the aggressor did not arrive mid-decode')
+            if spec and r['spec_accepted_tokens'] < 1:
+                checks.append(f'{kv} {key}: the oracle run accepted no draft')
+            if depth == 1 and not one_graph_each(r['compiled_counts'], spec,
+                                                 fused):
+                checks.append(f'{kv} {key}: step graphs '
+                              f'{r["compiled_counts"]}')
+            if 'mixed' in r['compiled_counts'] and not fused:
+                checks.append(f'{kv} {key}: a mixed program with fused off')
+    # The sentinel off: the same tokens, steps and programs.
+    on = lanes_bf16[(1, True, False)]
+    off = run('bfloat16', 1, True, True, sentinel=False)
+    summary['sentinel_off'] = brief(off)
+    for key in ('tokens', 'decode_steps', 'compiled_counts', 'fused_steps'):
+        if off[key] != on[key]:
+            checks.append(f'the sentinel off changed {key}')
+    # The NaN row: a token only prompt 0 holds.
+    others = set(aggressor).union(*map(set, prompts[1:]))
+    bad = next(t for t in prompts[0] if t not in others)
+    poisoned = dict(params, embed=params['embed'].clone())
+    poisoned['embed'][bad] = float('nan')
+    nan_eng = engine_lib.InferenceEngine(
+        cfg, poisoned, engine_lib.EngineConfig(
+            n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+            pipeline_depth=1, fused_prefill=True),
+        seed=0, device='cuda')
+    victim = nan_eng.submit(prompts[0], SPEC_NEW)
+    nan_eng.run_until_idle()
+    health = server_lib.InferenceServer(nan_eng).health()
+    m = nan_eng.metrics()
+    summary['nan_row'] = {'token': bad, 'finish_reason': victim.finish_reason,
+                          'health': health, 'integrity': m['integrity'],
+                          'sdc_events_total': m['sdc_events_total']}
+    if victim.finish_reason != 'sdc' or health != (503, {'status':
+                                                         'corrupt'}):
+        checks.append(f'the NaN row did not trip the sentinel: '
+                      f'{summary["nan_row"]}')
+    # The same engine serves the workload on: prompt 0 finishes 'sdc'
+    # again, every other request must give the clean run's tokens.
+    tokens, reasons = workload(nan_eng)
+    parted = [i for i in range(1, len(tokens))
+              if tokens[i] != on['tokens'][i]]
+    summary['nan_row'].update(after_reasons=reasons, parted_after=parted,
+                              sdc_events_after=nan_eng.metrics()[
+                                  'sdc_events_total'])
+    if reasons[0] != 'sdc' or 'sdc' in reasons[1:] or parted:
+        checks.append(f'after the NaN row: reasons {reasons}, requests '
+                      f'{parted} parted from the clean run')
+    del nan_eng, poisoned, params
+    torch.cuda.empty_cache()
+    summary['wall_s'] = time.perf_counter() - t0
+    print('fused mixed steps in process (Llama-3-8B, random weights, 8 '
+          'slots, ' + card + '): ' + json.dumps(summary), flush=True)
+    for c in checks:
+        print('phase 5d: ' + c, flush=True)
+    if checks:
+        fail(f'phase 5d: {len(checks)} checks failed (above)')
+    return summary
+
+
+def chunked_sweep(torch, card: str) -> dict:
+    """``skypilot_tpu_torch.bench_ttft --sweep chunked`` at one level (7
+    victims and the aggressor on 8 slots, chunk buckets 64 and 128 as in
+    the reference), in process: its JSON document on a line of its own.
+    Fails unless the fused engine fused and never stalled, the unfused
+    one stalled, and the victims' time between tokens was measured."""
+    from skypilot_tpu_torch import bench_ttft
+    doc = bench_ttft.sweep(['--sweep', 'chunked', '--model', '8b',
+                            '--device', 'cuda', '--slots', '8',
+                            '--max-seq-len', str(MAX_SEQ)])
+    print(json.dumps(doc), flush=True)
+    level = doc['sweep'][0]
+    fused, unfused = level['fused'], level['unfused']
+    if not (fused['fused_steps'] > 0 and fused['decode_stall_steps'] == 0
+            and unfused['decode_stall_steps'] > 0
+            and fused['victim_itl_p99_ms'] and unfused['victim_itl_p99_ms']
+            and doc['card']):
+        fail(f'the chunked sweep did not measure what it should: '
+             f'{json.dumps(level)[:2000]}')
+    torch.cuda.empty_cache()
+    return doc
+
+
+# ---------------------------------------------------------------------------
 # --profile: where a decode step's time goes
 # ---------------------------------------------------------------------------
 def _kernel_kind(name: str) -> str:
     low = name.lower()
+    if 'paged_prefill_kernel' in low:
+        return 'paged_prefill_attention'
     if 'paged_attention_kernel' in low:
         return 'paged_decode_attention'
     if any(k in low for k in ('gemm', 'gemv', 'xmma', 'cutlass', 'cublas',
@@ -1414,6 +1699,146 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
               'max_memory_allocated_gb':
                   torch.cuda.max_memory_allocated() / 1e9}), flush=True)
     del eng
+    torch.cuda.empty_cache()
+
+
+def profile_chunks(torch, pa, card: str, mixed: bool, graphs: bool) -> None:
+    """Where a chunk's step time goes, 8B, bf16 pages: with ``mixed``, 7
+    slots decoding at PROFILE_PROMPT tokens of context while a
+    PROFILE_AGGRESSOR-token prompt prefills one 256-token chunk a step
+    into the decode dispatch (fused mixed steps); without, that prompt
+    alone, one standalone chunk a step. Eagerly at depth 0 or with the
+    step's CUDA graph at depth 1: the host-clock time of a step over each
+    of PROFILE_WINDOWS aggressors' chunks (their median is ``step_ms``),
+    then ``torch.profiler`` over another's: device busy time per step,
+    kernel launches and the host's launch calls."""
+    import random
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.models import llama
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    eng = engine_lib.InferenceEngine(
+        cfg, llama.init_params(cfg, gen, 'cuda'), engine_lib.EngineConfig(
+            n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+            pipeline_depth=1 if graphs else 0, cuda_graphs=graphs,
+            fused_prefill=mixed, prefill_chunks_per_step=1),
+        seed=0, device='cuda')
+    rnd = random.Random(3)
+    vocab = cfg.vocab_size
+    if mixed:
+        for _ in range(7):
+            eng.submit([rnd.randrange(vocab) for _ in range(PROFILE_PROMPT)],
+                       max_new_tokens=1000)
+        while eng.metrics()['prefill_tokens'] < 7 * PROFILE_PROMPT:
+            eng.step()
+
+    def aggressor():
+        """Submit the aggressor. Its first chunks (all but the one that
+        completes the prompt, whose step also decodes it) are timed."""
+        eng.submit([rnd.randrange(vocab) for _ in range(PROFILE_AGGRESSOR)],
+                   max_new_tokens=1)
+        return PROFILE_AGGRESSOR // 256 - 1
+
+    def finish():
+        while eng.metrics()['num_active'] > (7 if mixed else 0):
+            eng.step()
+
+    for _ in range(2):                    # build and capture, off the clock
+        aggressor()
+        finish()
+    windows = []
+    for _ in range(PROFILE_WINDOWS):
+        torch.cuda.synchronize()
+        before = eng.metrics()['prefill_tokens']
+        n = aggressor()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / n * 1e3)
+        if eng.metrics()['prefill_tokens'] - before != 256 * n:
+            fail('the chunk profile did not prefill one chunk a step')
+        finish()
+    step_ms = statistics.median(windows)
+    n = aggressor()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    finish()
+    kernels, api = {}, {}
+    for e in prof.key_averages():
+        if e.key in LAUNCH_APIS:
+            api[e.key] = e.count / n
+        us = getattr(e, 'self_device_time_total', 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            kernels[e.key] = (us / 1e3 / n, e.count / n)
+    busy = sum(ms for ms, _ in kernels.values())
+    kinds = {}
+    for name, (ms, _) in kernels.items():
+        kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0) + ms
+    step = 'mixed' if mixed else 'chunk'
+    print(f'{step} step profile (Llama-3-8B, bf16 pages, '
+          + ('7 slots decoding at ' + str(PROFILE_PROMPT) + ' tokens + '
+             if mixed else '')
+          + f'one 256-token chunk a step of a {PROFILE_AGGRESSOR}-token '
+          f'prompt, depth {1 if graphs else 0}, CUDA graphs '
+          f'{"on" if graphs else "off"}, {card}): ' + json.dumps({
+              'cuda_graphs': graphs, 'step_programs': eng.compiled_counts(),
+              'step_ms': step_ms, 'step_ms_windows': windows,
+              'profiled_step_ms': window_ms / n,
+              'device_busy_ms_per_step': busy,
+              'device_busy_share': busy * n / window_ms,
+              'device_busy_share_unprofiled': busy / step_ms,
+              'kernel_launches_per_step': sum(c for _, c in kernels.values()),
+              'host_launch_calls_per_step': api,
+              'device_ms_per_step_by_kind': kinds}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def profile_recorder(torch, card: str) -> None:
+    """The decode step with the flight recorder on and off: 8B, bf16
+    pages, 8 slots at PROFILE_PROMPT tokens, depth 1 with the decode
+    graph, host-clock step time over PROFILE_STEPS steps, on, off, on,
+    off on two engines built once."""
+    import random
+    from skypilot_tpu_torch.infer import server as server_lib
+    engines = {on: server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None,
+                                           'cuda', stepline=on)
+               for on in (True, False)}
+    rnd = random.Random(2)
+    for eng in engines.values():
+        for _ in range(8):
+            eng.submit([rnd.randrange(eng.config.vocab_size)
+                        for _ in range(PROFILE_PROMPT)], max_new_tokens=400)
+        while eng.metrics()['prefill_tokens'] < 8 * PROFILE_PROMPT:
+            eng.step()
+        for _ in range(3):
+            eng.step()
+    times = {True: [], False: []}
+    for _ in range(2):
+        for on, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+            times[on].append((time.perf_counter() - t0) / PROFILE_STEPS * 1e3)
+    print(f'decode step, flight recorder on vs off (Llama-3-8B, bf16 pages, '
+          f'8 slots at {PROFILE_PROMPT} tokens, depth 1, CUDA graphs on, '
+          f'{card}): ' + json.dumps({
+              'step_ms_recorder_on': times[True],
+              'step_ms_recorder_off': times[False],
+              'stepline_steps': engines[True].metrics()['stepline_steps'],
+              'summary': engines[True].stepline_summary()}), flush=True)
+    del engines
     torch.cuda.empty_cache()
 
 
@@ -1882,6 +2307,13 @@ def main() -> int:
     checked = check_kernels(torch, pa)
     checked.update(check_spec_int8_kernels(torch, pa))
     checked.update(check_training_kernels(torch, att, ce))
+    print('paged_prefill: the device-scalar entry is bitwise the '
+          'host-scalar entry at ' + json.dumps(DEVICE_SCALAR_CHECKS)
+          + ' cases (every prefill case, split edge and page type above)',
+          flush=True)
+    if not all(DEVICE_SCALAR_CHECKS.values()):
+        fail(f'the device-scalar prefill entry was not checked on every '
+             f'page type: {DEVICE_SCALAR_CHECKS}')
     if args.kernels_only:
         print('kernels-only: every kernel agrees with its plain version',
               flush=True)
@@ -1918,6 +2350,10 @@ def main() -> int:
 
     # Phase 5b: speculation in process at full width and depth.
     serving_in_process(torch, pa, card)
+    # Phase 5d: fused mixed steps and the sentinel, then the chunked
+    # sweep at one level.
+    fused_in_process(torch, pa, card)
+    chunked_sweep(torch, card)
 
     # Phase 6: the training slice against its plain path.
     check_slice(torch, att, ce)
@@ -1940,6 +2376,10 @@ def main() -> int:
                 for graphs, depth in ((False, 0), (True, 1)):
                     profile_decode(torch, pa, card, kv_dtype, verify,
                                    graphs, depth)
+        for mixed in (True, False):
+            for graphs in (False, True):
+                profile_chunks(torch, pa, card, mixed, graphs)
+        profile_recorder(torch, card)
         profile_train(torch, card)
 
     rows = [

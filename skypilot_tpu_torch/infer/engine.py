@@ -32,22 +32,46 @@ What the port keeps from the reference:
   decisions drain the in-flight steps first, so greedy outputs are the
   same at every depth.
 
-The reference jits each step into one program. The port's counterpart is
-a CUDA graph per step kind: the decode step (model, sampling and the
-token pair) and the verify step (model, acceptance and the device-side
-advance) are captured once per (kind, queries per slot, whether any slot
-samples) and replayed every step, reading fixed device buffers that the
-host refreshes with ``copy_`` (last tokens, block table, active mask,
-temperatures, drafts). A key's first run goes eagerly on the capture
-stream (the warm-up), its second is captured and replayed. Prefill
-chunks stay eager (their length varies by bucket). Graphs are on
-whenever the device is CUDA (``EngineConfig.cuda_graphs`` turns them off
-for the on == off gate); on the CPU the same static-buffer code runs
-eagerly. A capture that fails raises; nothing falls back to eager.
+- fused mixed steps (``fused_prefill``): while anything decodes, ONE
+  prefill chunk rides the decode dispatch as one mixed step
+  (``model.paged_mixed_step``) instead of standalone chunks between
+  decode steps, and speculation stands down for that step; greedy
+  outputs are the same fused on and off;
+- the flight recorder (``stepline``): a ring of per-step records (stage
+  wall times, batch and chunk sizes, page pressure, queue depth) and
+  per-request timeline events, ``stepline_snapshot()`` /
+  ``stepline_summary()``, and anomaly dumps (TTFT SLO, preemption,
+  ``cache_full``, admission shed, SDC) into the span store, written off
+  the engine lock; pure observation;
+- the SDC sentinel (``sdc_sentinel``): a per-slot all-finite row of the
+  step's logits rides the token pair as its last row; a non-finite slot
+  finishes ``'sdc'`` and flips ``integrity_suspect()`` for good;
+- ``resume_tokens`` on ``submit``: a stream continued from tokens already
+  delivered elsewhere (pre-seeded into the output and prefilled with the
+  prompt).
 
-What it leaves out (ROADMAP queue 1): the fused mixed step, the prefix
-cache (and so the copy-on-write of shared pages), ``resume_from``, the
-flight recorder and the SDC sentinel.
+The reference jits each step into one program. The port's counterpart is
+a CUDA graph per step program: the decode step (model, sampling and the
+token pair), the verify step (model, acceptance and the device-side
+advance), the standalone prefill chunk (model, the first-token sample
+into the last-token vector) and the mixed step, captured once per (kind,
+queries per slot or chunk bucket, whether anything samples) and replayed
+every step, reading fixed device buffers that the host refreshes with
+``copy_`` (last tokens, block table, active mask, temperatures, drafts;
+for a chunk its slot, offset, true length, temperature, table row and
+tokens, packed in one int32 buffer). A chunk reads its offset and length
+on the device (the prefill kernel's device-scalar entry), so one graph
+serves every chunk of its bucket. A key's first run goes eagerly on the
+capture stream (the warm-up), its second is captured and replayed.
+Graphs are on whenever the device is CUDA (``EngineConfig.cuda_graphs``
+turns them off for the on == off gate); on the CPU the same
+static-buffer code runs eagerly. A capture that fails raises; nothing
+falls back to eager. The recorder and the sentinel touch nothing that is
+captured: the sentinel's row is part of each program.
+
+What it leaves out (ROADMAP queue 1): the prefix cache (and so the
+copy-on-write of shared pages and the KV transfer routes), int8 weights,
+tensor parallelism and the engine pool.
 
 Device placement is explicit: the engine runs on ``device`` (default
 ``'cuda'``) and raises if CUDA was asked for and is missing.
@@ -70,6 +94,7 @@ from skypilot_tpu_torch.infer import paged_cache as paged_cache_lib
 from skypilot_tpu_torch.infer import sampling as sampling_lib
 from skypilot_tpu_torch.infer import sched as sched_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import stepline as stepline_lib
 from skypilot_tpu_torch.ops import paged_attention as paged_attn
 
 # The server catches admission refusals by this name, as the
@@ -130,10 +155,32 @@ class EngineConfig:
     scheduler: str = 'fcfs'
     # tenant -> relative weight for 'wfq' (unknown tenants weigh 1.0).
     tenant_weights: Optional[Any] = None
-    # Capture the decode and verify steps as CUDA graphs on a CUDA
-    # device (ignored on the CPU). Off only to hold graph-on against
-    # graph-off.
+    # Capture the step programs (decode, verify, prefill chunk, mixed)
+    # as CUDA graphs on a CUDA device (ignored on the CPU). Off only to
+    # hold graph-on against graph-off.
     cuda_graphs: bool = True
+    # Fused mixed steps: while any slot decodes, ONE prefill chunk rides
+    # the decode dispatch (model.paged_mixed_step) instead of standalone
+    # chunks landing between decode steps, so the decode batch's time
+    # between tokens stops absorbing whole chunks. Greedy outputs are the
+    # same fused on and off; only step timing changes.
+    fused_prefill: bool = False
+    # Flight recorder (observability/stepline.py): per-step records and
+    # per-request events, GET /debug/stepline, anomaly dumps into the
+    # span store. Pure observation: outputs are the same on and off.
+    stepline: bool = True
+    # Ring capacity in step records (None -> SKY_TPU_STEPLINE_CAP or
+    # 1024); the request-event ring holds 4x as many.
+    stepline_cap: Optional[int] = None
+    # TTFT SLO in seconds: a slower first token triggers an anomaly
+    # dump. None = no SLO trigger.
+    ttft_slo_s: Optional[float] = None
+    # On-device SDC sentinel: each step's per-slot all-finite flags ride
+    # the readback pair as its last row (no extra transfer, no extra
+    # program). A non-finite hit finishes the slot 'sdc' and marks the
+    # engine integrity_suspect (one-way). Greedy outputs and
+    # decode_steps are the same on and off.
+    sdc_sentinel: bool = True
 
 
 @dataclasses.dataclass
@@ -155,6 +202,10 @@ class Request:
     # Prompt tokens served from a prefix cache; always 0 in the port so
     # far (reported by the server like the reference's).
     cached_tokens: int = 0
+    # Tokens this request resumed from (a stream continued after its
+    # replica died): pre-seeded into output_tokens and prefilled with the
+    # prompt; the server never emits them again.
+    resumed_from: int = 0
     # Absolute wall-clock cutoff (time.time()); past it the engine
     # finishes the request ('deadline'), queued or active. None = none.
     deadline: Optional[float] = None
@@ -207,6 +258,22 @@ class Request:
     def wait_done(self, timeout: Optional[float] = None) -> bool:
         with self._cond:
             return self._cond.wait_for(lambda: self.done, timeout)
+
+
+@dataclasses.dataclass
+class _ChunkPlan:
+    """A prepared prefill chunk, not yet dispatched: page coverage
+    secured, bucket chosen, tokens padded. It dispatches standalone
+    (``_dispatch_chunk_plan``) or fused into the decode dispatch
+    (``_dispatch_mixed``). Engine thread only."""
+    slot: int
+    req: Request
+    off: int           # prefill offset this chunk starts at
+    bucket: int        # padded chunk length (the program's shape)
+    tl: int            # valid tokens in the chunk
+    total: int         # prompt + resume tokens the slot must cache
+    padded: np.ndarray
+    table_row: np.ndarray   # the slot's block-table row at preparation
 
 
 @dataclasses.dataclass
@@ -321,6 +388,14 @@ class InferenceEngine:
         self._draft_lens = torch.zeros((slots,), dtype=torch.int32,
                                        device=dev)
         self._drafts: Dict[int, torch.Tensor] = {}   # R -> [slots, R-1]
+        # A chunk's inputs, packed in one int32 buffer so that one copy
+        # stages them: [0] slot, [1] offset, [2] true_len, [3] the
+        # temperature's fp32 bits, then the table row (max pages), then
+        # the tokens (room for the largest bucket; a bucket reads its
+        # prefix).
+        self._chunk_in = torch.zeros((4 + max_pages_per_slot
+                                      + self._chunk_cap,),
+                                     dtype=torch.int32, device=dev)
         self._table_version = -1
         self._active_key: Optional[tuple] = None
         self._temps_dirty = True
@@ -329,11 +404,16 @@ class InferenceEngine:
         self._programs: Dict[tuple, _StepProgram] = {}
         self._capture_stream = torch.cuda.Stream(dev) if on_cuda else None
         if on_cuda:
-            # A graph keeps the split kernel's workspace pointer: size
-            # it for the widest verify step before any capture.
+            # A graph keeps the split kernels' workspace pointers: size
+            # them for the widest verify step and the largest chunk
+            # before any capture.
             paged_attn.reserve_split_scratch(
                 dev, slots, config.n_kv_heads, config.head_dim,
                 max_pages_per_slot)
+            paged_attn.reserve_prefill_scratch(
+                dev, config.n_kv_heads,
+                self._chunk_cap * (config.n_heads // config.n_kv_heads),
+                config.head_dim, max_pages_per_slot)
         # ---- dispatch-ahead state -------------------------------------
         # Dispatched, unread steps (<= _depth of them), oldest first:
         # (host rows, event, decoded, prefilled, spec_r), where decoded
@@ -351,6 +431,36 @@ class InferenceEngine:
         self._prefill_tokens = 0
         self._prefill_chunks = 0
         self._preemptions = 0
+        # ---- fused mixed steps ------------------------------------------
+        self._fused = bool(ecfg.fused_prefill)
+        # Mixed dispatches, and steps where an active decode batch waited
+        # on a standalone chunk (the stall fused mode removes).
+        self._fused_steps = 0
+        self._stall_steps = 0
+        # Slots whose prompt finished prefilling without joining a decode
+        # dispatch (fused mode, the decode batch gone under page
+        # pressure): their first token sits in _last and surfaces through
+        # the next dispatch's pair row 0.
+        self._pending_first: Dict[int, Request] = {}
+        # ---- SDC sentinel -----------------------------------------------
+        # _sentinel is fixed at init (the programs carry the row);
+        # _integrity_suspect is a one-way flag the server reads lock-free.
+        self._sentinel = bool(ecfg.sdc_sentinel)
+        self._integrity_suspect = False
+        self._sdc_events = 0
+        # ---- flight recorder --------------------------------------------
+        # _sl_on is fixed at init and read lock-free; the rings behind it
+        # are guarded by _lock. Stage accumulators of the current step
+        # (engine thread only): dispatch = program launches, drain =
+        # consume bookkeeping, readback = waiting on a pair's event.
+        self._sl_on = bool(ecfg.stepline)
+        self._stepline = (stepline_lib.StepRecorder(ecfg.stepline_cap)
+                          if self._sl_on else None)
+        self._pending_dumps: List[tuple] = []
+        self._sl_dispatch = 0.0
+        self._sl_drain = 0.0
+        self._sl_readback = 0.0
+        self._sl_batch = 0
         # Queued requests dropped because the client went away,
         # requests cut by their deadline, active requests cancelled.
         self._abandoned = 0
@@ -433,19 +543,25 @@ class InferenceEngine:
                max_new_tokens: Optional[int] = None,
                temperature: float = 0.0, spec: bool = True,
                deadline: Optional[float] = None,
-               tenant: str = sched_lib.DEFAULT_TENANT) -> Request:
+               tenant: str = sched_lib.DEFAULT_TENANT,
+               resume_tokens: Optional[Sequence[int]] = None) -> Request:
         """Queue a request. ``spec=False`` opts it out of speculative
         drafting; ``deadline`` is an absolute wall-clock cutoff;
-        ``tenant`` its fair-queueing identity. Raises ValueError for a
-        prompt the cache or the page pool can never hold, and
-        :class:`AdmissionError` when the scheduler's queue bound is
-        hit."""
+        ``tenant`` its fair-queueing identity. ``resume_tokens``
+        continues a stream whose first tokens were already delivered
+        elsewhere: they are pre-seeded into ``output_tokens`` and
+        prefilled with the prompt (the recompute-preemption path, so a
+        greedy continuation is the uninterrupted run's). Raises
+        ValueError for a prompt the cache or the page pool can never
+        hold, and :class:`AdmissionError` when the scheduler's queue
+        bound is hit."""
         if not prompt_tokens:
             raise ValueError('empty prompt')
-        total = len(prompt_tokens)
+        resume = list(map(int, resume_tokens)) if resume_tokens else []
+        total = len(prompt_tokens) + len(resume)
         if total > self.ecfg.max_seq_len - 1:
             raise ValueError(
-                f'prompt ({total} tokens) exceeds cache capacity '
+                f'prompt+resume ({total} tokens) exceeds cache capacity '
                 f'({self.ecfg.max_seq_len - 1})')
         # Peak prefill allocation is bucket-padded (the final chunk
         # writes its whole padded bucket), plus one decode page.
@@ -466,22 +582,47 @@ class InferenceEngine:
         if temperature < 0:
             raise ValueError('temperature must be >= 0')
         vocab = self.config.vocab_size
-        if any(not 0 <= int(t) < vocab for t in prompt_tokens):
+        if any(not 0 <= int(t) < vocab
+               for t in itertools.chain(prompt_tokens, resume)):
             raise ValueError(f'token ids must lie in [0, {vocab})')
         req = Request(request_id=next(self._ids),
                       prompt_tokens=list(map(int, prompt_tokens)),
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), spec=bool(spec),
+                      output_tokens=resume, resumed_from=len(resume),
                       deadline=deadline,
                       tenant=str(tenant) or sched_lib.DEFAULT_TENANT)
-        with self._lock:
-            # The scheduler's call (global bounds under fcfs/deadline,
-            # per-tenant quotas under wfq); the Retry-After estimate
-            # divides by the recent emitted tokens per second.
-            self._sched.admit(req, drain_tps=(
-                self._decode_tokens / self._decode_time
-                if self._decode_time else 0.0))
-            self._sched.enqueue(req)
+        if resume and len(resume) >= req.max_new_tokens:
+            # The stream died on its last token: the budget is spent.
+            req.finish_reason = 'max_tokens'
+            req.finished_at = time.time()
+            return req
+        try:
+            with self._lock:
+                # The scheduler's call (global bounds under fcfs/deadline,
+                # per-tenant quotas under wfq); the Retry-After estimate
+                # divides by the recent emitted tokens per second.
+                try:
+                    self._sched.admit(req, drain_tps=(
+                        self._decode_tokens / self._decode_time
+                        if self._decode_time else 0.0))
+                except AdmissionError:
+                    self._note_anomaly('admission_shed', {
+                        'request_id': req.request_id, 'tenant': req.tenant,
+                        'prompt_tokens': len(req.prompt_tokens)})
+                    raise
+                self._sched.enqueue(req)
+                if self._sl_on:
+                    self._stepline.note_event(
+                        req.request_id, req.tenant, 'submit',
+                        req.submitted_at,
+                        prompt_tokens=len(req.prompt_tokens),
+                        **({'resumed_from': req.resumed_from}
+                           if req.resumed_from else {}))
+        finally:
+            # Outside the lock: the dump handoff takes the writer's own
+            # condition, which never nests under the engine lock.
+            self._flush_stepline_dumps()
         return req
 
     def cancel(self, req: Request) -> bool:
@@ -526,11 +667,22 @@ class InferenceEngine:
         return out
 
     def _do_chunk(self, slot: int) -> Optional[bool]:
-        """Advance one prefilling slot by ONE chunk, with no host sync
-        (the sampled token stays on the device; a later step's pair
-        carries it). Returns True when the source is fully cached (the
-        slot joins this step's decode), False on progress, None when the
-        pool cannot cover the chunk right now (deferred)."""
+        """Advance one prefilling slot by ONE chunk, standalone and with
+        no host sync (the sampled token stays on the device; a later
+        step's pair carries it). Returns True when the source is fully
+        cached (the slot joins this step's decode), False on progress,
+        None when the pool cannot cover the chunk right now
+        (deferred)."""
+        plan = self._prepare_chunk(slot)
+        if plan is None:
+            return None
+        return self._dispatch_chunk_plan(plan)
+
+    def _prepare_chunk(self, slot: int) -> Optional[_ChunkPlan]:
+        """The host half of advancing a prefilling slot by one chunk:
+        page coverage, bucket, padded tokens; everything but the device
+        call, so the chunk can go standalone or ride the decode
+        dispatch. None when the pool cannot cover it right now."""
         req = self._slots[slot]
         off = self._prefilling[slot]
         source = self._source_tokens(req)
@@ -547,36 +699,86 @@ class InferenceEngine:
             self._drain_inflight()
             if not self.allocator.extend(slot, off + bucket):
                 return None
+        padded = np.zeros((bucket,), np.int32)
+        padded[:tl] = source[off:off + tl]
+        return _ChunkPlan(slot=slot, req=req, off=off, bucket=bucket, tl=tl,
+                          total=n, padded=padded,
+                          table_row=self.allocator.table()[slot].copy())
+
+    def _note_first_dispatch(self, req: Request) -> None:
+        """The queue-wait boundary: the request's first chunk is about
+        to dispatch. Not re-stamped on a preemption resume."""
         if req.first_dispatch_at is None:
             req.first_dispatch_at = time.time()
             wait = req.first_dispatch_at - req.submitted_at
             with self._lock:
                 self._queue_waits.append(wait)
                 self._sched.note_queue_wait(req, wait)
-        padded = np.zeros((bucket,), np.int32)
-        padded[:tl] = source[off:off + tl]
-        table_row = self._host_to_device(self.allocator.table()[slot])
-        tokens = self._host_to_device(padded)
+                if self._sl_on:
+                    self._stepline.note_event(
+                        req.request_id, req.tenant, 'first_dispatch',
+                        req.first_dispatch_at, queue_wait_s=round(wait, 6))
+
+    def _stage_chunk(self, plan: _ChunkPlan) -> None:
+        """Copy the plan's slot, offset, true length, temperature, table
+        row and tokens into the chunk programs' input buffer (one copy,
+        no host sync)."""
+        maxp = self.allocator.max_pages_per_slot
+        staged = np.empty((4 + maxp + plan.bucket,), np.int32)
+        staged[:3] = (plan.slot, plan.off, plan.tl)
+        staged[3:4] = np.array([plan.req.temperature],
+                               np.float32).view(np.int32)
+        staged[4:4 + maxp] = plan.table_row
+        staged[4 + maxp:] = plan.padded
+        self._host_to_device(staged, self._chunk_in[:staged.shape[0]])
+
+    def _chunk_inputs(self, bucket: int):
+        """Views of the staged chunk: (slot, offset, true_len as 0-d
+        int32 tensors; temperature [1] fp32; table row; tokens)."""
+        maxp = self.allocator.max_pages_per_slot
+        c = self._chunk_in
+        return (c[0], c[1], c[2], c[3:4].view(torch.float32), c[4:4 + maxp],
+                c[4 + maxp:4 + maxp + bucket])
+
+    def _chunk_body(self, bucket: int, sampled: bool) -> torch.Tensor:
+        """The standalone chunk: the model over the staged chunk, its
+        last row's sample into the slot's last token (meaningful on the
+        final chunk). Returns the sampled token [1] int32."""
+        slot, off, tl, temp, row, tokens = self._chunk_inputs(bucket)
         self.cache, logits = model_lib.paged_prefill_chunk(
-            self.config, self.params, self.cache, slot, table_row, tokens,
-            off, tl, self._rope)
-        sampled = req.temperature > 0
-        temp = np.array([req.temperature], np.float32)
-        tok = sampling_lib.sample(
-            logits[None], self._generator,
-            self._host_to_device(temp) if sampled else torch.from_numpy(temp),
-            top_k=self.ecfg.top_k, sampled=sampled)[0]
-        self._last[slot] = tok
+            self.config, self.params, self.cache, slot, row, tokens, off, tl,
+            self._rope)
+        tok = sampling_lib.sample(logits[None], self._generator, temp,
+                                  top_k=self.ecfg.top_k, sampled=sampled)
+        self._last.index_put_((slot.long().reshape(1),), tok)
+        return tok
+
+    def _dispatch_chunk_plan(self, plan: _ChunkPlan) -> bool:
+        """Standalone dispatch of a prepared chunk through the prefill
+        program (no host sync). True when the source is fully cached."""
+        self._note_first_dispatch(plan.req)
+        t_d = time.perf_counter() if self._sl_on else 0.0
+        self._stage_chunk(plan)
+        sampled = plan.req.temperature > 0
+        self._run_program(('prefill', plan.bucket, sampled),
+                          lambda: self._chunk_body(plan.bucket, sampled))
+        if self._sl_on:
+            self._sl_dispatch += time.perf_counter() - t_d
         with self._lock:
-            self._prefill_tokens += tl
+            self._prefill_tokens += plan.tl
             self._prefill_chunks += 1
-        off += tl
-        if off < n:
-            self._prefilling[slot] = off
+        return self._note_chunk_dispatched(plan)
+
+    def _note_chunk_dispatched(self, plan: _ChunkPlan) -> bool:
+        """Advance (or retire) the slot's prefill frontier after its
+        chunk went out, standalone or fused. True = fully cached."""
+        off = plan.off + plan.tl
+        if off < plan.total:
+            self._prefilling[plan.slot] = off
             return False
-        del self._prefilling[slot]
-        self._slot_len[slot] = n
-        self._temps[slot] = req.temperature
+        del self._prefilling[plan.slot]
+        self._slot_len[plan.slot] = plan.total
+        self._temps[plan.slot] = plan.req.temperature
         self._temps_dirty = True
         return True
 
@@ -601,14 +803,41 @@ class InferenceEngine:
         self._slot_len[slot] = 0
         self.cache = paged_cache_lib.free_slot(self.cache, slot)
 
+    def _note_done(self, req: Request) -> None:  # holds: _lock
+        if self._sl_on:
+            self._stepline.note_event(
+                req.request_id, req.tenant, 'done', req.finished_at,
+                finish_reason=req.finish_reason,
+                tokens=len(req.output_tokens))
+
+    def _note_first_token(self, req: Request,  # holds: _lock
+                          ttft: float) -> None:
+        """TTFT is known: the window, the scheduler, the timeline event
+        and the TTFT-SLO anomaly trigger."""
+        self._ttfts.append(ttft)
+        self._sched.note_first_token(req, ttft)
+        if not self._sl_on:
+            return
+        self._stepline.note_event(req.request_id, req.tenant, 'first_token',
+                                  req.first_token_at, ttft_s=round(ttft, 6))
+        slo = self.ecfg.ttft_slo_s
+        if slo is not None and ttft > slo:
+            self._note_anomaly('ttft_slo', {
+                'request_id': req.request_id, 'tenant': req.tenant,
+                'ttft_s': round(ttft, 6), 'slo_s': slo})
+
     def _finish(self, slot: int, req: Request) -> None:
         with self._lock:
             req.finished_at = time.time()
             if req.first_token_at is None and req.output_tokens:
                 req.first_token_at = req.finished_at
-                ttft = req.finished_at - req.submitted_at
-                self._ttfts.append(ttft)
-                self._sched.note_first_token(req, ttft)
+                self._note_first_token(req,
+                                       req.finished_at - req.submitted_at)
+            self._note_done(req)
+            if req.finish_reason == 'cache_full':
+                self._note_anomaly('cache_full', {
+                    'request_id': req.request_id, 'tenant': req.tenant,
+                    'slot': slot})
             self._prefilling.pop(slot, None)
             self._release_slot(slot)
         req._notify()
@@ -618,6 +847,7 @@ class InferenceEngine:
         expired while waiting). Under the engine lock."""
         req.finish_reason = reason
         req.finished_at = time.time()
+        self._note_done(req)
         req._notify()
 
     def _finish_early(self, slot: int, req: Request, reason: str) -> None:
@@ -628,6 +858,7 @@ class InferenceEngine:
             self._prefilling.pop(slot, None)
             req.finish_reason = reason
             req.finished_at = time.time()
+            self._note_done(req)
             self._release_slot(slot)
         req._notify()
 
@@ -666,6 +897,11 @@ class InferenceEngine:
             self._release_slot(slot)
             self._sched.requeue(req)
             self._preemptions += 1
+            self._note_anomaly('preemption', {
+                'request_id': req.request_id, 'tenant': req.tenant,
+                'slot': slot,
+                'tokens_recomputed': len(req.prompt_tokens)
+                + len(req.output_tokens)})
 
     def _ensure_decode_pages(self, decoding: List[int]) -> List[int]:
         """Every decoding slot must own the page its next token writes,
@@ -716,14 +952,33 @@ class InferenceEngine:
 
     # ---- the step --------------------------------------------------------
     def step(self) -> int:
-        """Refill free slots from the scheduler, advance at most
-        ``prefill_chunks_per_step`` prefill chunks (the scheduler picks
-        which), then dispatch one decode (or verify) step for every
-        fully prefilled slot, and read back steps until at most
-        ``pipeline_depth`` remain in flight. Returns the number of slots
-        worked on."""
+        """Refill free slots from the scheduler, advance prefill (at most
+        ``prefill_chunks_per_step`` standalone chunks, the scheduler
+        picking which; with ``fused_prefill`` and a decode batch, one
+        chunk that rides the decode dispatch instead), then dispatch one
+        decode, verify or mixed step for every fully prefilled slot, and
+        read back steps until at most ``pipeline_depth`` remain in
+        flight. Returns the number of slots worked on.
+
+        With the flight recorder on, the step runs between a counter
+        snapshot and a ring append derived from clocks and counter
+        deltas only, so a recorded step is the unrecorded one."""
         with torch.no_grad():
-            return self._step()
+            if not self._sl_on:
+                return self._step()
+            t0 = time.perf_counter()
+            t_wall = time.time()
+            self._sl_dispatch = self._sl_drain = self._sl_readback = 0.0
+            self._sl_batch = 0
+            with self._lock:
+                pre = (self._prefill_tokens, self._spec_drafted,
+                       self._spec_accepted, self._decode_steps,
+                       self._spec_steps, self._fused_steps,
+                       self._decode_tokens)
+            worked = self._step()
+            self._sl_record(t_wall, time.perf_counter() - t0, pre)
+            self._flush_stepline_dumps()
+            return worked
 
     def _step(self) -> int:
         with self._lock:
@@ -736,21 +991,45 @@ class InferenceEngine:
                         break
                     self._slots[slot] = req
                     self._prefilling[slot] = 0
+                    if self._sl_on and req.first_dispatch_at is not None:
+                        # Back in a slot after a dispatch: a preemption
+                        # resume.
+                        self._stepline.note_event(
+                            req.request_id, req.tenant, 'resume',
+                            time.time(), slot=slot)
         just_prefilled: List[int] = []
         deferred: set = set()
-        for _ in range(self.ecfg.prefill_chunks_per_step):
-            candidates = sorted(s for s in self._prefilling
-                                if s not in deferred)
-            if not candidates:
-                break
+        plan: Optional[_ChunkPlan] = None
+        has_decode = any(r is not None and s not in self._prefilling
+                         for s, r in enumerate(self._slots))
+        if self._fused and has_decode and self._prefilling:
+            # One chunk rides the decode dispatch; the scheduler picks
+            # the slot. A dry pool defers it while decode goes on.
             with self._lock:
-                slot = self._sched.next_prefill_slot(candidates,
-                                                     self._slots)
-            result = self._do_chunk(slot)
-            if result is None:
-                deferred.add(slot)
-            elif result:
-                just_prefilled.append(slot)
+                slot = self._sched.next_prefill_slot(
+                    sorted(self._prefilling), self._slots)
+            plan = self._prepare_chunk(slot)
+        else:
+            dispatched = 0
+            for _ in range(self.ecfg.prefill_chunks_per_step):
+                candidates = sorted(s for s in self._prefilling
+                                    if s not in deferred)
+                if not candidates:
+                    break
+                with self._lock:
+                    slot = self._sched.next_prefill_slot(candidates,
+                                                         self._slots)
+                result = self._do_chunk(slot)
+                if result is None:
+                    deferred.add(slot)
+                else:
+                    dispatched += 1
+                    if result:
+                        just_prefilled.append(slot)
+            if dispatched and has_decode:
+                # Decoding slots waited on standalone chunks this step.
+                with self._lock:
+                    self._stall_steps += 1
         if deferred and not any(r is not None and s not in self._prefilling
                                 for s, r in enumerate(self._slots)):
             # Nothing decodes, so nothing will free pages: the
@@ -769,6 +1048,10 @@ class InferenceEngine:
                 req = self._slots[keep]
                 req.finish_reason = 'cache_full'
                 self._finish(keep, req)
+        if plan is not None:
+            # The mixed step has no draft lanes: speculation stands down
+            # for this step (outputs are the same; step counts move).
+            spec_k = 0
         if spec_k:
             # Drafting continues the host-known tokens, which an
             # in-flight step is about to extend: catch up first, unless
@@ -796,10 +1079,24 @@ class InferenceEngine:
                     if r is not None and s not in self._prefilling]
         if decoding:
             decoding = self._ensure_decode_pages(decoding)
-        if not decoding and not self._queue:
+        if plan is not None and (
+                self._slots[plan.slot] is not plan.req
+                or self._prefilling.get(plan.slot) != plan.off):
+            # The chunk's slot was preempted while decode page pressure
+            # resolved: it re-prefills from the queue.
+            plan = None
+        if not decoding and not self._queue and plan is None:
             return len(self._prefilling)
         t0 = time.perf_counter()
-        if decoding:
+        if plan is not None:
+            if decoding:
+                self._dispatch_mixed(decoding, plan)
+            elif self._dispatch_chunk_plan(plan):
+                # The decode batch evaporated: the chunk went standalone,
+                # and a completed prompt's first token surfaces through
+                # the next dispatch's pair.
+                self._pending_first[plan.slot] = plan.req
+        elif decoding:
             # No drafts this step (speculation off, no eligible slot, or
             # no n-gram matched): the plain decode step is the cheaper.
             drafts = (self._build_drafts(decoding, just_prefilled, spec_k)
@@ -838,8 +1135,8 @@ class InferenceEngine:
 
     def _run_program(self, key: tuple, body: Callable[[], torch.Tensor]
                      ) -> torch.Tensor:
-        """Run the step program ``key`` = (kind, queries per slot,
-        samples) and return its token pair on the device. Eager where
+        """Run the step program ``key`` = (kind, queries per slot or chunk
+        bucket, samples) and return its output on the device. Eager where
         graphs are off. On the card: the first run goes eagerly on the
         capture stream (it builds what the step needs: kernels, cuBLAS
         handles, workspaces), the second captures a CUDA graph, and
@@ -869,8 +1166,10 @@ class InferenceEngine:
                     out = body()
             except Exception as e:
                 raise RuntimeError(
-                    f'CUDA graph capture of the {key[0]} step (R={key[1]}, '
-                    f'sampled={key[2]}) failed; no eager fallback') from e
+                    f'CUDA graph capture of the {key[0]} step '
+                    f'({"bucket" if key[0] in ("prefill", "mixed") else "R"}'
+                    f'={key[1]}, sampled={key[2]}) failed; no eager '
+                    f'fallback') from e
             prog.graph, prog.out = graph, out
             prog.launches = {k: paged_attn.captured[k] - before[k]
                              for k in before
@@ -879,18 +1178,56 @@ class InferenceEngine:
         paged_attn.count_replay(prog.launches)
         return prog.out
 
+    @staticmethod
+    def _finite_row(logits: torch.Tensor) -> torch.Tensor:
+        """The SDC sentinel row: per slot, whether every logit of the
+        step (every candidate's, on verify) is finite, as int32."""
+        return torch.isfinite(logits).flatten(1).all(dim=1).to(torch.int32)
+
     def _decode_body(self, sampled: bool) -> torch.Tensor:
         """The decode step over every slot: [2, slots] int32, row 0 the
         input tokens (the first token of each slot that finished prefill
-        this step), row 1 the new tokens; the new tokens become the next
-        input."""
+        this step), row 1 the new tokens, plus the sentinel row last; the
+        new tokens become the next input."""
         logits, self.cache = model_lib.paged_decode_step(
             self.config, self.params, self.cache, self._table, self._last,
             self._rope, self._active)
         toks = sampling_lib.sample(logits, self._generator, self._temps_dev,
                                    top_k=self.ecfg.top_k, sampled=sampled)
         toks_out = torch.where(self._active, toks, self._last)
-        pair = torch.stack([self._last, toks_out])
+        rows = [self._last, toks_out]
+        if self._sentinel:
+            rows.append(self._finite_row(logits))
+        pair = torch.stack(rows)
+        self._last.copy_(toks_out)
+        return pair
+
+    def _mixed_body(self, bucket: int, sampled: bool) -> torch.Tensor:
+        """The staged chunk and the decode step in one program: the
+        chunk's sample lands in its slot's last token, the decode half
+        samples every active slot. [2, slots] int32: row 0 the last-token
+        vector after the chunk (so a completing chunk's first token comes
+        back in the same read), row 1 the new tokens, plus the sentinel
+        row, whose chunk-slot flag also covers the chunk's logits."""
+        slot, off, tl, temp, row, tokens = self._chunk_inputs(bucket)
+        chunk_logits, dec_logits, self.cache = model_lib.paged_mixed_step(
+            self.config, self.params, self.cache, slot, row, tokens, off, tl,
+            self._table, self._last, self._rope, self._active)
+        first = sampling_lib.sample(chunk_logits[None], self._generator,
+                                    temp, top_k=self.ecfg.top_k,
+                                    sampled=sampled)
+        index = (slot.long().reshape(1),)
+        last1 = self._last.index_put(index, first)
+        toks = sampling_lib.sample(dec_logits, self._generator,
+                                   self._temps_dev, top_k=self.ecfg.top_k,
+                                   sampled=sampled)
+        toks_out = torch.where(self._active, toks, last1)
+        rows = [last1, toks_out]
+        if self._sentinel:
+            flags = self._finite_row(dec_logits)
+            chunk_ok = torch.isfinite(chunk_logits).all().to(torch.int32)
+            rows.append(flags.index_put(index, flags[index] * chunk_ok))
+        pair = torch.stack(rows)
         self._last.copy_(toks_out)
         return pair
 
@@ -900,7 +1237,7 @@ class InferenceEngine:
         advance (lengths += accepted + 1 on active slots, the corrected
         token becomes the next input). [r + 2, slots] int32: row 0 the
         input tokens, rows 1..r the model's token at each position, row
-        r + 1 the accepted count."""
+        r + 1 the accepted count, then the sentinel row."""
         drafts = self._drafts[r]
         tokens = torch.cat([self._last[:, None], drafts], dim=1)
         logits, self.cache = model_lib.paged_verify_step(
@@ -914,7 +1251,10 @@ class InferenceEngine:
         next_tok = emitted.gather(1, accepted.long()[:, None])[:, 0]
         lengths = self.cache.lengths
         lengths += (accepted + 1).to(lengths.dtype) * active.to(lengths.dtype)
-        pair = torch.cat([tokens[:, :1].T, emitted.T, accepted[None]], dim=0)
+        rows = [tokens[:, :1].T, emitted.T, accepted[None]]
+        if self._sentinel:
+            rows.append(self._finite_row(logits)[None])
+        pair = torch.cat(rows, dim=0)
         self._last.copy_(torch.where(active, next_tok, tokens[:, 0]))
         return pair
 
@@ -929,7 +1269,7 @@ class InferenceEngine:
         if (len(self._ring) != self._depth + 1
                 or self._ring[0].shape[0] < pair.shape[0]):
             pin = self.device.type == 'cuda'
-            rows = max(pair.shape[0], self._spec_k + 3)
+            rows = max(pair.shape[0], self._spec_k + 3 + self._sentinel)
             self._ring = [torch.empty((rows, self.ecfg.n_slots),
                                       dtype=torch.int32, pin_memory=pin)
                           for _ in range(self._depth + 1)]
@@ -943,9 +1283,26 @@ class InferenceEngine:
             event.record()
         self._queue.append((host, event, decoded, prefilled, spec_r))
 
+    def _take_pending_first(self) -> List[tuple]:
+        """The slots whose first token waits in _last since a standalone
+        chunk completed them (fused mode), for this dispatch's pair row
+        0; a slot refilled or preempted since re-prefills instead."""
+        if not self._pending_first:
+            return []
+        out = [(s, r) for s, r in self._pending_first.items()
+               if self._slots[s] is r]
+        self._pending_first.clear()
+        return out
+
+    def _note_dispatch(self, t_d: float, decoding: List[int]) -> None:
+        if self._sl_on:
+            self._sl_dispatch += time.perf_counter() - t_d
+            self._sl_batch = len(decoding)
+
     def _dispatch_decode(self, decoding: List[int],
                          just_prefilled: List[int]) -> None:
         """Dispatch one decode step (no host sync)."""
+        t_d = time.perf_counter() if self._sl_on else 0.0
         sampled = self._refresh_dispatch_state(decoding)
         pair = self._run_program(('decode', 1, sampled),
                                  lambda: self._decode_body(sampled))
@@ -955,7 +1312,38 @@ class InferenceEngine:
                 self._inflight_tok[s] += 1
         self._enqueue_readback(
             pair, [(s, self._slots[s]) for s in decoding],
-            [(s, self._slots[s]) for s in just_prefilled], None)
+            self._take_pending_first()
+            + [(s, self._slots[s]) for s in just_prefilled], None)
+        self._note_dispatch(t_d, decoding)
+
+    def _dispatch_mixed(self, decoding: List[int], plan: _ChunkPlan) -> None:
+        """Dispatch ONE mixed step (no host sync): the plan's chunk and
+        the decode batch in one program. Its pair rides the in-flight
+        queue like a decode pair; a chunk that completes its prompt
+        surfaces its first token through row 0 and joins the next step's
+        decode (one step later than unfused, the same tokens)."""
+        t_d = time.perf_counter() if self._sl_on else 0.0
+        sampled = self._refresh_dispatch_state(decoding)
+        sampled = sampled or plan.req.temperature > 0
+        self._note_first_dispatch(plan.req)
+        self._stage_chunk(plan)
+        pair = self._run_program(
+            ('mixed', plan.bucket, sampled),
+            lambda: self._mixed_body(plan.bucket, sampled))
+        with self._lock:
+            self._decode_steps += 1
+            self._fused_steps += 1
+            self._prefill_tokens += plan.tl
+            self._prefill_chunks += 1
+            for s in decoding:
+                self._inflight_tok[s] += 1
+        completes = self._note_chunk_dispatched(plan)
+        prefilled = self._take_pending_first()
+        if completes:
+            prefilled.append((plan.slot, plan.req))
+        self._enqueue_readback(
+            pair, [(s, self._slots[s]) for s in decoding], prefilled, None)
+        self._note_dispatch(t_d, decoding)
 
     # ---- speculative decoding -------------------------------------------
     def _spec_eligible(self, s: int, fresh: set) -> bool:
@@ -1016,6 +1404,7 @@ class InferenceEngine:
                          draft_lens: np.ndarray) -> None:
         """Dispatch one verify step (no host sync); its pair rides the
         in-flight queue like a decode pair."""
+        t_d = time.perf_counter() if self._sl_on else 0.0
         sampled = self._refresh_dispatch_state(decoding)
         r = draft_mat.shape[1] + 1
         if r not in self._drafts:
@@ -1033,7 +1422,9 @@ class InferenceEngine:
                 self._inflight_tok[s] += int(draft_lens[s]) + 1
         self._enqueue_readback(
             pair, [(s, self._slots[s], int(draft_lens[s])) for s in decoding],
-            [(s, self._slots[s]) for s in just_prefilled], r)
+            self._take_pending_first()
+            + [(s, self._slots[s]) for s in just_prefilled], r)
+        self._note_dispatch(t_d, decoding)
 
     # ---- host bookkeeping ------------------------------------------------
     def _consume_one(self) -> None:
@@ -1042,22 +1433,32 @@ class InferenceEngine:
         prefill at its dispatch (row 0), then each decoding slot's new
         token (row 1), or its accepted run on a verify step. Stale-by-one:
         a slot that no longer holds the request it held at dispatch
-        (finished or preempted since) drops its token."""
+        (finished or preempted since) drops its token. With the sentinel,
+        a slot whose flag (the pair's last row) is 0 finishes 'sdc'
+        instead of taking its token."""
         host, event, decoded, prefilled, spec_r = self._queue.popleft()
+        t_rb = time.perf_counter() if self._sl_on else 0.0
         if event is not None:
             event.synchronize()
         pair = host.numpy().copy()
+        if self._sl_on:
+            t_bk = time.perf_counter()
+            self._sl_readback += t_bk - t_rb
         now = time.time()
+        bad = (set(np.flatnonzero(pair[-1] == 0).tolist())
+               if self._sentinel else set())
         touched: List[Request] = []
         with self._lock:
             for slot, req in prefilled:
                 if req is None or req.done or self._slots[slot] is not req:
                     continue
+                if slot in bad:
+                    self._sdc_hit(slot, req)
+                    continue
                 first = int(pair[0, slot])
                 if req.first_token_at is None:
                     req.first_token_at = now
-                    self._ttfts.append(now - req.submitted_at)
-                    self._sched.note_first_token(req, now - req.submitted_at)
+                    self._note_first_token(req, now - req.submitted_at)
                 req.output_tokens.append(first)
                 self._decode_tokens += 1
                 self._sched.note_tokens(req)
@@ -1066,12 +1467,15 @@ class InferenceEngine:
                     # The token decoded this same step dies with the slot.
                     self._finish(slot, req)
             if spec_r is not None:
-                self._consume_verify(pair, decoded, spec_r, touched)
+                self._consume_verify(pair, decoded, spec_r, touched, bad)
                 decoded = ()
             for slot, req in decoded:
                 self._inflight_tok[slot] = max(
                     0, self._inflight_tok[slot] - 1)
                 if req is None or req.done or self._slots[slot] is not req:
+                    continue
+                if slot in bad:
+                    self._sdc_hit(slot, req)
                     continue
                 token = int(pair[1, slot])
                 req.output_tokens.append(token)
@@ -1084,9 +1488,12 @@ class InferenceEngine:
         for req in touched:
             if not req.done:
                 req._notify()
+        if self._sl_on:
+            self._sl_drain += time.perf_counter() - t_bk
 
     def _consume_verify(self, pair: np.ndarray, decoded, spec_r: int,
-                        touched: List[Request]) -> None:  # holds: _lock
+                        touched: List[Request],
+                        bad=frozenset()) -> None:  # holds: _lock
         """Emit each slot's accepted run plus the corrected token ONE
         token at a time through the same finish ladder as plain decode
         (eos / max_tokens / cache_full fire mid-run and drop the tail,
@@ -1098,6 +1505,9 @@ class InferenceEngine:
             self._inflight_tok[slot] = max(
                 0, self._inflight_tok[slot] - (dl + 1))
             if req is None or req.done or self._slots[slot] is not req:
+                continue
+            if slot in bad:
+                self._sdc_hit(slot, req)
                 continue
             accepted = min(int(pair[spec_r + 1, slot]), dl)
             if dl > 0:
@@ -1125,6 +1535,23 @@ class InferenceEngine:
             # Pages extended past the new frontier (the next token's
             # write page is kept) return to the pool now.
             self.allocator.shrink(slot, int(self._slot_len[slot]) + 1)
+
+    def _sdc_hit(self, slot: int, req: Request) -> None:  # holds: _lock
+        """Non-finite logits for a live slot: its token is dropped, the
+        request finishes 'sdc', the engine turns integrity_suspect (for
+        good: the server's /health answers 503 "corrupt" and /generate
+        refuses) and an 'sdc' anomaly dump snapshots the recorder."""
+        self._sdc_events += 1
+        self._integrity_suspect = True
+        self._note_anomaly('sdc', {'slot': slot,
+                                   'request_id': req.request_id,
+                                   'tenant': req.tenant})
+        self._finish_early(slot, req, 'sdc')
+
+    def integrity_suspect(self) -> bool:
+        """The one-way corruption verdict (read lock-free: a bool, one
+        stale step tolerated)."""
+        return self._integrity_suspect
 
     def _drain_inflight(self) -> None:
         """Consume every in-flight step (host state catches up with the
@@ -1154,15 +1581,133 @@ class InferenceEngine:
         self.run_until_idle()
         return reqs
 
+    # ---- flight recorder -------------------------------------------------
+    def note_lifecycle_event(self, event: str, t: Optional[float] = None,
+                             **detail: Any) -> None:
+        """Stamp a replica-lifecycle milestone (weights loaded, warm)
+        into the event ring, beside the request timelines on the same
+        clock. Request id -1 keys this pseudo-timeline."""
+        if not self._sl_on:
+            return
+        with self._lock:
+            self._stepline.note_event(-1, '_lifecycle', event,
+                                      t if t is not None else time.time(),
+                                      **detail)
+
+    def _note_anomaly(self, trigger: str,  # holds: _lock
+                      detail: Dict[str, Any]) -> None:
+        """Record the anomaly in the event ring and queue a ring dump
+        (rate-limited per trigger kind). The sqlite write happens on the
+        recorder's writer thread after the engine lock is released
+        (:meth:`_flush_stepline_dumps`)."""
+        if not self._sl_on:
+            return
+        now = time.time()
+        detail = dict(detail, t=now, step_idx=self._stepline.steps.total)
+        self._stepline.note_event(
+            int(detail.get('request_id') or 0),
+            str(detail.get('tenant') or ''), trigger, now,
+            **{k: v for k, v in detail.items()
+               if k not in ('request_id', 'tenant', 't')})
+        if self._stepline.should_dump(trigger, now):
+            self._pending_dumps.append((trigger, detail))
+
+    def _flush_stepline_dumps(self) -> None:
+        """Hand queued anomaly dumps to the background writer, outside
+        the engine lock (the step's and submit's tails): the ring is
+        copied under the lock, rendered and written on the writer
+        thread."""
+        if not self._sl_on:
+            return
+        with self._lock:
+            if not self._pending_dumps:
+                return
+            pending, self._pending_dumps = self._pending_dumps, []
+            raw = self._stepline.raw()
+
+        def render(pending=pending, raw=raw):
+            snap = stepline_lib.render_snapshot(raw)
+            spans = []
+            for trigger, detail in pending:
+                spans.extend(stepline_lib.dump_spans(trigger, detail, snap))
+            return spans
+
+        stepline_lib.enqueue_dump(render)
+
+    def _sl_record(self, t_wall: float, dur: float, pre: tuple) -> None:
+        """Classify and append this step's record from counter deltas
+        (pure observation: nothing the step loop acts on is read)."""
+        (pre_pref, pre_drafted, pre_accepted, pre_steps, pre_spec,
+         pre_fused, pre_tok) = pre
+        with self._lock:
+            d_disp = self._decode_steps - pre_steps
+            d_chunk = self._prefill_tokens - pre_pref
+            d_tok = self._decode_tokens - pre_tok
+            if d_disp:
+                kind = ('mixed' if self._fused_steps - pre_fused
+                        else 'verify' if self._spec_steps - pre_spec
+                        else 'decode')
+            elif d_chunk:
+                kind = 'prefill'
+            elif d_tok or self._sl_readback or self._sl_drain:
+                kind = 'free'   # consumes only
+            else:
+                return   # an idle tick
+            depth = self._sched.pending()
+            tenant_depths = None
+            if 0 < depth <= 512:
+                tenant_depths = {}
+                for r in self._sched.queued_requests():
+                    tenant_depths[r.tenant] = tenant_depths.get(r.tenant,
+                                                                0) + 1
+            self._stepline.note_step(stepline_lib.StepRecord(
+                idx=self._stepline.steps.total, t=t_wall, dur_s=dur,
+                kind=kind, dispatch_s=self._sl_dispatch,
+                drain_s=self._sl_drain, readback_s=self._sl_readback,
+                batch=self._sl_batch, chunk_tokens=d_chunk,
+                prefilling=len(self._prefilling),
+                spec_drafted=self._spec_drafted - pre_drafted,
+                spec_accepted=self._spec_accepted - pre_accepted,
+                pages_free=self.allocator.free_pages, prefix_evictions=0,
+                preemptions=self._preemptions, queue_depth=depth,
+                tenant_depths=tenant_depths))
+
+    def stepline_snapshot(self) -> Dict[str, Any]:
+        """A copy of the recorder's rings: the GET /debug/stepline
+        payload."""
+        if not self._sl_on:
+            return {'enabled': False, 'steps': [], 'events': []}
+        with self._lock:
+            raw = self._stepline.raw()
+        snap = stepline_lib.render_snapshot(raw)
+        snap['enabled'] = True
+        snap['ttft_slo_s'] = self.ecfg.ttft_slo_s
+        return snap
+
+    def stepline_summary(self) -> Dict[str, Any]:
+        """The stage breakdown over the retained steps (dispatch, drain,
+        readback, host: seconds and shares of the step time)."""
+        if not self._sl_on:
+            return {'enabled': False}
+        with self._lock:
+            recs = self._stepline.steps.snapshot()
+        out = stepline_lib.summarize(recs)
+        out['enabled'] = True
+        return out
+
     # ---- metrics ---------------------------------------------------------
     def compiled_counts(self) -> Dict[str, int]:
-        """Step programs per kind: on the card, the CUDA graphs captured
-        or about to be (one per (queries per slot, samples) key); on the
-        CPU or with graphs off, the distinct step shapes run eagerly.
-        Greedy steady state: decode 1, and verify 1 per draft width once
-        speculation ran. Prefill chunks and slot frees run eagerly and
-        are not counted."""
-        out = {'decode': 0}
+        """Step programs per kind, as the reference reports its compiled
+        programs: on the card the CUDA graphs captured or about to be,
+        one per (kind, queries per slot or chunk bucket, samples) key; on
+        the CPU or with graphs off, the distinct step shapes run eagerly.
+        Greedy steady state: prefill one per chunk bucket used, decode 1,
+        verify 1 per draft width once speculation ran, and (fused on
+        only) mixed one per chunk bucket used. Slot frees are eager
+        index writes, not programs."""
+        out = {'prefill': 0, 'decode': 0}
+        if self._fused:
+            out['mixed'] = 0
         # A copy: metrics() calls this from HTTP threads while the engine
         # thread may add a program.
         for kind, _, _ in list(self._programs):
@@ -1174,7 +1719,13 @@ class InferenceEngine:
             ttfts = sorted(self._ttfts)
             waits = sorted(self._queue_waits)
             snap = self._sched.snapshot()
-            c = dict(steps=self._decode_steps, tokens=self._decode_tokens,
+            c = dict(fused=self._fused_steps, stalls=self._stall_steps,
+                     sl_steps=(self._stepline.steps.total
+                               if self._sl_on else 0),
+                     sl_dumps=self._stepline.dumps if self._sl_on else 0,
+                     sdc=self._sdc_events,
+                     suspect=self._integrity_suspect,
+                     steps=self._decode_steps, tokens=self._decode_tokens,
                      time=self._decode_time, spec_k=self._spec_k,
                      spec_steps=self._spec_steps,
                      spec_slot_steps=self._spec_slot_steps,
@@ -1213,7 +1764,14 @@ class InferenceEngine:
                     if c['spec_slot_steps'] else None)}
                if (c['spec_k'] or c['spec_steps']) else {}),
             'prefill_tokens': c['prefill_tokens'],
+            'prefill_tokens_per_step': (round(
+                c['prefill_tokens'] / c['steps'], 4)
+                if c['steps'] else None),
             'prefill_chunks': c['prefill_chunks'],
+            # Mixed dispatches, and steps where decoding slots waited on
+            # standalone chunks (about 0 with fused_prefill on).
+            'fused_steps': c['fused'],
+            'decode_stall_steps': c['stalls'],
             'ttft_p50_s': ttfts[len(ttfts) // 2] if ttfts else None,
             'queue_wait_p50_ms': (round(waits[len(waits) // 2] * 1e3, 3)
                                   if waits else None),
@@ -1230,6 +1788,13 @@ class InferenceEngine:
             'requests_cancelled': c['cancelled'],
             'pipeline_depth': self._depth,
             'tokens_in_flight': c['in_flight'],
+            # Flight recorder: steps recorded (monotonic) and anomaly
+            # dumps triggered.
+            'stepline_steps': c['sl_steps'],
+            'stepline_dumps': c['sl_dumps'],
+            # SDC sentinel hits and the one-way verdict.
+            'sdc_events_total': c['sdc'],
+            'integrity': 'suspect' if c['suspect'] else 'ok',
             'cuda_graphs': self._graphs_on,
             'step_programs': self.compiled_counts(),
             'paged': True,

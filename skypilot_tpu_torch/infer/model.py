@@ -1,13 +1,19 @@
-"""Paged prefill, decode and speculative verify over ``models/llama.py``
-parameters (counterpart of the paged half of
+"""Paged prefill, decode, speculative verify and the fused mixed step
+over ``models/llama.py`` parameters (counterpart of the paged half of
 ``skypilot_tpu/infer/model.py``).
 
 - ``paged_prefill_chunk``: one prompt chunk of one slot with cache
-  context; its attention launches the paged prefill kernel.
+  context; its attention launches the paged prefill kernel. The slot,
+  offset and true length may be host integers or 0-d device tensors
+  (then nothing in the chunk reads them on the host, and a CUDA graph
+  captured over it serves any chunk of its bucket).
 - ``paged_decode_step``: one token for every slot; its attention
   launches the paged decode kernel.
 - ``paged_verify_step``: R = spec_k + 1 tokens for every slot; its
   attention launches the paged verify kernel.
+- ``paged_mixed_step``: one prefill chunk and one decode step in one
+  call, layer by layer (the chunk's layer, then the decode's), each
+  half with exactly the products its standalone step runs.
 
 All keep the reference's write-then-attend order: a layer writes the new
 K/V into the slot's pages first, then attends (the new token sees
@@ -69,10 +75,59 @@ def _scales(kv: dict) -> dict:
     return {k: kv[k] for k in ('k_scales', 'v_scales') if k in kv}
 
 
+IntLike = paged_attn.IntLike
+
+
+def _chunk_layer(config: llama.LlamaConfig, x: torch.Tensor, i: int,
+                 params: llama.Params, pkv: paged_cache_lib.PagedKVCache,
+                 table_row: torch.Tensor, positions: torch.Tensor,
+                 offset: IntLike, true_len: IntLike, rope: Rope
+                 ) -> torch.Tensor:
+    """Layer ``i`` of a prefill chunk, x: [1, C, d]: write the chunk's
+    K/V into its pages, then attend over the prefix plus the chunk."""
+    C = x.shape[1]
+    hq, hkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    layer = llama.layer_params(params, i)
+    q, k, v = _qkv(config, x, layer, rope, positions[None])
+    kv = _layer_pages(pkv, i)
+    paged_attn.write_chunk_pages(k_new=k[0], v_new=v[0],
+                                 table_row=table_row, offset=offset, **kv)
+    att = paged_attn.paged_prefill_attention(
+        q[0].reshape(C, hkv, hq // hkv, hd), kv['k_pages'], kv['v_pages'],
+        table_row, offset, true_len, **_scales(kv))
+    att = att.reshape(1, C, hq * hd).to(x.dtype)
+    x = x + quant_lib.qdot(att, layer['wo'])
+    return llama.mlp_block(config, x, layer)
+
+
+def _chunk_logits(config: llama.LlamaConfig, params: llama.Params,
+                  x: torch.Tensor, true_len: IntLike) -> torch.Tensor:
+    """Logits [vocab] fp32 of the chunk's row true_len - 1 (a device
+    true_len picks it on the device; the row is the same either way)."""
+    x = norms.rms_norm(x, params['final_norm'], config.norm_eps)
+    if isinstance(true_len, torch.Tensor):
+        last = x[0].index_select(0, (true_len.long() - 1).reshape(1))[0]
+    else:
+        last = x[0, true_len - 1]
+    return quant_lib.qdot(last, params['lm_head']).float()
+
+
+def _set_length(pkv: paged_cache_lib.PagedKVCache, slot: IntLike,
+                value: IntLike) -> None:
+    """lengths[slot] = value, on the device when either is a tensor."""
+    if isinstance(slot, torch.Tensor) or isinstance(value, torch.Tensor):
+        index = torch.as_tensor(slot, device=pkv.lengths.device).long()
+        value = torch.as_tensor(value, device=pkv.lengths.device)
+        pkv.lengths.index_put_((index.reshape(1),),
+                               value.to(pkv.lengths.dtype).reshape(1))
+    else:
+        pkv.lengths[slot] = value
+
+
 def paged_prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
-                        pkv: paged_cache_lib.PagedKVCache, slot: int,
+                        pkv: paged_cache_lib.PagedKVCache, slot: IntLike,
                         table_row: torch.Tensor, tokens: torch.Tensor,
-                        offset: int, true_len: int, rope: Rope
+                        offset: IntLike, true_len: IntLike, rope: Rope
                         ) -> Tuple[paged_cache_lib.PagedKVCache,
                                    torch.Tensor]:
     """Process ONE chunk of a prompt over the paged cache.
@@ -80,7 +135,9 @@ def paged_prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
     tokens: [C] int, the chunk padded to its bucket; offset: tokens of
     this slot already cached (page-aligned, not necessarily
     C-aligned); true_len: valid tokens in the chunk; table_row: [maxp]
-    int32, already covering positions [0, offset + C). The chunk's K/V
+    int32, already covering positions [0, offset + C). slot, offset and
+    true_len are host integers, or 0-d int32 tensors on the device (the
+    engine's, read there: the same bits, no host sync). The chunk's K/V
     land in the slot's pages, its queries attend to the cached prefix
     plus the chunk itself (causal), and lengths[slot] becomes
     offset + true_len. Returns (cache, logits [vocab] fp32 at local
@@ -90,27 +147,14 @@ def paged_prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
     the slot's frontier: no mask reaches it, and the next chunk or
     decode write overwrites it before the frontier does."""
     C = tokens.shape[0]
-    hq, hkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
-    group = hq // hkv
     x = quant_lib.qembed(params['embed'], tokens)[None]   # [1, C, d]
     positions = offset + torch.arange(C, dtype=torch.int32,
                                       device=tokens.device)
     for i in range(config.n_layers):
-        layer = llama.layer_params(params, i)
-        q, k, v = _qkv(config, x, layer, rope, positions[None])
-        kv = _layer_pages(pkv, i)
-        paged_attn.write_chunk_pages(k_new=k[0], v_new=v[0],
-                                     table_row=table_row, offset=offset, **kv)
-        att = paged_attn.paged_prefill_attention(
-            q[0].reshape(C, hkv, group, hd), kv['k_pages'], kv['v_pages'],
-            table_row, offset, true_len, **_scales(kv))
-        att = att.reshape(1, C, hq * hd).to(x.dtype)
-        x = x + quant_lib.qdot(att, layer['wo'])
-        x = llama.mlp_block(config, x, layer)
-    x = norms.rms_norm(x, params['final_norm'], config.norm_eps)
-    last = x[0, true_len - 1]
-    logits = quant_lib.qdot(last, params['lm_head']).float()
-    pkv.lengths[slot] = offset + true_len
+        x = _chunk_layer(config, x, i, params, pkv, table_row, positions,
+                         offset, true_len, rope)
+    logits = _chunk_logits(config, params, x, true_len)
+    _set_length(pkv, slot, offset + true_len)
     return pkv, logits
 
 
@@ -127,37 +171,90 @@ def paged_prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
 STEP_ROWS = 8
 
 
+class _Step:
+    """The dense half of a decode or verify step, layer by layer (the
+    mixed step runs a chunk layer between two of its layers). tokens:
+    [slots, R] at positions lengths[slot] + i; ``attend(i, q, k, v)``
+    writes layer i's run K/V (k, v: [slots, R, hkv, hd]) and returns its
+    attention for q [slots, R, hq, hd] as [slots, R, hq * hd]. Padded
+    rows compute garbage that is never read."""
+
+    def __init__(self, config: llama.LlamaConfig, params: llama.Params,
+                 pkv: paged_cache_lib.PagedKVCache, tokens: torch.Tensor,
+                 rope: Rope, attend) -> None:
+        slots, self.R = tokens.shape
+        width = max(STEP_ROWS, self.R)
+        lengths = pkv.lengths
+        # Rows past the run (and a run near the cache end) may run past
+        # the rotary tables: clamp them as JAX's gather does; their K/V
+        # land in the sink page or beyond the frontier and their logits
+        # are not read.
+        self.positions = (lengths[:, None] + torch.arange(
+            width, dtype=lengths.dtype, device=lengths.device)[None, :]
+        ).clamp(max=rope[0].shape[0] - 1)
+        block = torch.zeros((slots, width), dtype=tokens.dtype,
+                            device=tokens.device)
+        block[:, :self.R] = tokens
+        self.x = quant_lib.qembed(params['embed'], block)  # [slots, width, d]
+        self.config, self.params, self.rope = config, params, rope
+        self.attend = attend
+
+    def layer(self, i: int) -> None:
+        config, x, R = self.config, self.x, self.R
+        layer = llama.layer_params(self.params, i)
+        q, k, v = _qkv(config, x, layer, self.rope, self.positions)
+        att = torch.zeros((x.shape[0], x.shape[1],
+                           config.n_heads * config.head_dim),
+                          dtype=x.dtype, device=x.device)
+        att[:, :R] = self.attend(i, q[:, :R], k[:, :R], v[:, :R])
+        x = x + quant_lib.qdot(att, layer['wo'])
+        self.x = llama.mlp_block(config, x, layer)
+
+    def logits(self) -> torch.Tensor:
+        """[slots, R, vocab] fp32."""
+        x = norms.rms_norm(self.x, self.params['final_norm'],
+                           self.config.norm_eps)
+        return quant_lib.qdot(x, self.params['lm_head']).float()[:, :self.R]
+
+
 def _step(config: llama.LlamaConfig, params: llama.Params,
           pkv: paged_cache_lib.PagedKVCache, tokens: torch.Tensor,
           rope: Rope, attend) -> torch.Tensor:
-    """The dense half of a decode or verify step. tokens: [slots, R] at
-    positions lengths[slot] + i; ``attend(i, q, k, v)`` writes layer i's
-    run K/V (k, v: [slots, R, hkv, hd]) and returns its attention for q
-    [slots, R, hq, hd] as [slots, R, hq * hd]. Padded rows compute
-    garbage that is never read. Returns logits [slots, R, vocab] fp32."""
-    slots, R = tokens.shape
-    width = max(STEP_ROWS, R)
-    lengths = pkv.lengths
-    # Rows past the run (and a run near the cache end) may run past the
-    # rotary tables: clamp them as JAX's gather does; their K/V land in
-    # the sink page or beyond the frontier and their logits are not read.
-    positions = (lengths[:, None] + torch.arange(
-        width, dtype=lengths.dtype, device=lengths.device)[None, :]).clamp(
-            max=rope[0].shape[0] - 1)
-    block = torch.zeros((slots, width), dtype=tokens.dtype,
-                        device=tokens.device)
-    block[:, :R] = tokens
-    x = quant_lib.qembed(params['embed'], block)          # [slots, width, d]
+    """A whole :class:`_Step`: logits [slots, R, vocab] fp32."""
+    step = _Step(config, params, pkv, tokens, rope, attend)
     for i in range(config.n_layers):
-        layer = llama.layer_params(params, i)
-        q, k, v = _qkv(config, x, layer, rope, positions)
-        att = torch.zeros((slots, width, config.n_heads * config.head_dim),
-                          dtype=x.dtype, device=x.device)
-        att[:, :R] = attend(i, q[:, :R], k[:, :R], v[:, :R])
-        x = x + quant_lib.qdot(att, layer['wo'])
-        x = llama.mlp_block(config, x, layer)
-    x = norms.rms_norm(x, params['final_norm'], config.norm_eps)
-    return quant_lib.qdot(x, params['lm_head']).float()[:, :R]
+        step.layer(i)
+    return step.logits()
+
+
+def _decode_attend(config: llama.LlamaConfig,
+                   pkv: paged_cache_lib.PagedKVCache,
+                   block_tables: torch.Tensor, positions: torch.Tensor):
+    """A decode step's ``attend``: append each slot's token K/V at
+    ``positions``, then one decode launch over lengths positions + 1."""
+    slots = positions.shape[0]
+    hkv, hd = config.n_kv_heads, config.head_dim
+    group = config.n_heads // hkv
+
+    def attend(i, q, k, v):
+        kv = _layer_pages(pkv, i)
+        paged_attn.append_token_pages(k_new=k[:, 0], v_new=v[:, 0],
+                                      block_tables=block_tables,
+                                      lengths=positions, **kv)
+        att = paged_attn.paged_decode_attention(
+            q[:, 0].reshape(slots, hkv, group, hd).contiguous(),
+            kv['k_pages'], kv['v_pages'], block_tables, positions + 1,
+            **_scales(kv))
+        return att.reshape(slots, 1, -1)
+    return attend
+
+
+def _bump(pkv: paged_cache_lib.PagedKVCache,
+          active: Optional[torch.Tensor]) -> None:
+    if active is None:
+        pkv.lengths += 1
+    else:
+        pkv.lengths += active.to(pkv.lengths.dtype)
 
 
 def paged_decode_step(config: llama.LlamaConfig, params: llama.Params,
@@ -172,28 +269,48 @@ def paged_decode_step(config: llama.LlamaConfig, params: llama.Params,
     lands in their own frontier or the sink page; ``lengths`` advances
     only on ``active`` slots (all when None). Returns (logits
     [slots, vocab] fp32, cache)."""
-    slots = tokens.shape[0]
-    hkv, hd = config.n_kv_heads, config.head_dim
-    group = config.n_heads // hkv
-    positions = pkv.lengths.clone()
-
-    def attend(i, q, k, v):
-        kv = _layer_pages(pkv, i)
-        paged_attn.append_token_pages(k_new=k[:, 0], v_new=v[:, 0],
-                                      block_tables=block_tables,
-                                      lengths=positions, **kv)
-        att = paged_attn.paged_decode_attention(
-            q[:, 0].reshape(slots, hkv, group, hd).contiguous(),
-            kv['k_pages'], kv['v_pages'], block_tables, positions + 1,
-            **_scales(kv))
-        return att.reshape(slots, 1, -1)
-
+    attend = _decode_attend(config, pkv, block_tables, pkv.lengths.clone())
     logits = _step(config, params, pkv, tokens[:, None], rope, attend)[:, 0]
-    if active is None:
-        pkv.lengths += 1
-    else:
-        pkv.lengths += active.to(pkv.lengths.dtype)
+    _bump(pkv, active)
     return logits, pkv
+
+
+def paged_mixed_step(config: llama.LlamaConfig, params: llama.Params,
+                     pkv: paged_cache_lib.PagedKVCache, slot: IntLike,
+                     table_row: torch.Tensor, chunk_tokens: torch.Tensor,
+                     offset: IntLike, true_len: IntLike,
+                     block_tables: torch.Tensor,
+                     decode_tokens: torch.Tensor, rope: Rope,
+                     active: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                paged_cache_lib.PagedKVCache]:
+    """One prefill chunk of ``slot`` and one decode step of every slot
+    in one call (the reference's ``paged_mixed_step``): arguments as in
+    :func:`paged_prefill_chunk` and :func:`paged_decode_step`. The
+    chunk's frontier (lengths[slot] = offset + true_len) is set first, so
+    the decode half sees exactly the state the standalone chunk leaves;
+    then each layer runs the chunk's layer and the decode's. The two
+    halves' dense products stay separate (the chunk's [1, C] rows never
+    join the decode's [slots, STEP_ROWS] block, whose shape fixes the
+    decode rows' bits), so every value equals the standalone chunk's
+    followed by the standalone decode step's. Returns (chunk logits
+    [vocab], decode logits [slots, vocab], both fp32; cache)."""
+    C = chunk_tokens.shape[0]
+    xc = quant_lib.qembed(params['embed'], chunk_tokens)[None]
+    cpos = offset + torch.arange(C, dtype=torch.int32,
+                                 device=chunk_tokens.device)
+    _set_length(pkv, slot, offset + true_len)
+    step = _Step(config, params, pkv, decode_tokens[:, None], rope,
+                 _decode_attend(config, pkv, block_tables,
+                                pkv.lengths.clone()))
+    for i in range(config.n_layers):
+        xc = _chunk_layer(config, xc, i, params, pkv, table_row, cpos,
+                          offset, true_len, rope)
+        step.layer(i)
+    chunk_logits = _chunk_logits(config, params, xc, true_len)
+    dec_logits = step.logits()[:, 0]
+    _bump(pkv, active)
+    return chunk_logits, dec_logits, pkv
 
 
 def paged_verify_step(config: llama.LlamaConfig, params: llama.Params,

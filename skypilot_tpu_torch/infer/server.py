@@ -6,14 +6,20 @@ Endpoints:
 
 - ``GET  /health``   -> 200 ``{"status": "ok"}`` once the engine is warm,
   503 ``{"status": "warming"}`` before (``"dead"`` if the loop died,
-  ``"draining"`` once a drain began).
+  ``"corrupt"`` once the SDC sentinel tripped, ``"draining"`` once a
+  drain began).
 - ``POST /generate`` -> {"tokens": [int] | "prompt": str, optional
-  "max_new_tokens", "temperature", "stream", "spec", "tenant"}. The
-  answer is one JSON object, or with ``"stream": true`` JSON lines:
-  ``{"tokens", "text"}`` per token batch and a final ``{"done": true,
-  ...}`` line. ``"spec": false`` opts the request out of speculative
-  drafting; both answers carry its ``accepted_len_mean`` (tokens per
-  verify step it drafted in, None when it never drafted). The
+  "max_new_tokens", "temperature", "stream", "spec", "tenant",
+  "resume_from"}. The answer is one JSON object, or with ``"stream":
+  true`` JSON lines: ``{"tokens", "text"}`` per token batch and a final
+  ``{"done": true, ...}`` line. ``"resume_from"`` (token ids a died
+  stream already delivered) continues that stream: the engine prefills
+  prompt + those tokens and only new tokens are streamed (the full list
+  in a plain answer, as the reference's). Once the sentinel tripped it
+  answers 503 ``{"quarantined": true}``. ``"spec": false`` opts the
+  request out of speculative drafting; both answers carry its
+  ``accepted_len_mean`` (tokens per verify step it drafted in, None
+  when it never drafted). The
   ``X-SkyTpu-Tenant`` header (or the body's ``tenant``) names the
   request's tenant for the scheduler; ``X-SkyTpu-Deadline-S`` gives it a
   wall-clock budget (504 when spent before the first token). Past the
@@ -26,7 +32,10 @@ Endpoints:
 - ``GET  /metrics``  -> engine metrics as JSON (TTFT p50, decode tokens,
   steps, the scheduler and its per-tenant stats, the pipeline depth,
   preemptions, the KV dtype and page bytes, the speculation counters,
-  each kernel's launch count) plus the server's drain and shed state.
+  the fused-step and stall counters, the recorder's and the sentinel's,
+  each kernel's launch count) plus the server's drain and shed state;
+  ``?format=prometheus`` gives the same as Prometheus text.
+- ``GET  /debug/stepline`` -> the flight recorder's rings as JSON.
 
 It uses the standard library's ``ThreadingHTTPServer``: one thread per
 connection enqueues its request and waits on the request's condition,
@@ -39,7 +48,8 @@ Without a checkpoint the server serves random weights sized by
 (add ``--device cpu`` to run on the CPU, ``--spec-k 4`` to decode
 speculatively, ``--kv-dtype int8`` for int8 KV pages, ``--scheduler wfq
 --tenant-weights gold=4,free=1`` for weighted fair queueing,
-``--max-queue-requests N`` to shed load past N waiting requests).
+``--max-queue-requests N`` to shed load past N waiting requests,
+``--fused-prefill`` for fused mixed steps).
 """
 from __future__ import annotations
 
@@ -49,12 +59,14 @@ import json
 import logging
 import threading
 import time
+import urllib.parse
 from typing import List, Optional
 
 import torch
 
 from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import prometheus as prom_lib
 
 logger = logging.getLogger(__name__)
 
@@ -185,6 +197,8 @@ class InferenceServer:
             while not warm.done:
                 self.engine.step()
             logger.info('engine warm in %.1fs', time.time() - t0)
+            self.engine.note_lifecycle_event('warm',
+                                             warm_s=time.time() - t0)
             self.ready = True
             while not self._stop.is_set():
                 if self.engine.step() == 0:
@@ -234,6 +248,10 @@ class InferenceServer:
     def health(self):
         if self.dead:
             return 503, {'status': 'dead', 'error': self.dead}
+        if self.engine.integrity_suspect():
+            # The SDC sentinel tripped: this card produced non-finite
+            # logits. 503 pulls the replica from the ready set.
+            return 503, {'status': 'corrupt'}
         with self._active_lock:
             if self.draining:
                 return 503, {'status': 'draining', 'inflight': self._active}
@@ -241,7 +259,9 @@ class InferenceServer:
             return 503, {'status': 'warming'}
         return 200, {'status': 'ok'}
 
-    def metrics(self):
+    def metrics(self, prometheus: bool = False):
+        """(status, the metrics dict) or, with ``prometheus``, (status,
+        its Prometheus text)."""
         m = self.engine.metrics()
         with self._active_lock:
             m['server_inflight'] = self._active
@@ -250,7 +270,12 @@ class InferenceServer:
             if self.drain_duration_s is not None:
                 m['drain_duration_s'] = round(self.drain_duration_s, 4)
         m['role'] = 'mixed'
+        if prometheus:
+            return 200, prom_lib.render_replica(m)
         return 200, m
+
+    def stepline(self):
+        return 200, self.engine.stepline_snapshot()
 
     # ---- graceful drain --------------------------------------------------
     def enter_generate(self) -> bool:
@@ -298,6 +323,10 @@ class InferenceServer:
         headers = headers or {}
         if self.dead:
             return None, (500, {'error': f'engine died: {self.dead}'}, {})
+        corrupt = (503, {'error': 'replica corrupt', 'quarantined': True},
+                   {'Retry-After': '1'})
+        if self.engine.integrity_suspect():
+            return None, corrupt
         with self._active_lock:
             if self.draining:
                 # Drain began while the body was read: refuse at the
@@ -333,12 +362,24 @@ class InferenceServer:
             tokens = self.tokenizer.encode(str(body['prompt']))
         else:
             return None, (400, {'error': 'need "tokens" or "prompt"'}, {})
+        resume = body.get('resume_from')
+        if resume is not None:
+            # A died stream continued here: the engine prefills prompt +
+            # these tokens and only new tokens are emitted.
+            try:
+                resume = [int(t) for t in resume]
+            except (TypeError, ValueError):
+                return None, (400, {'error': '"resume_from" must be a '
+                                             'token id list'}, {})
+        if self.engine.integrity_suspect():
+            # The sentinel may have tripped while the body was read.
+            return None, corrupt
         try:
             req = self.engine.submit(
                 tokens, max_new_tokens=body.get('max_new_tokens'),
                 temperature=float(body.get('temperature', 0.0)),
                 spec=bool(body.get('spec', True)), deadline=deadline,
-                tenant=tenant)
+                tenant=tenant, resume_tokens=resume)
         except engine_lib.AdmissionError as e:
             # Bounded admission: shed instead of queueing unboundedly
             # (the LB tries another replica first).
@@ -381,10 +422,14 @@ class _Handler(http.server.BaseHTTPRequestHandler):
     def log_message(self, fmt, *args) -> None:
         logger.debug('%s - ' + fmt, self.address_string(), *args)
 
-    def _json(self, status: int, payload: dict, headers=None) -> None:
-        data = json.dumps(payload).encode()
+    def _json(self, status: int, payload, headers=None) -> None:
+        """Send ``payload``: a dict as JSON, a str as plain text."""
+        if isinstance(payload, str):
+            data, ctype = payload.encode(), 'text/plain; charset=utf-8'
+        else:
+            data, ctype = json.dumps(payload).encode(), 'application/json'
         self.send_response(status)
-        self.send_header('Content-Type', 'application/json')
+        self.send_header('Content-Type', ctype)
         self.send_header('Content-Length', str(len(data)))
         for key, value in (headers or {}).items():
             self.send_header(key, value)
@@ -401,11 +446,14 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         return body
 
     def do_GET(self) -> None:
-        path = self.path.split('?', 1)[0]
+        path, _, query = self.path.partition('?')
         if path == '/health':
             self._json(*self.srv.health())
         elif path == '/metrics':
-            self._json(*self.srv.metrics())
+            fmt = urllib.parse.parse_qs(query).get('format', [''])[0]
+            self._json(*self.srv.metrics(prometheus=fmt == 'prometheus'))
+        elif path == '/debug/stepline':
+            self._json(*self.srv.stepline())
         else:
             self._json(404, {'error': f'no route {path}'})
 
@@ -458,7 +506,8 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             if self.srv.dead:
                 self._json(500, {'error': f'engine died: {self.srv.dead}'})
                 return
-        if req.finish_reason == 'deadline' and not req.output_tokens:
+        if (req.finish_reason == 'deadline'
+                and len(req.output_tokens) <= req.resumed_from):
             # Expired before producing anything: a real timeout.
             self._json(504, {'error': 'deadline exceeded before first '
                                       'token', 'finish_reason': 'deadline'})
@@ -472,7 +521,11 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         self.send_header('Content-Type', 'application/jsonlines')
         self.end_headers()
         decoder = IncrementalDecoder(self.srv.tokenizer)
-        sent = 0
+        # A resumed stream never emits the tokens it resumed from: the
+        # decoder is primed with them and their text discarded.
+        sent = req.resumed_from
+        if sent:
+            decoder.feed(req.output_tokens, sent)
 
         def write(obj: dict) -> None:
             self.wfile.write(json.dumps(obj).encode() + b'\n')
@@ -504,7 +557,10 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
                  scheduler: str = 'fcfs', tenant_weights=None,
                  max_queue_requests: Optional[int] = None,
                  max_queue_tokens: Optional[int] = None,
-                 cuda_graphs: bool = True) -> engine_lib.InferenceEngine:
+                 cuda_graphs: bool = True, fused_prefill: bool = False,
+                 stepline: bool = True, stepline_cap: Optional[int] = None,
+                 ttft_slo_s: Optional[float] = None,
+                 sdc_sentinel: bool = True) -> engine_lib.InferenceEngine:
     """Random weights for ``model`` drawn from ``seed`` on ``device``,
     and a paged engine over them."""
     dev = engine_lib.resolve_device(device)
@@ -521,7 +577,10 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
             pipeline_depth=pipeline_depth, scheduler=scheduler,
             tenant_weights=tenant_weights,
             max_queue_requests=max_queue_requests,
-            max_queue_tokens=max_queue_tokens, cuda_graphs=cuda_graphs),
+            max_queue_tokens=max_queue_tokens, cuda_graphs=cuda_graphs,
+            fused_prefill=fused_prefill, stepline=stepline,
+            stepline_cap=stepline_cap, ttft_slo_s=ttft_slo_s,
+            sdc_sentinel=sdc_sentinel),
         seed=seed, device=dev)
 
 
@@ -570,6 +629,30 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument('--max-queue-tokens', type=int, default=None,
                         help='cap on the prompt + generated tokens '
                              'waiting in the queue')
+    parser.add_argument('--fused-prefill', action='store_true',
+                        help='fused mixed steps: while slots decode, one '
+                             'prefill chunk rides the decode step as one '
+                             'program instead of standalone chunks '
+                             'stalling the decode batch; greedy outputs '
+                             'unchanged')
+    parser.add_argument('--no-stepline', action='store_true',
+                        help='disable the flight recorder (on by '
+                             'default: per-step records and request '
+                             'timelines at GET /debug/stepline, dumped '
+                             'into the span store on anomalies)')
+    parser.add_argument('--stepline-cap', type=int, default=None,
+                        help='flight-recorder ring capacity in step '
+                             'records (default: SKY_TPU_STEPLINE_CAP or '
+                             '1024)')
+    parser.add_argument('--ttft-slo-s', type=float, default=None,
+                        help='TTFT SLO in seconds: a slower first token '
+                             'triggers a flight-recorder dump (default: '
+                             'no SLO trigger)')
+    parser.add_argument('--no-sdc-sentinel', action='store_true',
+                        help='disable the on-device SDC sentinel (on by '
+                             'default: a non-finite logit marks the '
+                             'replica corrupt, 503 on /health; greedy '
+                             'outputs unchanged either way)')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default; raises without a card) or "
                              "'cpu'")
@@ -591,7 +674,12 @@ def engine_from_args(args: argparse.Namespace) -> engine_lib.InferenceEngine:
                         tenant_weights=parse_tenant_weights(
                             args.tenant_weights),
                         max_queue_requests=args.max_queue_requests,
-                        max_queue_tokens=args.max_queue_tokens)
+                        max_queue_tokens=args.max_queue_tokens,
+                        fused_prefill=args.fused_prefill,
+                        stepline=not args.no_stepline,
+                        stepline_cap=args.stepline_cap,
+                        ttft_slo_s=args.ttft_slo_s,
+                        sdc_sentinel=not args.no_sdc_sentinel)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -1,0 +1,535 @@
+"""Engine flight recorder: step-level timelines and anomaly dumps (a
+copy of ``skypilot_tpu/observability/stepline.py`` for the port, which
+imports nothing of the JAX package).
+
+An always-on, low-overhead ring of per-engine-step records (one compact
+:class:`StepRecord` per worked step: kind, dispatch/drain/readback wall
+shares, batch and chunk sizes, speculation accept counts, page
+pressure, queue depth per tenant) plus a per-request timeline ring
+(submit -> first_dispatch -> first_token -> done, with resume, cancel
+and shed events), both appended by the engine step loop under the
+engine's ``_lock``.
+
+Two export paths, as in the reference:
+
+- **Perfetto**: :func:`to_perfetto` renders a snapshot as Chrome-trace
+  JSON, one track per step-loop stage (dispatch / drain / readback /
+  host) and one per request.
+- **Anomaly dumps**: a TTFT-SLO breach, preemption, ``cache_full``
+  finish, admission shed or SDC hit snapshots the ring into the sqlite
+  span store (``observability/store.py``: the same schema at the same
+  default path, so ``sky-tpu profile`` reads a port's dump unchanged):
+  one ``stepline.dump`` root span, one child span per step or request
+  event. Writes happen on a background thread, never under the engine
+  lock, rate-limited per trigger kind.
+
+Determinism contract: the recorder reads clocks and counters only; it
+never influences scheduling, sampling or page decisions, so greedy
+outputs are identical recorder on vs off.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+# Ring capacities (records, not bytes). A step record is ~15 scalars;
+# 1024 of them cover minutes of steady-state decode — enough context
+# around any anomaly without growing replica RSS measurably.
+CAP_ENV = 'SKY_TPU_STEPLINE_CAP'
+DEFAULT_CAP = 1024
+# Minimum seconds between two dumps of the SAME trigger kind: a
+# preemption storm must not turn the span store into a write
+# amplifier (each dump is O(ring) rows). 0 disables the limit.
+DUMP_INTERVAL_ENV = 'SKY_TPU_STEPLINE_DUMP_INTERVAL_S'
+DEFAULT_DUMP_INTERVAL_S = 30.0
+
+TRIGGERS = ('ttft_slo', 'preemption', 'cache_full', 'admission_shed',
+            'breaker_open', 'slo_page')
+
+# Step-loop stage keys, in the order they run inside one step. 'host'
+# is the remainder (scheduling, page accounting, drafting).
+STAGES = ('dispatch', 'drain', 'readback', 'host')
+
+
+def default_cap() -> int:
+    try:
+        return max(8, int(os.environ.get(CAP_ENV, DEFAULT_CAP)))
+    except ValueError:
+        return DEFAULT_CAP
+
+
+def dump_interval_s() -> float:
+    try:
+        return max(0.0, float(os.environ.get(
+            DUMP_INTERVAL_ENV, DEFAULT_DUMP_INTERVAL_S)))
+    except ValueError:
+        return DEFAULT_DUMP_INTERVAL_S
+
+
+@dataclasses.dataclass
+class StepRecord:
+    """One engine step, compactly. All times are wall seconds; the
+    stage shares are DISJOINT: ``dispatch_s`` (device program
+    launches), ``drain_s`` (consume bookkeeping while catching host
+    state up), ``readback_s`` (blocked on the device→host pair copy),
+    and host = ``dur_s`` minus the three."""
+    __slots__ = ('idx', 't', 'dur_s', 'kind', 'dispatch_s', 'drain_s',
+                 'readback_s', 'batch', 'chunk_tokens', 'prefilling',
+                 'spec_drafted', 'spec_accepted', 'pages_free',
+                 'prefix_evictions', 'preemptions', 'queue_depth',
+                 'tenant_depths')
+    idx: int                 # monotonic step index (survives wrap)
+    t: float                 # wall-clock step start
+    dur_s: float
+    kind: str                # prefill | decode | mixed | verify | free
+    dispatch_s: float
+    drain_s: float
+    readback_s: float
+    batch: int               # decoding slots in the dispatch
+    chunk_tokens: int        # prefill tokens dispatched this step
+    prefilling: int          # slots mid-prefill after the step
+    spec_drafted: int        # draft tokens consumed this step
+    spec_accepted: int
+    pages_free: int          # -1 on dense engines
+    prefix_evictions: int    # cumulative (deltas = per-step evictions)
+    preemptions: int         # cumulative
+    queue_depth: int
+    tenant_depths: Optional[Dict[str, int]]   # None when single-tenant
+
+    def host_s(self) -> float:
+        return max(0.0, self.dur_s - self.dispatch_s - self.drain_s
+                   - self.readback_s)
+
+    def as_dict(self) -> Dict[str, Any]:
+        d = {k: getattr(self, k) for k in self.__slots__}
+        d['host_s'] = self.host_s()
+        return d
+
+
+class Ring:
+    """Fixed-capacity ring buffer: O(1) append, oldest-first
+    ``snapshot``, and a monotonic ``total`` so wraparound is
+    observable (record ``idx`` continuity is testable). NOT
+    thread-safe by itself — the owner (the engine) serializes access
+    under its own lock."""
+
+    __slots__ = ('_buf', '_cap', 'total')
+
+    def __init__(self, cap: int) -> None:
+        self._cap = max(1, int(cap))
+        self._buf: List[Any] = [None] * self._cap
+        self.total = 0
+
+    def __len__(self) -> int:
+        return min(self.total, self._cap)
+
+    @property
+    def cap(self) -> int:
+        return self._cap
+
+    def append(self, item: Any) -> None:
+        self._buf[self.total % self._cap] = item
+        self.total += 1
+
+    def snapshot(self) -> List[Any]:
+        n = len(self)
+        start = self.total - n
+        return [self._buf[i % self._cap]
+                for i in range(start, self.total)]
+
+
+class StepRecorder:
+    """The engine-side recorder: a step ring + a request-event ring +
+    per-trigger dump rate limiting. Every method is called under the
+    owning engine's ``_lock`` (the recorder owns no lock; same
+    contract as the scheduler)."""
+
+    def __init__(self, cap: Optional[int] = None,
+                 min_dump_interval_s: Optional[float] = None) -> None:
+        cap = cap if cap is not None else default_cap()
+        self.steps = Ring(cap)
+        # Requests produce ~4 events each; give them a wider window so
+        # the request timeline spans the same wall interval as steps.
+        self.events = Ring(cap * 4)
+        self.dumps = 0
+        self._min_dump_s = (min_dump_interval_s
+                            if min_dump_interval_s is not None
+                            else dump_interval_s())
+        self._last_dump: Dict[str, float] = {}
+
+    # -- recording (holds: engine _lock) -----------------------------------
+    def note_step(self, rec: StepRecord) -> None:
+        self.steps.append(rec)
+
+    def note_event(self, request_id: int, tenant: str, event: str,
+                   t: float, **detail: Any) -> None:
+        ev = {'request_id': request_id, 'tenant': tenant,
+              'event': event, 't': t}
+        if detail:
+            ev.update(detail)
+        self.events.append(ev)
+
+    def should_dump(self, trigger: str, now: float) -> bool:
+        """Per-trigger rate limit: at most one dump per kind per
+        ``min_dump_interval_s`` (the span store is sqlite; a
+        preemption storm must not DoS it). ``dumps`` counts rate-
+        limit passes, i.e. dumps TRIGGERED — the handoff queue is
+        bounded and the store write fail-open, so completion is not
+        guaranteed (metric semantics documented accordingly)."""
+        last = self._last_dump.get(trigger)
+        if last is not None and self._min_dump_s > 0 \
+                and now - last < self._min_dump_s:
+            return False
+        self._last_dump[trigger] = now
+        self.dumps += 1
+        return True
+
+    # -- export ------------------------------------------------------------
+    def raw(self) -> Dict[str, Any]:
+        """O(n) POINTER copy of both rings (oldest first) — the only
+        part that needs the owner's lock. Records and event dicts are
+        write-once after append, so sharing the references is safe;
+        render with :func:`render_snapshot` OUTSIDE the lock."""
+        return {
+            'cap': self.steps.cap,
+            'steps_total': self.steps.total,
+            'events_total': self.events.total,
+            'dumps': self.dumps,
+            'steps_raw': self.steps.snapshot(),
+            'events': self.events.snapshot(),
+        }
+
+
+def render_snapshot(raw: Dict[str, Any]) -> Dict[str, Any]:
+    """Expand a ``StepRecorder.raw()`` copy into the JSON-able
+    snapshot shape (per-record dict building — thousands of dicts for
+    a full ring — deliberately OUTSIDE any lock: a 1 Hz
+    /debug/stepline poll must not stall the step loop for the
+    build)."""
+    out = dict(raw)
+    out['steps'] = [r.as_dict() for r in out.pop('steps_raw')]
+    return out
+
+
+def summarize(recs: List[StepRecord]) -> Dict[str, Any]:
+    """Aggregate step-time breakdown over a snapshot of step records:
+    total and fractional share per stage — the recorder-derived
+    decomposition ``bench_ttft`` stamps into the TTFT json. Runs on a
+    COPY, so callers can (and do) compute it outside any lock."""
+    tot = {s: 0.0 for s in STAGES}
+    kinds: Dict[str, int] = {}
+    dur = 0.0
+    for r in recs:
+        tot['dispatch'] += r.dispatch_s
+        tot['drain'] += r.drain_s
+        tot['readback'] += r.readback_s
+        tot['host'] += r.host_s()
+        dur += r.dur_s
+        kinds[r.kind] = kinds.get(r.kind, 0) + 1
+    out: Dict[str, Any] = {
+        'steps': len(recs),
+        'step_kinds': kinds,
+        'step_time_s': round(dur, 6),
+        'step_mean_ms': (round(dur / len(recs) * 1e3, 4)
+                         if recs else None),
+    }
+    for s in STAGES:
+        out[f'{s}_s'] = round(tot[s], 6)
+        out[f'{s}_share'] = (round(tot[s] / dur, 4) if dur
+                             else None)
+    return out
+
+
+# ---- Perfetto export -----------------------------------------------------
+# Stepline tracks use pids far above render.to_perfetto's hop pids
+# (which start at 1), so a merged document never collides.
+_PID_STEPS = 1000
+_PID_REQUESTS = 1001
+_STAGE_TIDS = {s: i + 1 for i, s in enumerate(STAGES)}
+
+
+def stepline_events(snapshot: Dict[str, Any]
+                    ) -> List[Dict[str, Any]]:
+    """The snapshot as raw Chrome-trace events (including the track
+    metadata), suitable for ``render.to_perfetto``'s
+    ``extra_events`` — the stitch path that merges the recorder with
+    a request's propagated spans."""
+    events: List[Dict[str, Any]] = [
+        {'name': 'process_name', 'ph': 'M', 'pid': _PID_STEPS,
+         'tid': 1, 'args': {'name': 'engine-step'}},
+        {'name': 'process_name', 'ph': 'M', 'pid': _PID_REQUESTS,
+         'tid': 1, 'args': {'name': 'requests'}},
+    ]
+    for s, tid in _STAGE_TIDS.items():
+        events.append({'name': 'thread_name', 'ph': 'M',
+                       'pid': _PID_STEPS, 'tid': tid,
+                       'args': {'name': s}})
+    for rec in snapshot.get('steps', ()):
+        # Stages laid out sequentially inside the step's wall
+        # interval: dispatch, drain, readback, then host remainder —
+        # an approximation of interleaving, exact in total.
+        t = rec['t']
+        spans = (('dispatch', rec['dispatch_s']),
+                 ('drain', rec['drain_s']),
+                 ('readback', rec['readback_s']),
+                 ('host', rec.get('host_s', 0.0)))
+        for stage, dur in spans:
+            if dur <= 0.0:
+                continue
+            events.append({
+                'name': f"step.{rec['kind']}",
+                'ph': 'X', 'ts': t * 1e6, 'dur': dur * 1e6,
+                'pid': _PID_STEPS, 'tid': _STAGE_TIDS[stage],
+                'args': {'step': rec['idx'], 'stage': stage,
+                         'batch': rec['batch'],
+                         'chunk_tokens': rec['chunk_tokens'],
+                         'queue_depth': rec['queue_depth']},
+            })
+            t += dur
+    # Request tracks: one tid per request_id; lifecycle phases become
+    # 'X' slices bounded by the recorded events, everything else an
+    # instant.
+    # Lifecycle phase boundaries keyed by FIRST occurrence (each
+    # fires once per request); repeatable events (preemption, resume,
+    # shed, ...) are NOT folded into this map — every occurrence in
+    # the ring gets its own instant below, so a request preempted
+    # twice shows two instants, same as the span-store dump path.
+    by_req: Dict[int, Dict[str, Any]] = {}
+    for ev in snapshot.get('events', ()):
+        by_req.setdefault(ev['request_id'], {}).setdefault(
+            ev['event'], ev)
+    for rid, evs in by_req.items():
+        tid = (rid % 100000) + 1
+        phases = (('queue_wait', 'submit', 'first_dispatch'),
+                  ('prefill', 'first_dispatch', 'first_token'),
+                  ('decode', 'first_token', 'done'))
+        for name, a, b in phases:
+            if a in evs and b in evs and evs[b]['t'] >= evs[a]['t']:
+                events.append({
+                    'name': f'req.{name}', 'ph': 'X',
+                    'ts': evs[a]['t'] * 1e6,
+                    'dur': (evs[b]['t'] - evs[a]['t']) * 1e6,
+                    'pid': _PID_REQUESTS, 'tid': tid,
+                    'args': {'request_id': rid,
+                             'tenant': evs[a].get('tenant')}})
+    for ev in snapshot.get('events', ()):
+        if ev['event'] in ('submit', 'first_dispatch',
+                           'first_token', 'done'):
+            continue
+        events.append({
+            'name': f"req.{ev['event']}", 'ph': 'i',
+            'ts': ev['t'] * 1e6, 's': 't',
+            'pid': _PID_REQUESTS,
+            'tid': (ev['request_id'] % 100000) + 1,
+            'args': {k: v for k, v in ev.items() if k != 't'}})
+    return events
+
+
+def to_perfetto(snapshot: Dict[str, Any],
+                spans: Optional[List[Dict[str, Any]]] = None
+                ) -> Dict[str, Any]:
+    """Chrome-trace JSON of a recorder snapshot; with ``spans``
+    (propagated spans of the same request/replica) the two merge into
+    one document, stitched on the wall clock + request_id."""
+    events = stepline_events(snapshot)
+    if spans:
+        from skypilot_tpu_torch.observability import render
+        return render.to_perfetto(spans, extra_events=events)
+    return {'traceEvents': events, 'displayTimeUnit': 'ms'}
+
+
+def validate_perfetto(doc: Any) -> List[str]:
+    """Schema check for an exported trace (``[]`` = valid): the
+    contract ui.perfetto.dev / chrome://tracing require. Shared by
+    the tests."""
+    errs: List[str] = []
+    if not isinstance(doc, dict):
+        return ['document is not an object']
+    events = doc.get('traceEvents')
+    if not isinstance(events, list):
+        return ["missing 'traceEvents' list"]
+    if not events:
+        errs.append('traceEvents is empty')
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            errs.append(f'event {i} is not an object')
+            continue
+        for key in ('name', 'ph', 'pid', 'tid'):
+            if key not in ev:
+                errs.append(f'event {i} missing {key!r}')
+        ph = ev.get('ph')
+        if ph not in ('X', 'M', 'i', 'B', 'E'):
+            errs.append(f'event {i} has unknown phase {ph!r}')
+        if ph == 'X':
+            if not isinstance(ev.get('ts'), (int, float)):
+                errs.append(f'event {i} missing numeric ts')
+            if not isinstance(ev.get('dur'), (int, float)) \
+                    or ev.get('dur', -1) < 0:
+                errs.append(f'event {i} missing non-negative dur')
+    return errs
+
+
+# ---- anomaly dumps into the span store -----------------------------------
+
+def dump_spans(trigger: str, detail: Dict[str, Any],
+               snapshot: Dict[str, Any],
+               trace_id: Optional[str] = None
+               ) -> List[Dict[str, Any]]:
+    """Encode one ring snapshot as span-store rows: a
+    ``stepline.dump`` root carrying the trigger tag, a child span per
+    step record, a child per request event (carrying its
+    ``request_id`` so ``sky-tpu profile <request_id>`` finds the
+    dump), and one ``stepline.trigger`` span for the anomaly
+    itself."""
+    if trace_id is None:
+        trace_id = 'stepline-' + os.urandom(12).hex()
+    now = time.time()
+    root_id = os.urandom(8).hex()
+    steps = snapshot.get('steps', [])
+    events = snapshot.get('events', [])
+    start = min([r['t'] for r in steps]
+                + [e['t'] for e in events] + [now])
+    spans: List[Dict[str, Any]] = [{
+        'trace_id': trace_id, 'span_id': root_id, 'parent_id': None,
+        'name': 'stepline.dump', 'hop': 'stepline',
+        'start': start, 'dur_s': max(0.0, now - start),
+        'status': 'ok',
+        'attrs': {'trigger': trigger, 'steps': len(steps),
+                  'events': len(events),
+                  # Monotonic ring totals ride along so an exporter
+                  # can tell how much history wrapped off the rings
+                  # before the dump (no-silent-caps: a truncated
+                  # incident must say so).
+                  'steps_total': int(snapshot.get('steps_total')
+                                     or len(steps)),
+                  'events_total': int(snapshot.get('events_total')
+                                      or len(events)),
+                  'request_id': detail.get('request_id'), **detail},
+    }, {
+        'trace_id': trace_id, 'span_id': os.urandom(8).hex(),
+        'parent_id': root_id,
+        'name': 'stepline.trigger', 'hop': 'stepline',
+        'start': detail.get('t', now), 'dur_s': 0.0,
+        'status': f'anomaly:{trigger}',
+        'attrs': {'trigger': trigger, **detail},
+    }]
+    for rec in steps:
+        spans.append({
+            'trace_id': trace_id, 'span_id': os.urandom(8).hex(),
+            'parent_id': root_id,
+            'name': f"step.{rec['kind']}", 'hop': 'stepline',
+            'start': rec['t'], 'dur_s': rec['dur_s'], 'status': 'ok',
+            'attrs': {k: v for k, v in rec.items()
+                      if k not in ('t', 'dur_s', 'kind')
+                      and v is not None},
+        })
+    for ev in events:
+        spans.append({
+            'trace_id': trace_id, 'span_id': os.urandom(8).hex(),
+            'parent_id': root_id,
+            'name': f"req.{ev['event']}", 'hop': 'stepline',
+            'start': ev['t'], 'dur_s': 0.0, 'status': 'ok',
+            'attrs': {k: v for k, v in ev.items() if k != 't'},
+        })
+    return spans
+
+
+# Background dump writer: the trigger fires on the engine thread (or
+# an HTTP submit thread) — sqlite writes must happen elsewhere, and
+# never while any engine lock is held. Bounded queue, fail-open.
+_dump_q: collections.deque = collections.deque(maxlen=64)
+_dump_cv = threading.Condition()
+_writer_started = False
+_inflight_writes = 0
+_store = None            # test/ops injection (SpanStore-compatible)
+
+
+def set_dump_store(store: Any) -> None:
+    """Inject the span store dumps land in (tests point this at a
+    tmp-path store; None restores the default resolution)."""
+    global _store
+    _store = store
+
+
+def _resolve_store():
+    if _store is not None:
+        return _store
+    from skypilot_tpu_torch.observability import store as store_lib
+    return store_lib.SpanStore()
+
+
+def write_dump_sync(spans: List[Dict[str, Any]],
+                    store: Any = None) -> Optional[str]:
+    """Synchronous dump write (into ``store``, default the resolved
+    one). Returns the dump's trace_id, or None on failure — fail-open
+    like every observability write."""
+    try:
+        store = store or _resolve_store()
+        store.add_spans(spans)
+        store.gc()
+        return spans[0]['trace_id'] if spans else None
+    except Exception:  # noqa: BLE001 — telemetry must never throw
+        return None
+
+
+def enqueue_dump(spans: Any) -> None:
+    """Queue a dump for the background writer: a span list, or a
+    zero-arg callable producing one — the engine hands a thunk so the
+    O(ring) span rendering runs on the writer thread, not the step
+    loop. Drops oldest beyond the bound (an anomaly storm degrades to
+    fewer dumps, never to a blocked engine). The store is resolved here,
+    when the anomaly fires, not when the writer gets to it: a dump lands
+    under the $SKY_TPU_HOME the engine ran with."""
+    with _dump_cv:
+        _dump_q.append((spans, _resolve_store()))
+        _ensure_writer()
+        _dump_cv.notify_all()
+
+
+def _ensure_writer() -> None:
+    global _writer_started
+    if _writer_started:
+        return
+    _writer_started = True
+
+    def loop() -> None:
+        global _inflight_writes
+        while True:
+            with _dump_cv:
+                while not _dump_q:
+                    # Bounded wait (not an idle poll: the enqueue
+                    # notifies; the timeout only re-arms the wait).
+                    _dump_cv.wait(timeout=60.0)
+                spans, store = _dump_q.popleft()
+                _inflight_writes += 1
+            try:
+                if callable(spans):
+                    try:
+                        spans = spans()
+                    except Exception:  # noqa: BLE001 — fail-open
+                        spans = []
+                write_dump_sync(spans, store)
+            finally:
+                with _dump_cv:
+                    _inflight_writes -= 1
+                    _dump_cv.notify_all()
+
+    threading.Thread(target=loop, daemon=True,
+                     name='stepline-dump-writer').start()
+
+
+def flush_dumps(timeout_s: float = 5.0) -> bool:
+    """Block until every queued dump has been written (tests; the
+    serving path never calls this)."""
+    deadline = time.monotonic() + timeout_s
+    with _dump_cv:
+        while _dump_q or _inflight_writes:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return False
+            _dump_cv.wait(remaining)
+    return True

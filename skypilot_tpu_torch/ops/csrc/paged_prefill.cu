@@ -77,14 +77,29 @@
 // bf16 and int8 (PERF.md): 8 warps, 4 pages a split and a third stage
 // were slower at all four, 8 and 32 pages a split at the long prefix.
 //
+// Two entries, one kernel. The host-scalar entry takes offset and
+// true_len as integers and sizes its grid to the live pages. The
+// device-scalar entry reads them from two device int32 scalars, as the
+// TPU kernel reads its scalar-prefetched meta = [offset, true_len]: its
+// grid covers the table row's max_pages (ceil(max_pages /
+// kPagesPerSplit) splits), every block reads the pair itself, and splits
+// past the frontier exit at once, so one launch, and one captured CUDA
+// graph, serves every offset and length of a chunk bucket. Everything the
+// kernel derives from the pair (the pad-tile exit, the live pages, the
+// split count the merge waits for, the row horizons) is computed in the
+// block from the values it read, so the device-scalar entry gives the
+// host-scalar entry's bits.
+//
 // Interface: plain C functions bound with ctypes; each launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() (or -1
 // for a shape this build does not take: head_dim 64 or 128, group 1, 2,
 // 4 or 8, page 16, 32 or 64 -- the shapes chip_smoke.py checks). The
-// workspace holds hkv * ceil(ceil((offset + true_len) / page) /
-// kPagesPerSplit) partials of C * group * (hd + 2) fp32; counters is hkv
-// * C * group / 16 int32, zero before the launch and zero after it, so
-// launches that share it must be ordered (one stream).
+// workspace holds hkv * (grid splits) partials of C * group * (hd + 2)
+// fp32, the grid's splits being ceil(ceil((offset + true_len) / page) /
+// kPagesPerSplit) for the host-scalar entry and ceil(max_pages /
+// kPagesPerSplit) for the device-scalar one; counters is hkv * C * group
+// / 16 int32, zero before the launch and zero after it, so launches that
+// share it must be ordered (one stream).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,11 +179,17 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ k_scales,
                      const float* __restrict__ v_scales,
                      const int* __restrict__ table_row,
+                     const int* __restrict__ offset_dev,
+                     const int* __restrict__ true_len_dev,
                      float* __restrict__ out, float* __restrict__ ws,
                      int* __restrict__ counters, int chunk, int hkv,
                      int group, int n_pages, int offset, int true_len,
                      float sm_scale) {
   using Lay = Layout<HD, PAGE, T>;
+  if (offset_dev != nullptr) {  // the device-scalar entry
+    offset = *offset_dev;
+    true_len = *true_len_dev;
+  }
   constexpr int SR = Lay::kBfRow;
   constexpr int NT = PAGE / 8;  // n-tiles of 8 keys a page
   const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
@@ -491,12 +512,16 @@ paged_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid == 0) *counter = 0;
 }
 
+// grid_pages: the pages the grid's splits cover (the live pages for the
+// host-scalar entry, the table row's max_pages for the device-scalar
+// one, whose offset_dev / true_len_dev are then non-null).
 template <int HD, int PAGE, typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scales, const void* v_scales, const void* table_row,
-           void* out, void* ws, void* counters, int chunk, int hkv, int group,
-           int n_pages, int offset, int true_len, float sm_scale,
-           cudaStream_t stream) {
+           const void* offset_dev, const void* true_len_dev, void* out,
+           void* ws, void* counters, int chunk, int hkv, int group,
+           int n_pages, int offset, int true_len, int grid_pages,
+           float sm_scale, cudaStream_t stream) {
   const size_t smem = Layout<HD, PAGE, T>::total;
   auto kernel = paged_prefill_kernel<HD, PAGE, T>;
   if (smem > 48 * 1024) {
@@ -504,35 +529,45 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int live_pages = (offset + true_len + PAGE - 1) / PAGE;
   dim3 grid((chunk * group + kRows - 1) / kRows, hkv,
-            (live_pages + kPagesPerSplit - 1) / kPagesPerSplit);
+            (grid_pages + kPagesPerSplit - 1) / kPagesPerSplit);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales),
-      static_cast<const int*>(table_row), static_cast<float*>(out),
+      static_cast<const int*>(table_row),
+      static_cast<const int*>(offset_dev),
+      static_cast<const int*>(true_len_dev), static_cast<float*>(out),
       static_cast<float*>(ws), static_cast<int*>(counters), chunk, hkv, group,
       n_pages, offset, true_len, sm_scale);
   return (int)cudaGetLastError();
 }
 
+// max_pages > 0 selects the device-scalar entry (offset and true_len
+// then come from offset_dev / true_len_dev and are not checked here).
 template <typename T>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const void* k_scales, const void* v_scales,
-             const void* table_row, void* out, void* ws, void* counters,
+             const void* table_row, const void* offset_dev,
+             const void* true_len_dev, void* out, void* ws, void* counters,
              int chunk, int hkv, int group, int head_dim, int n_pages,
-             int page, int offset, int true_len, float sm_scale,
-             void* stream) {
-  if (chunk < 1 || hkv < 1 || hkv > 65535 || true_len < 1 ||
-      true_len > chunk || offset < 0 || (chunk * group) % 16 ||
+             int page, int offset, int true_len, int max_pages,
+             float sm_scale, void* stream) {
+  const bool dev = max_pages > 0;
+  if (chunk < 1 || hkv < 1 || hkv > 65535 || (chunk * group) % 16 ||
       (group != 1 && group != 2 && group != 4 && group != 8))
     return -1;
+  if (dev ? (offset_dev == nullptr || true_len_dev == nullptr)
+          : (true_len < 1 || true_len > chunk || offset < 0))
+    return -1;
+  const int grid_pages =
+      dev ? max_pages : (offset + true_len + page - 1) / page;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PREFILL_LAUNCH(HD, PAGE)                                            \
   launch<HD, PAGE, T>(q, k_pages, v_pages, k_scales, v_scales, table_row,   \
-                      out, ws, counters, chunk, hkv, group, n_pages,        \
-                      offset, true_len, sm_scale, s)
+                      offset_dev, true_len_dev, out, ws, counters, chunk,   \
+                      hkv, group, n_pages, offset, true_len, grid_pages,    \
+                      sm_scale, s)
   if (head_dim != 64 && head_dim != 128) return -1;
   switch (page) {
     case 16:
@@ -557,9 +592,10 @@ extern "C" int paged_prefill_attention_bf16(
     int hkv, int group, int head_dim, int n_pages, int page, int offset,
     int true_len, float sm_scale, void* stream) {
   return dispatch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
-                                 table_row, out, ws, counters, chunk, hkv,
-                                 group, head_dim, n_pages, page, offset,
-                                 true_len, sm_scale, stream);
+                                 table_row, nullptr, nullptr, out, ws,
+                                 counters, chunk, hkv, group, head_dim,
+                                 n_pages, page, offset, true_len, 0,
+                                 sm_scale, stream);
 }
 
 extern "C" int paged_prefill_attention_int8(
@@ -569,6 +605,37 @@ extern "C" int paged_prefill_attention_int8(
     int head_dim, int n_pages, int page, int offset, int true_len,
     float sm_scale, void* stream) {
   return dispatch<int8_t>(q, k_pages, v_pages, k_scales, v_scales, table_row,
-                          out, ws, counters, chunk, hkv, group, head_dim,
-                          n_pages, page, offset, true_len, sm_scale, stream);
+                          nullptr, nullptr, out, ws, counters, chunk, hkv,
+                          group, head_dim, n_pages, page, offset, true_len, 0,
+                          sm_scale, stream);
+}
+
+// The device-scalar entries: offset and true_len read on the device from
+// offset_dev and true_len_dev (int32 scalars), the grid sized for
+// max_pages (the table row's length).
+extern "C" int paged_prefill_attention_dev_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* table_row, const void* offset_dev, const void* true_len_dev,
+    void* out, void* ws, void* counters, int chunk, int hkv, int group,
+    int head_dim, int n_pages, int page, int max_pages, float sm_scale,
+    void* stream) {
+  if (max_pages < 1) return -1;
+  return dispatch<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
+                                 table_row, offset_dev, true_len_dev, out, ws,
+                                 counters, chunk, hkv, group, head_dim,
+                                 n_pages, page, 0, 0, max_pages, sm_scale,
+                                 stream);
+}
+
+extern "C" int paged_prefill_attention_dev_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* table_row,
+    const void* offset_dev, const void* true_len_dev, void* out, void* ws,
+    void* counters, int chunk, int hkv, int group, int head_dim, int n_pages,
+    int page, int max_pages, float sm_scale, void* stream) {
+  if (max_pages < 1) return -1;
+  return dispatch<int8_t>(q, k_pages, v_pages, k_scales, v_scales, table_row,
+                          offset_dev, true_len_dev, out, ws, counters, chunk,
+                          hkv, group, head_dim, n_pages, page, 0, 0,
+                          max_pages, sm_scale, stream);
 }

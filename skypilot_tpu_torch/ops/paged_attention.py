@@ -24,7 +24,10 @@ flavor):
   ``csrc/paged_decode.cu``, of which decode is the one-query instance.
 - ``paged_prefill_attention``: a C-token chunk of one slot, causal over
   its cached prefix plus itself; on CUDA tensors it launches
-  ``csrc/paged_prefill.cu``.
+  ``csrc/paged_prefill.cu``. ``offset`` and ``true_len`` are host integers
+  or 0-d int32 tensors on the device (the device-scalar entry, whose grid
+  covers the whole table row: a CUDA graph captured over it serves every
+  offset and length of its chunk bucket).
 
 A wrapper runs the plain version only because the tensors it was given
 lie on the CPU; on CUDA tensors it launches its kernel or raises (int8
@@ -254,6 +257,10 @@ _SIGNATURES = {
         'paged_prefill', [_P] * 7 + [_I] * 8 + [_F, _P]),
     'paged_prefill_attention_int8': (
         'paged_prefill', [_P] * 9 + [_I] * 8 + [_F, _P]),
+    'paged_prefill_attention_dev_bf16': (
+        'paged_prefill', [_P] * 9 + [_I] * 7 + [_F, _P]),
+    'paged_prefill_attention_dev_int8': (
+        'paged_prefill', [_P] * 11 + [_I] * 7 + [_F, _P]),
     'paged_prefill_pages_per_split': ('paged_prefill', []),
 }
 
@@ -396,6 +403,18 @@ def reserve_split_scratch(device, slots: int, hkv: int, hd: int,
              slots * hkv * n_splits * CUDA_MAX_ROWS * (hd + 2), slots * hkv)
 
 
+def reserve_prefill_scratch(device, hkv: int, rows: int, hd: int,
+                            max_pages: int) -> None:
+    """Size ``device``'s prefill workspace for the device-scalar entry's
+    widest launch: ``rows`` (chunk x group) query rows over a table row
+    of ``max_pages`` pages. A chunk graph captured after this never sees
+    its buffers move (host-scalar launches need no more)."""
+    n_splits = -(-max_pages // PREFILL_PAGES_PER_SPLIT)
+    device = torch.empty(0, device=device).device
+    _scratch('prefill', device, hkv * n_splits * rows * (hd + 2),
+             hkv * -(-rows // 16))
+
+
 def _split_scratch(q: torch.Tensor, slots: int, hkv: int, rows: int,
                    hd: int, max_pages: int):
     """This device's decode/verify workspace (room for one fp32 partial
@@ -410,7 +429,8 @@ def _prefill_scratch(q: torch.Tensor, hkv: int, rows: int, hd: int,
                      live_pages: int):
     """This device's prefill workspace (room for one fp32 partial of the
     chunk's ``rows`` x (hd + 2) per KV head and split of the
-    ``live_pages`` pages up to the frontier) and counters (one per KV
+    ``live_pages`` pages the grid covers: those up to the frontier, or the
+    whole table row for the device-scalar entry) and counters (one per KV
     head and 16-row tile: enough for any row tile the kernel takes)."""
     n_splits = -(-live_pages // _checked_pages_per_split(
         'paged_prefill_pages_per_split', PREFILL_PAGES_PER_SPLIT))
@@ -420,14 +440,15 @@ def _prefill_scratch(q: torch.Tensor, hkv: int, rows: int, hd: int,
 
 def _launch(name: str, quantized: bool, q, k_pages, v_pages, k_scales,
             v_scales, index, ints, sm_scale: float,
-            scratch=()) -> torch.Tensor:
+            scratch=(), entry: str = '') -> torch.Tensor:
     """Allocate the fp32 output, launch the bf16 or int8 entry point of
-    ``name`` on the current stream (``scratch``: buffers passed after the
-    output), raise on a refused launch, count it."""
+    ``name`` (``entry``: the infix of another entry of the same kernel,
+    counted as ``name``) on the current stream (``scratch``: buffers
+    passed after the output), raise on a refused launch, count it."""
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scales = [k_scales.data_ptr(), v_scales.data_ptr()] if quantized else []
-    err = _kernel(f'{name}_{"int8" if quantized else "bf16"}')(
+    err = _kernel(f'{name}_{entry}{"int8" if quantized else "bf16"}')(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
         *[t.data_ptr() for t in index], out.data_ptr(),
         *[t.data_ptr() for t in scratch], *ints, float(sm_scale), stream)
@@ -539,22 +560,41 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
     q: [C, hkv, group, hd] (global positions offset..offset+C-1, the
     chunk's K/V already written into the pages); table_row: [maxp]
     int32; offset (page-aligned, not necessarily C-aligned) and true_len
-    are host integers. Pages and scales as in
-    :func:`paged_decode_attention`. Rows past true_len are pad whose
-    values the caller discards. Returns [C, hkv, group, hd] fp32. CPU
-    tensors take the plain version; CUDA tensors launch
-    ``csrc/paged_prefill.cu`` or raise."""
-    if _on_cpu(q, k_pages, v_pages, table_row, k_scales, v_scales):
+    are host integers, or both 0-d int32 tensors on q's device: then the
+    kernel reads them there, with no host sync and with a launch whose
+    shape does not depend on them (the caller guarantees 1 <= true_len
+    <= C, a page-aligned offset and offset + true_len within the row).
+    Pages and scales as in :func:`paged_decode_attention`. Rows past
+    true_len are pad whose values the caller discards. Returns [C, hkv,
+    group, hd] fp32, bitwise the same from either entry. CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/paged_prefill.cu`` or
+    raise."""
+    on_device = isinstance(offset, torch.Tensor)
+    if on_device != isinstance(true_len, torch.Tensor):
+        raise TypeError('paged_prefill_attention: offset and true_len must '
+                        'both be host integers or both tensors')
+    scalars = (offset, true_len) if on_device else ()
+    if _on_cpu(q, k_pages, v_pages, table_row, k_scales, v_scales, *scalars):
         return paged_prefill_attention_reference(
             q, k_pages, v_pages, table_row, offset, true_len,
             sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
     name = 'paged_prefill_attention'
     quantized = _check_cuda(name, q, k_pages, v_pages, k_scales, v_scales,
-                            table_row)
+                            table_row, *scalars)
     C, hkv, group, hd = q.shape
     _, n_pages, page, _ = k_pages.shape
-    offset, true_len = int(offset), int(true_len)
     maxp = table_row.shape[0]
+    if on_device:
+        if offset.numel() != 1 or true_len.numel() != 1:
+            raise ValueError(f'{name}: device offset and true_len must be '
+                             f'scalars')
+        return _launch(name, quantized, q, k_pages, v_pages, k_scales,
+                       v_scales, (table_row, offset, true_len),
+                       (C, hkv, group, hd, n_pages, page, maxp),
+                       hd ** -0.5 if sm_scale is None else sm_scale,
+                       _prefill_scratch(q, hkv, C * group, hd, maxp),
+                       entry='dev_')
+    offset, true_len = int(offset), int(true_len)
     if not 1 <= true_len <= C or offset % page \
             or -(-(offset + true_len) // page) > maxp:
         raise ValueError(f'{name}: offset {offset} / true_len {true_len} '
@@ -597,7 +637,9 @@ def write_chunk_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
 
     k_new/v_new: [C, hkv, hd] with C a multiple of page_size and offset
     page-aligned (the engine's chunk cap guarantees both), so the chunk
-    covers whole pages at table-looked-up page ids. With
+    covers whole pages at table-looked-up page ids. ``offset`` is a host
+    integer or a 0-d tensor on the device (then the page ids are gathered
+    there, with no host sync). With
     ``k_scales``/``v_scales`` (int8 pages) the rows are quantized on
     write and their scales land beside them. Returns the (same, updated)
     tensors: ``(k_pages, v_pages)``, plus the scales on the int8
@@ -607,8 +649,12 @@ def write_chunk_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
     if C % page:
         raise ValueError(f'chunk {C} is not a multiple of page {page}')
     n = C // page
-    first = int(offset) // page
-    pids = table_row[first:first + n].long()
+    if isinstance(offset, torch.Tensor):
+        pids = table_row[offset.long() // page + torch.arange(
+            n, device=table_row.device)].long()
+    else:
+        first = int(offset) // page
+        pids = table_row[first:first + n].long()
     for pages, scales, new in ((k_pages, k_scales, k_new),
                                (v_pages, v_scales, v_new)):
         _store(pages, scales, (slice(None), pids),

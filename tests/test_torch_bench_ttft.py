@@ -1,0 +1,77 @@
+"""The port's serving sweep (``skypilot_tpu_torch/bench_ttft.py``) at a
+tiny size on the CPU: each sweep prints one well-formed JSON document
+with the keys ``PERF.md`` reads, and without ``--device`` it refuses to
+run where there is no CUDA (it never falls back to the CPU quietly)."""
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _run(*args, timeout=300):
+    return subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.bench_ttft', *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+
+
+def _doc(out):
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1, out.stdout
+    return json.loads(lines[0])
+
+
+def test_chunked_sweep_prints_one_json_document():
+    doc = _doc(_run('--sweep', 'chunked', '--model', 'tiny', '--device',
+                    'cpu', '--slots', '3', '--max-seq-len', '512',
+                    '--repeats', '2'))
+    assert doc['sweep_mode'] == 'chunked' and doc['card'] == 'cpu'
+    level = doc['sweep'][0]
+    assert level['concurrency'] == 2
+    assert level['aggressor_prompt_tokens'] == 512 - 144
+    fused, unfused = level['fused'], level['unfused']
+    assert fused['fused_steps'] > 0 and fused['decode_stall_steps'] == 0
+    assert unfused['fused_steps'] == 0 and unfused['decode_stall_steps'] > 0
+    assert fused['step_programs']['mixed'] >= 1
+    assert 'mixed' not in unfused['step_programs']
+    for run in (fused, unfused):
+        assert run['victim_itl_p99_ms'] >= run['victim_itl_p50_ms'] > 0
+        assert run['aggressor_ttft_p50_s'] > 0
+        shares = run['step_time_breakdown']
+        assert abs(sum(shares[f'{s}_share'] for s in
+                       ('dispatch', 'drain', 'readback', 'host')) - 1) < 1e-3
+    assert doc['value'] == pytest.approx(
+        unfused['victim_itl_p99_ms'] / fused['victim_itl_p99_ms'])
+    axis = doc['kv_dtype_axis']
+    assert axis['resident_page_ratio'] > 1
+
+
+def test_concurrency_sweep_prints_one_json_document(tmp_path):
+    doc = _doc(_run('--sweep', 'concurrency', '--model', 'tiny',
+                    '--device', 'cpu', '--slots', '2', '--max-seq-len',
+                    '256', '--page-size', '16', '--concurrency', '1', '2',
+                    '--requests-per-level', '3', '--new-tokens', '4',
+                    '--output', str(tmp_path / 'sweep.json')))
+    assert doc['sweep_mode'] == 'concurrency'
+    assert [lv['concurrency'] for lv in doc['sweep']] == [1, 2]
+    for lv in doc['sweep']:
+        assert lv['samples'] == 3
+        assert lv['ttft_p99_s'] >= lv['ttft_p50_s'] > 0
+        assert lv['tokens_per_sec'] > 0
+    assert doc['cold_first_request_s'] > 0
+    assert doc['server_metrics']['integrity'] == 'ok'
+    assert json.loads((tmp_path / 'sweep.json').read_text()) == doc
+
+
+def test_defaults_to_cuda_and_refuses_without_it():
+    if torch.cuda.is_available():
+        pytest.skip('checks the refusal where there is no CUDA')
+    out = _run('--sweep', 'chunked', '--model', 'tiny', timeout=120)
+    assert out.returncode != 0
+    assert 'CUDA is not available' in out.stderr
+    assert not out.stdout.strip()

@@ -11,7 +11,8 @@ at depth 0 after ``set_pipeline_depth`` drained it. Speculation on (an
 oracle drafter, so drafts are accepted) at depth 1 must give
 speculation-off's tokens; a sampled run must complete. On the CPU the
 step programs run eagerly over the same static device buffers the CUDA
-graphs read, so ``compiled_counts()`` stays at one program per kind.
+graphs read, so ``compiled_counts()`` stays at one program per kind (and
+per chunk bucket for prefill).
 """
 import numpy as np
 import pytest
@@ -109,7 +110,7 @@ def test_depth1_equals_jax_depth1_and_depth0_under_preemption(
     assert eng.allocator.free_pages == eng.allocator.n_pages - 1
     assert all(eng.allocator.refcount(p) == 0
                for p in range(1, eng.allocator.n_pages))
-    assert eng.compiled_counts() == {'decode': 1}
+    assert eng.compiled_counts() == {'prefill': 2, 'decode': 1}
 
 
 def test_set_pipeline_depth_drains(params):
@@ -139,7 +140,8 @@ def test_spec_on_at_depth1_equals_spec_off(params, port_runs):
     assert m['spec_accepted_tokens'] >= 1
     assert m['spec_accepted_tokens'] < m['spec_drafted_tokens']
     assert on.allocator.free_pages == on.allocator.n_pages - 1
-    assert on.compiled_counts() == {'decode': 1, 'verify': 1}
+    assert on.compiled_counts() == {'prefill': 2, 'decode': 1,
+                                    'verify': 1}
 
 
 def test_sampled_run_completes_at_depth1(port_runs):
@@ -150,8 +152,9 @@ def test_sampled_run_completes_at_depth1(port_runs):
     assert all(len(o) == NEW for o in outs)
     assert all(0 <= t < 256 for o in outs for t in o)
     assert eng.allocator.free_pages == eng.allocator.n_pages - 1
-    # A sampled step is its own program beside the greedy one.
-    assert eng.compiled_counts() == {'decode': 2}
+    # A sampled step is its own program beside the greedy one (the
+    # sampled chunks likewise, per bucket).
+    assert eng.compiled_counts() == {'prefill': 4, 'decode': 2}
 
 
 def test_reserved_workspace_covers_every_verify_width(monkeypatch):

@@ -19,14 +19,21 @@ whole table with q scaled first. The kernel therefore:
   runs P @ V as ``hi = bf16(P)`` and ``lo = bf16(P - hi)`` against the
   same V into one fp32 accumulator;
 - merges the splits' partials (m, l, acc) in split order and divides
-  once: acc / max(l, 1e-30).
+  once: acc / max(l, 1e-30);
+- from its device-scalar entry (offset and true_len read on the device),
+  launches a grid of splits over the table row's whole length (max_pages)
+  in which the splits past the frontier exit before loading a page and
+  the merge waits for the live splits only: the same walk, and the same
+  bits, as the host-scalar grid sized to the live pages.
 
 This file emulates exactly that in torch (products of bf16 values summed
 in fp64, where they are exact, then rounded once to fp32) and holds it to
 the JAX kernel (``paged_prefill_attention`` in interpret mode) and to the
 JAX reference at ``chip_smoke.ATOL``, bf16 and int8, at offsets whose
 prefix ends one page short of a split edge, on it and one page past it,
-with a chunk whose true_len < C. It shows that a single bf16 P is
+with a chunk whose true_len < C; and the device-scalar grid's walk at
+frontiers one page short of, on and one page past a split edge, which
+must give the host-scalar grid's bits. It shows that a single bf16 P is
 measurably further from the reference than the hi/lo split, and that
 the wrapper's workspace follows the split constant.
 """
@@ -73,9 +80,13 @@ def _merge(parts):
 
 
 def emulate(q, k_pages, v_pages, table_row, offset, true_len, split=True,
-            k_scales=None, v_scales=None):
+            k_scales=None, v_scales=None, grid_pages=None, exits=None):
     """out fp32 [C, hkv, group, hd] as the kernel computes it (rows past
-    true_len included: finite, and dropped by the caller)."""
+    true_len included: finite, and dropped by the caller). The grid's
+    splits cover the live pages (the host-scalar entry) or
+    ``grid_pages`` pages (the device-scalar entry: the table row's
+    length); a split past the frontier exits and, when ``exits`` is a
+    list, is appended to it."""
     C, hkv, group, hd = q.shape
     page = k_pages.shape[2]
     scale = torch.tensor(hd ** -0.5, dtype=torch.float32) * LOG2E
@@ -95,7 +106,12 @@ def emulate(q, k_pages, v_pages, table_row, offset, true_len, split=True,
     qpos = offset + torch.arange(C * group) // group
     horizon = torch.clamp(qpos + 1, max=total)[None, :, None]
     splits = []
-    for s in range(-(-n_live // PPS)):
+    n_splits = -(-n_live // PPS)
+    for s in range(-(-(grid_pages or n_live) // PPS)):
+        if s >= n_splits:       # past the frontier: exits at once
+            if exits is not None:
+                exits.append(s)
+            continue
         m = torch.full((hkv, C * group), NEG_INF)
         l = torch.zeros((hkv, C * group))
         acc = torch.zeros((hkv, C * group, hd))
@@ -188,6 +204,41 @@ def test_prefill_arithmetic_meets_the_chip_tolerance(group, page,
     # The offsets straddle the edge: one split, then two.
     lives = [-(-(off + true_len) // page) for off in _offsets(page)]
     assert lives[0] > PPS and all(-(-n // PPS) == 2 for n in lives)
+
+
+@pytest.mark.parametrize('group,page,quantized', CASES)
+def test_device_scalar_grid_walk_equals_the_host_grid(group, page,
+                                                      quantized):
+    """Under the device-scalar entry's grid (splits over the whole table
+    row, max_pages = PPS + 5 here: two splits), frontiers one page short
+    of the split edge and on it leave the second split to exit, one page
+    past it runs both; every case gives the host-scalar grid's output
+    bitwise (which test_prefill_arithmetic_meets_the_chip_tolerance holds
+    to JAX), for a full chunk and one 5 rows short, and the case on the
+    edge meets the JAX kernel at chip_smoke.ATOL."""
+    q, k, v, ks, vs, row = _inputs(3 * group + page, group, page, quantized)
+    maxp, C, edge = row.shape[0], q.shape[0], PPS * page
+    for true_len in (C, C - 5):
+        for frontier_page, want_exits in ((PPS - 1, [1]), (PPS, [1]),
+                                          (PPS + 1, [])):
+            # The largest page-aligned offset whose frontier ends in
+            # page frontier_page - 1.
+            offset = (frontier_page * page - true_len) // page * page
+            assert -(-(offset + true_len) // page) == frontier_page
+            exits = []
+            dev = emulate(q, k, v, row, offset, true_len, k_scales=ks,
+                          v_scales=vs, grid_pages=maxp, exits=exits)
+            host = emulate(q, k, v, row, offset, true_len, k_scales=ks,
+                           v_scales=vs)
+            assert exits == want_exits, (offset, true_len, exits)
+            assert torch.equal(dev, host)
+            if true_len < C and frontier_page == PPS:
+                # On the edge, with a split that exits: the JAX kernel.
+                want = _jax(jpa.paged_prefill_attention, q, k, v, ks, vs,
+                            row, offset, true_len)
+                err = (dev[:true_len] - want[:true_len]).abs().max().item()
+                assert err <= chip_smoke.ATOL, (offset, true_len, err)
+    assert -(-maxp // PPS) == 2 and edge == PPS * page
 
 
 @pytest.mark.parametrize('page,quantized', [(16, False), (32, False),
