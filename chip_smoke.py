@@ -98,10 +98,32 @@ Phases, in order; any failure exits non-zero:
    tokens, steps and programs; a NaN planted in the embedding row of a
    token only one prompt holds finishes that request ``'sdc'`` and turns
    the server's ``/health`` 503 ``corrupt``, and the requests served
-   after it keep the clean run's tokens. Then
-   ``skypilot_tpu_torch.bench_ttft --sweep chunked`` at one level (7
-   victims and the aggressor on 8 slots, chunk buckets 64 and 128): its
-   JSON document on a line of its own.
+   after it keep the clean run's tokens.
+5e. The shared-prefix KV cache in process at full 8B width and depth,
+   bf16 and int8 pages, the cache on over a pool cut to 52 pages (the
+   cache off over the full pool): a 1,024-token system block with
+   16-token tails (the first alone, seeding the tree, then seven beside a
+   1,792-token unique prompt, then a repeat), 40 new tokens each. The
+   cache-off engine at depth 0 eager is the reference; the cache-on
+   engine at depth 0 eager and depth 1 with CUDA graphs, speculation off
+   and on (the oracle drafter), and fused, must give its token lists
+   exactly (a request it preempted may part after its resume only at a
+   near-tie, as in 5c: the resume recomputes the decoded tokens' K/V
+   through prefill), attach the system block for every tail after the
+   seed, preempt at least once, add no step program (``cow: 0``), leak no
+   page, keep every page the tree holds bytewise as donated, and launch
+   the prefill (device-scalar entry), decode and verify kernels, whose
+   counts in these runs go into the kernel line as
+   ``launches_prefix_cache``. Then KV prefix transfer between two
+   in-process engines: the int8 blob is ``page_wire_bytes`` a page plus
+   its header, the import is byte-exact and its tokens are a local
+   recompute's; a bf16 import lands within half a scale step; export and
+   import ms; and the wire's numpy quantizer is bitwise the card's int8
+   write path. Then ``skypilot_tpu_torch.bench_ttft --sweep chunked`` at
+   one level (7 victims and the aggressor on 8 slots, chunk buckets 64
+   and 128; its kv-dtype axis now runs the prefix cache through a bf16
+   and an int8 pool of the same bytes): its JSON document on a line of
+   its own.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -189,6 +211,18 @@ SPEC_NEW, ORACLE_WRONG_AT = 64, 2
 # tokens of 5b's 17-token prompt, whose slot frees for the aggressor
 # while the other seven decode.
 FUSED_AGGRESSOR, FUSED_SHORT = 768, 16
+# Phase 5e: a shared system block (four chunks of 256) with 16-token
+# tails, 8 of them (the first alone, seeding the tree), one repeat, and a
+# long unique prompt (seven chunks) beside the last seven tails. The
+# cache-on engine runs over a pool of PREFIX_POOL pages (the sink
+# included), which makes it preempt; the cache-off reference over the
+# full pool (cut this far, it preempts thousands of times: each resume
+# re-prefills a whole prompt). PREFIX_NEW keeps every request inside its
+# frontier page (1040 + 40 < 1088), and every chunk of either engine, its
+# resumes included, starts on a multiple of 256 or at the system block's
+# end: the same chunks, so the same bits, with the cache on and off.
+PREFIX_SYSTEM, PREFIX_TAIL, PREFIX_TAILS = 1024, 16, 8
+PREFIX_LONG, PREFIX_NEW, PREFIX_POOL = 1792, 40, 52
 POOL_CUT = 21
 # A preempted request resumes by recomputing its K/V through prefill,
 # whose products run at other shapes than the decode and verify steps'
@@ -1516,6 +1550,357 @@ def fused_in_process(torch, pa, card: str):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 5e: the shared-prefix KV cache and KV prefix transfer
+# ---------------------------------------------------------------------------
+class TreeGuard:
+    """Keeps, on the card, a copy of each page the prefix tree takes
+    (donated or imported) and holds every page still in the tree to it:
+    a step that wrote a cached page (an inactive lane's garbage row, a
+    missed copy-on-write) fails it even where no token shows it."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.snap = torch, eng, {}
+        for name in ('donate', 'insert_remote'):
+            orig = getattr(eng.prefix, name)
+
+            def wrapped(*a, _orig=orig, **kw):
+                out = _orig(*a, **kw)
+                self._take()
+                return out
+            setattr(eng.prefix, name, wrapped)
+
+    def nodes(self):
+        stack = list(self.eng.prefix._root.children.values())
+        while stack:
+            node = stack.pop()
+            yield node
+            stack.extend(node.children.values())
+
+    def page(self, pid):
+        c = self.eng.cache
+        return [t[:, :, pid].clone() for t in
+                (c.k_pages, c.v_pages, c.k_scales, c.v_scales)
+                if t is not None]
+
+    def _take(self):
+        for node in self.nodes():
+            if id(node) not in self.snap:
+                self.snap[id(node)] = (node, self.page(node.page_id))
+
+    def changed(self):
+        """(pages held, ids of held pages whose bytes changed)."""
+        held = list(self.nodes())
+        bad = [n.page_id for n in held
+               if not all(self.torch.equal(a, b) for a, b in zip(
+                   self.page(n.page_id), self.snap[id(n)][1]))]
+        return len(held), bad
+
+
+def prefix_in_process(torch, pa, card: str):
+    """Phase 5e, in process at full 8B width and depth (random weights,
+    seed 0), 8 slots, pages of 64, bf16 and int8 pages.
+
+    The workload: a PREFIX_SYSTEM-token system block with a 16-token tail
+    served alone (it seeds the tree), then PREFIX_LONG-token unique
+    prompt and seven more tails together, then the fourth tail again (the
+    repeat), each PREFIX_NEW new tokens; the cache-on engine's pool is
+    cut to PREFIX_POOL pages. The cache-off engine at depth 0 eager (full
+    pool) is the reference; the cache-on
+    engine at depth 0 eager and at depth 1 with CUDA graphs, speculation
+    off and on (5b's oracle drafter), and fused at depth 1, must give its
+    token lists exactly (a preempted request may part after its resume
+    only at a near-tie, NEAR_TIE, as in 5c); a cache-on run must preempt,
+    every tail after
+    the seed must hit, ``compiled_counts()`` must be the cache-off
+    engine's plus ``cow: 0``, no page may leak, and every page the tree
+    holds must keep the bytes it had when donated. The prefill (its
+    device-scalar entry), decode and verify kernels must launch in the
+    cache-on runs.
+
+    Then a transfer between two in-process 8B engines: an int8 export's
+    blob is page_wire_bytes a page plus its header, the import lands the
+    donor's bytes exactly and the puller's tokens are a local
+    recompute's; a bf16 export lands within half a scale step of the
+    donor's rows; the numpy quantizer of the wire is bitwise the card's
+    int8 write path on layer 0's rows (the same in both pools)."""
+    import random
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import kv_wire
+    from skypilot_tpu_torch.infer import model as model_lib
+    from skypilot_tpu_torch.infer import paged_cache as pc_lib
+    from skypilot_tpu_torch.models import llama
+    t0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, 'cuda')
+    rope = model_lib.rope_tables(cfg, 'cuda')
+    rnd = random.Random(5)
+    system = [rnd.randrange(cfg.vocab_size) for _ in range(PREFIX_SYSTEM)]
+    tails = [[rnd.randrange(cfg.vocab_size) for _ in range(PREFIX_TAIL)]
+             for _ in range(PREFIX_TAILS)]
+    long_prompt = [rnd.randrange(cfg.vocab_size) for _ in range(PREFIX_LONG)]
+    seed_prompt = system + tails[0]
+    batch = [long_prompt] + [system + t for t in tails[1:]]
+    repeat = system + tails[3]
+    prompts = [seed_prompt] + batch + [repeat]
+
+    def engine(kv_dtype, depth, graphs, prefix, spec=False, fused=False,
+               n_pages=PREFIX_POOL):
+        return engine_lib.InferenceEngine(
+            cfg, params, engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                kv_dtype=kv_dtype, pipeline_depth=depth, cuda_graphs=graphs,
+                n_pages=n_pages, prefix_cache=prefix, fused_prefill=fused,
+                spec_k=VERIFY_R - 1 if spec else 0),
+            seed=0, device='cuda')
+
+    def workload(eng):
+        first = eng.submit(seed_prompt, PREFIX_NEW)
+        eng.run_until_idle()
+        reqs = [eng.submit(p, PREFIX_NEW) for p in batch]
+        eng.run_until_idle()
+        again = eng.submit(repeat, PREFIX_NEW)
+        eng.run_until_idle()
+        return [first] + reqs + [again]
+
+    def run(kv_dtype, depth, graphs, prefix, oracle=None, fused=False):
+        eng = engine(kv_dtype, depth, graphs, prefix, spec=bool(oracle),
+                     fused=fused, n_pages=PREFIX_POOL if prefix else None)
+        if oracle:
+            eng._drafter = OracleDrafter(prompts, oracle, prompts[1::2],
+                                         ORACLE_WRONG_AT, cfg.vocab_size)
+        guard = TreeGuard(torch, eng) if prefix else None
+        preempted = []
+        evict = eng._preempt
+
+        def logged(slot):
+            req = eng._slots[slot]
+            preempted.append((req.request_id - 1, len(req.output_tokens)))
+            evict(slot)
+        eng._preempt = logged
+        pa.reset_launches()
+        t1 = time.perf_counter()
+        reqs = workload(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        m = eng.metrics()
+        al = eng.allocator
+        cached = eng.prefix.cached_pages if prefix else 0
+        out = {'tokens': [r.output_tokens for r in reqs],
+               'reasons': [r.finish_reason for r in reqs],
+               'cached_tokens': [r.cached_tokens for r in reqs],
+               'seed_ttft_s': reqs[0].ttft, 'repeat_ttft_s': reqs[-1].ttft,
+               'wall_s': wall, 'preempted': preempted,
+               'launches': {k: v for k, v in pa.launches.items() if v},
+               'compiled_counts': eng.compiled_counts(),
+               'pages_leaked': al.n_pages - 1 - al.free_pages - cached,
+               'shared_refs': sum(al.refcount(p) > 1
+                                  for p in range(1, al.n_pages)),
+               **{k: m.get(k) for k in (
+                   'decode_steps', 'preemptions', 'fused_steps',
+                   'spec_accepted_tokens', 'prefix_hits', 'prefix_misses',
+                   'prefix_tokens_saved', 'prefix_cached_pages',
+                   'prefix_evictions')}}
+        if guard is not None:
+            out['tree_pages'], out['tree_pages_changed'] = guard.changed()
+        del eng, guard
+        torch.cuda.empty_cache()
+        return out
+
+    def brief(r):
+        return {k: v for k, v in r.items() if k != 'tokens'}
+
+    summary = {'card': card, 'system_tokens': PREFIX_SYSTEM,
+               'tail_tokens': PREFIX_TAIL, 'tails': PREFIX_TAILS,
+               'long_prompt_tokens': PREFIX_LONG, 'new_tokens': PREFIX_NEW,
+               'n_pages': PREFIX_POOL}
+    checks = []
+    launches = dict.fromkeys(pa.launches, 0)
+    refs = {}
+    for kv in ('bfloat16', 'int8'):
+        suffix = '_int8' if kv == 'int8' else ''
+        ref = refs[kv] = run(kv, 0, False, False)
+        off_fast = run(kv, 1, True, False)
+        lane = {'off_depth1_graphs': off_fast}
+        for depth, graphs in ((0, False), (1, True)):
+            for spec in (False, True):
+                lane[f'on_depth{depth}{"_graphs" if graphs else ""}'
+                     f'{"_spec" if spec else ""}'] = run(
+                    kv, depth, graphs, True,
+                    oracle=ref['tokens'] if spec else None)
+        lane['on_depth1_graphs_fused'] = run(kv, 1, True, True, fused=True)
+        summary[kv] = {'off_depth0_eager': brief(ref),
+                       **{k: brief(r) for k, r in lane.items()}}
+        for key, r in lane.items():
+            r['near_ties'] = []
+            for i, (a, b) in enumerate(zip(r['tokens'], ref['tokens'])):
+                if a == b:
+                    continue
+                # A preempted request resumes by recomputing its decoded
+                # tokens' K/V through prefill (ROADMAP queue 3, as 5c):
+                # after its resume it may part only at a near-tie.
+                j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                resumed = [n for q, n in r['preempted'] if q == i]
+                tie = {'request': i, 'step': j, 'resumed_at': resumed}
+                if resumed and j >= min(resumed):
+                    logits, cache, _ = prefill_logits(
+                        torch, model_lib, pc_lib, cfg, params, rope,
+                        prompts[i] + b[:j],
+                        torch.int8 if kv == 'int8' else torch.bfloat16)
+                    del cache
+                    top2 = torch.topk(logits.float(), 2).values.tolist()
+                    tie.update(margin=top2[0] - top2[1], top_logit=top2[0])
+                r['near_ties'].append(tie)
+                if not (tie.get('margin') is not None and tie['margin']
+                        <= NEAR_TIE * abs(tie['top_logit'])):
+                    checks.append(f'{kv} {key}: request {i} parted from the '
+                                  f'cache-off engine away from a near-tie '
+                                  f'after a resume: {tie}')
+            if r['pages_leaked'] or r['shared_refs']:
+                checks.append(f'{kv} {key}: pages leaked or still shared: '
+                              f'{r["pages_leaked"]} / {r["shared_refs"]}')
+            if key.startswith('off'):
+                continue
+            for name, n in r['launches'].items():
+                launches[name] += n
+            if r['tree_pages_changed'] or not r['tree_pages']:
+                checks.append(f'{kv} {key}: tree pages changed '
+                              f'{r["tree_pages_changed"]} of '
+                              f'{r["tree_pages"]}')
+            hit = r['cached_tokens'][2:]
+            if hit != [PREFIX_SYSTEM] * len(hit) or r['cached_tokens'][1]:
+                checks.append(f'{kv} {key}: cached tokens '
+                              f'{r["cached_tokens"]}: every tail after the '
+                              f'seed must attach the system block')
+            need = ['paged_decode_attention', 'paged_prefill_attention']
+            if key.endswith('_spec'):
+                need.append('paged_verify_attention')
+                if r['spec_accepted_tokens'] < 1:
+                    checks.append(f'{kv} {key}: the oracle run accepted no '
+                                  f'draft')
+            for name in need:
+                if r['launches'].get(name + suffix, 0) <= 0:
+                    checks.append(f'{kv} {key}: {name + suffix} never '
+                                  f'launched')
+            if key.endswith('fused') and r['fused_steps'] < 1:
+                checks.append(f'{kv} {key}: no mixed step')
+        on_fast = lane['on_depth1_graphs']
+        if on_fast['compiled_counts'] != {**off_fast['compiled_counts'],
+                                          'cow': 0}:
+            checks.append(f'{kv}: the cache changed the step programs: '
+                          f'{on_fast["compiled_counts"]} vs '
+                          f'{off_fast["compiled_counts"]}')
+        spec_counts = dict(lane['on_depth1_graphs_spec']['compiled_counts'])
+        if spec_counts.pop('cow', None) != 0 or not one_graph_each(
+                spec_counts, True):
+            checks.append(f'{kv}: speculation with the cache captured '
+                          f'{lane["on_depth1_graphs_spec"]["compiled_counts"]}')
+        if not any(r['preemptions'] for k, r in lane.items()
+                   if k.startswith('on')):
+            checks.append(f'{kv}: no cache-on run preempted over '
+                          f'{PREFIX_POOL} pages')
+
+    # KV prefix transfer between two in-process engines.
+    page_bytes = kv_wire.page_wire_bytes(cfg.n_layers, cfg.n_kv_heads, PAGE,
+                                         cfg.head_dim)
+    transfer = {}
+    donors = {}
+    for kv in ('int8', 'bfloat16'):
+        donor = engine(kv, 1, True, True, n_pages=None)
+        donor.generate([seed_prompt], PREFIX_NEW)
+        pids, matched = donor.prefix.peek(seed_prompt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        blob = donor._kv_export(seed_prompt)
+        export_ms = (time.perf_counter() - t1) * 1e3
+        blk = kv_wire.unpack(blob)
+        puller = engine(kv, 1, True, True, n_pages=None)
+        guard = TreeGuard(torch, puller)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grafted = puller._kv_import(blob)
+        torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t1) * 1e3
+        got, n = puller.prefix.peek(seed_prompt)
+        row = {'pages': len(pids), 'matched_tokens': matched,
+               'blob_bytes': len(blob),
+               'payload_bytes': len(pids) * page_bytes,
+               'header_bytes': len(blob) - len(pids) * page_bytes,
+               'page_wire_bytes': page_bytes, 'grafted': grafted,
+               'export_ms': export_ms, 'import_ms': import_ms}
+        if kv == 'int8':
+            exact = all(torch.equal(getattr(puller.cache, name)[:, :, got],
+                                    getattr(donor.cache, name)[:, :, pids])
+                        for name in ('k_pages', 'v_pages', 'k_scales',
+                                     'v_scales'))
+            # The tails' tokens of the cache-off engine above: a local
+            # recompute of the same prompts.
+            reqs = puller.generate(batch[1:], PREFIX_NEW)
+            want = refs['int8']['tokens'][2:2 + len(batch) - 1]
+            row.update(byte_exact=exact,
+                       cached_tokens=[r.cached_tokens for r in reqs],
+                       parted=[i for i, r in enumerate(reqs)
+                               if r.output_tokens != want[i]])
+            if not exact or row['parted'] or any(
+                    c != PREFIX_SYSTEM for c in row['cached_tokens']):
+                checks.append(f'int8 transfer: {row}')
+        else:
+            land = puller.cache.k_pages[:, :, got].float().cpu().numpy()
+            mine = donor.cache.k_pages[:, :, pids].float().cpu().numpy()
+            deq = kv_wire.dequantize_rows_np(blk.k, blk.k_scales)
+            err = float(abs(deq - mine).max())
+            ok = bool((abs(deq - mine) <= blk.k_scales[..., None] * 0.5
+                       + 1e-6).all())
+            cast = torch.from_numpy(deq).to(torch.bfloat16).float().numpy()
+            row.update(max_abs_err=err, within_half_step=ok,
+                       lands_dequantized=bool((land == cast).all()))
+            if not (ok and row['lands_dequantized']):
+                checks.append(f'bf16 transfer: {row}')
+        held, changed = guard.changed()
+        row['puller_tree_pages'], row['puller_tree_changed'] = held, changed
+        if changed or grafted != len(pids) or n != matched:
+            checks.append(f'{kv} transfer: grafted {grafted} of {len(pids)},'
+                          f' tree pages changed {changed}')
+        if row['payload_bytes'] >= len(blob) or row['header_bytes'] > 65536:
+            checks.append(f'{kv} transfer: blob {len(blob)} bytes for '
+                          f'{len(pids)} pages of {page_bytes}')
+        transfer[kv] = row
+        donors[kv] = (donor, pids)
+        del puller, guard
+    # The wire's numpy quantizer against the card's int8 write path: layer
+    # 0's rows come from the embeddings alone, so the bf16 pool holds the
+    # rows the int8 pool quantized.
+    (bdonor, bpids), (idonor, ipids) = donors['bfloat16'], donors['int8']
+    rows_k = bdonor.cache.k_pages[0][:, bpids].float().cpu().numpy()
+    q, sc = kv_wire.quantize_rows_np(rows_k)
+    q_diff = int((q != idonor.cache.k_pages[0][:, ipids].cpu().numpy()).sum())
+    s_diff = int((sc != idonor.cache.k_scales[0][:, ipids].cpu().numpy())
+                 .sum())
+    quant_ok = q_diff == 0 and s_diff == 0
+    transfer['quantize_rows_np_bitwise_card_int8_write'] = quant_ok
+    transfer['quantize_rows_np_differing'] = {'values': q_diff,
+                                              'scales': s_diff,
+                                              'of_rows': int(sc.size)}
+    if not quant_ok:
+        checks.append('quantize_rows_np differs from the card\'s int8 write '
+                      'path on layer 0')
+    del donors, bdonor, idonor, params
+    torch.cuda.empty_cache()
+    summary['transfer'] = transfer
+    summary['launches'] = launches
+    summary['wall_s'] = time.perf_counter() - t0
+    print('prefix cache in process (Llama-3-8B, random weights, 8 slots, '
+          + card + '): ' + json.dumps(summary), flush=True)
+    for c in checks:
+        print('phase 5e: ' + c, flush=True)
+    if checks:
+        fail(f'phase 5e: {len(checks)} checks failed (above)')
+    return launches
+
+
 def chunked_sweep(torch, card: str) -> dict:
     """``skypilot_tpu_torch.bench_ttft --sweep chunked`` at one level (7
     victims and the aggressor on 8 slots, chunk buckets 64 and 128 as in
@@ -2350,9 +2735,11 @@ def main() -> int:
 
     # Phase 5b: speculation in process at full width and depth.
     serving_in_process(torch, pa, card)
-    # Phase 5d: fused mixed steps and the sentinel, then the chunked
-    # sweep at one level.
+    # Phase 5d: fused mixed steps and the sentinel.
     fused_in_process(torch, pa, card)
+    # Phase 5e: the prefix cache and KV prefix transfer; then the chunked
+    # sweep at one level.
+    prefix_launches = prefix_in_process(torch, pa, card)
     chunked_sweep(torch, card)
 
     # Phase 6: the training slice against its plain path.
@@ -2411,6 +2798,8 @@ def main() -> int:
             'name': wrapper, 'route': 'cuda',
             'source': f'skypilot_tpu_torch/ops/csrc/{source}.cu',
             'replaces': where, 'launches': launches[wrapper],
+            # Phase 5e's cache-on runs, counted from 0 before each.
+            'launches_prefix_cache': prefix_launches.get(wrapper, 0),
             'max_abs_err': checked[key][0], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
             'bound_by': r['bound'][1], 'library_ms': r['library_ms']})

@@ -1,6 +1,6 @@
 """The port's serving sweep on one card (counterpart of the root
-``bench_ttft.py``'s ``--sweep chunked`` and of its default concurrency
-sweep, for a torch replica).
+``bench_ttft.py``'s ``--sweep chunked``, ``shared-prefix`` and ``disagg``
+and of its default concurrency sweep, for a torch replica).
 
 - ``--sweep chunked``: in-process engines (the stall under test is a
   property of the step loop, not of HTTP): victims decode on all but one
@@ -10,13 +10,34 @@ sweep, for a torch replica).
   from its submission to its first token, the aggressor's TTFT, the
   engine's fused-step and stall counters and the flight recorder's stage
   breakdown (``stepline_summary()``), fused vs unfused; and the kv-dtype
-  axis: how many pages each page dtype keeps resident in the same bytes.
+  axis: how many pages each page dtype keeps resident in the same bytes,
+  and what that residency buys the prefix cache (the hit rate of 30
+  two-page prefixes, twice over, through a pool of each dtype).
 - ``--sweep concurrency``: starts the port's replica server
   (``python -m skypilot_tpu_torch.infer.server``) and streams
   ``/generate`` to it directly: one cold request (its compile and capture
   tail, reported apart), a warm pass, then each ``--concurrency`` level
   (default 1, 4, 8 in flight). It reports warm TTFT p50/p90/p99, the time
   between tokens and tokens/s per level, clocked by the client.
+- ``--sweep shared-prefix``: the port's server with ``--prefix-cache``;
+  at each level a cold pass (every request its own system block of
+  ``--shared-prefix-tokens`` plus a 16-token tail: all misses), then a
+  shared pass (one system block, unique tails: system-prompted chat, RAG
+  templates), the first shared request alone to seed the tree. It
+  reports the shared pass's hit rate and prefill tokens saved (from the
+  server's counters around it), the TTFT improvement (cold p50 / shared
+  p50) and the ratio of time between tokens, shared over cold (the
+  cache must not tax decode).
+- ``--sweep disagg``: two port servers on the one card, ``--role
+  prefill`` and ``--role decode``, int8 pages, ``--prefix-cache``. The
+  bench plays the router: at each level it sends one cohort (a shared
+  system block, unique tails) to the decode server alone, which
+  recomputes the block, and another cohort to the decode server after
+  seeding its block on the prefill server, naming the prefill server in
+  ``X-SkyTpu-KV-Donor`` while the decode server's advertised index lacks
+  the block (what the serve load balancer does), so it pulls the pages.
+  It reports the transfers, their bytes, ``kv_transfer_p99_s`` and the
+  TTFT of each cohort.
 
 Both run on the CUDA device unless ``--device cpu`` is given, and print
 one JSON document that names the card by name and power limit
@@ -24,7 +45,7 @@ one JSON document that names the card by name and power limit
 Weights are random, drawn from ``--seed``.
 
 Run: ``python -m skypilot_tpu_torch.bench_ttft --sweep chunked --model
-8b`` or ``--sweep concurrency --model 8b``.
+8b`` (or ``--sweep concurrency``, ``shared-prefix`` or ``disagg``).
 """
 from __future__ import annotations
 
@@ -34,6 +55,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import random
 import socket
 import statistics
 import subprocess
@@ -79,7 +101,8 @@ def _ms(v):
 # ---------------------------------------------------------------------------
 def _chunked_build_engine(config, params, device, *, fused: bool, slots: int,
                           max_seq_len: int, page_size: int,
-                          kv_dtype: str = 'bfloat16', n_pages=None):
+                          kv_dtype: str = 'bfloat16', n_pages=None,
+                          prefix_cache: bool = False):
     from skypilot_tpu_torch.infer import engine as engine_lib
     return engine_lib.InferenceEngine(
         config, params,
@@ -87,7 +110,7 @@ def _chunked_build_engine(config, params, device, *, fused: bool, slots: int,
             n_slots=slots, max_seq_len=max_seq_len,
             prefill_buckets=(64, 128), prefill_chunk=128,
             page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype,
-            fused_prefill=fused),
+            fused_prefill=fused, prefix_cache=prefix_cache),
         device=device)
 
 
@@ -168,24 +191,47 @@ def _chunked_victim_run(engine, conc: int, aggr_prompt: list,
     }
 
 
-def _kv_axis(config, page_size: int) -> dict:
-    """int8 pages at a fixed byte budget: how many pages each page dtype
-    keeps resident (the closed form of the engine's kv_page_bytes: K and
-    V values at their dtype plus, on int8, one fp32 scale per row and KV
-    head). The prefix cache, which the reference's axis also measures,
-    is not ported yet."""
+def _kv_axis(config, params, device, *, slots: int, max_seq_len: int,
+             page_size: int) -> dict:
+    """int8 pages at a fixed byte budget (48 bf16 pages): how many pages
+    each page dtype keeps resident (the closed form of the engine's
+    kv_page_bytes: K and V values at their dtype plus, on int8, one fp32
+    scale per row and KV head), and what that residency buys the prefix
+    cache: 30 distinct two-page prefixes (60 cached pages if all stay),
+    each with a short tail, twice over through a pool of each dtype with
+    the cache on. They overflow the bf16 pool and fit the int8 one, so
+    the second wave's hits are what the denser pages bought."""
     per = {dt: (2 * config.n_layers * config.n_kv_heads * page_size
                 * (config.head_dim * (1 if dt == 'int8' else 2)
                    + (4 if dt == 'int8' else 0)))
            for dt in ('bfloat16', 'int8')}
     budget = 48 * per['bfloat16']
-    return {'kv_page_bytes_bf16': per['bfloat16'],
+    axis = {'kv_page_bytes_bf16': per['bfloat16'],
             'kv_page_bytes_int8': per['int8'],
-            'hbm_budget_bytes': budget,
-            'resident_pages_bf16': budget // per['bfloat16'],
-            'resident_pages_int8': budget // per['int8'],
-            'resident_page_ratio': round(
-                (budget // per['int8']) / (budget // per['bfloat16']), 4)}
+            'hbm_budget_bytes': budget}
+    cohorts = [[(7 + c) % 250] * (2 * page_size) for c in range(30)]
+    for dt, key in (('bfloat16', 'bf16'), ('int8', 'int8')):
+        n_pages = budget // per[dt] + 1          # + the sink page
+        eng = _chunked_build_engine(
+            config, params, device, fused=True, slots=slots,
+            max_seq_len=max_seq_len, page_size=page_size, kv_dtype=dt,
+            n_pages=int(n_pages), prefix_cache=True)
+        for wave in range(2):
+            for c, prefix in enumerate(cohorts):
+                eng.generate([prefix + [11 + c + 100 * wave] * 8], 4)
+        m = eng.metrics()
+        axis[f'resident_pages_{key}'] = int(n_pages) - 1
+        axis[f'prefix_hit_rate_{key}'] = m['prefix_hit_rate']
+        axis[f'prefix_cached_pages_{key}'] = m['prefix_cached_pages']
+        axis[f'prefix_evictions_{key}'] = m['prefix_evictions']
+        del eng
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
+    axis['resident_page_ratio'] = round(
+        axis['resident_pages_int8'] / axis['resident_pages_bf16'], 4)
+    axis['prefix_hit_rate_delta'] = round(
+        axis['prefix_hit_rate_int8'] - axis['prefix_hit_rate_bf16'], 4)
+    return axis
 
 
 def run_chunked_sweep(args, device: torch.device) -> dict:
@@ -241,7 +287,9 @@ def run_chunked_sweep(args, device: torch.device) -> dict:
             'aggressor_ttft_p50_s'),
         'sweep_mode': 'chunked',
         'sweep': sweep,
-        'kv_dtype_axis': _kv_axis(config, page_size),
+        'kv_dtype_axis': _kv_axis(config, params, device, slots=args.slots,
+                                  max_seq_len=max_seq_len,
+                                  page_size=page_size),
         'total_samples': sum(lv.get('samples', 0) for lv in sweep),
         'model': args.model,
         'slots': args.slots,
@@ -255,13 +303,14 @@ def run_chunked_sweep(args, device: torch.device) -> dict:
 # --sweep concurrency
 # ---------------------------------------------------------------------------
 def _streamed_request(url: str, payload, max_new_tokens: int,
-                      timeout: float = 600.0) -> tuple:
+                      timeout: float = 600.0, headers=None) -> tuple:
     """One streamed /generate. Returns (ttft_s, itl samples (one per
     token after the first: each line's arrival gap over the tokens it
     carried), tokens, the done line's queue wait)."""
     body = {'max_new_tokens': max_new_tokens, 'stream': True, **payload}
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={'Content-Type': 'application/json'})
+                                 headers={'Content-Type': 'application/json',
+                                          **(headers or {})})
     t0 = time.perf_counter()
     itls: List[float] = []
     tokens = 0
@@ -290,15 +339,24 @@ def _streamed_request(url: str, payload, max_new_tokens: int,
 
 
 def _sweep_level(gen_url: str, concurrency: int, n_requests: int,
-                 new_tokens: int) -> dict:
-    """One concurrency level of short distinct prompts."""
+                 new_tokens: int, payload_for=None, headers_for=None) -> dict:
+    """One concurrency level: ``n_requests`` streamed requests, at most
+    ``concurrency`` in flight; request i sends ``payload_for(i)`` (default
+    a short distinct prompt) with ``headers_for(i)`` (called as it is
+    sent)."""
+    payload_for = payload_for or (
+        lambda i: {'prompt': f'request {i} hello world'})
+
+    def one(i):
+        return _streamed_request(gen_url, payload_for(i), new_tokens,
+                                 headers=headers_for(i) if headers_for
+                                 else None)
+
     ttfts, itl_samples, waits = [], [], []
     tokens = 0
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
-        futs = [pool.submit(_streamed_request, gen_url,
-                            {'prompt': f'request {i} hello world'},
-                            new_tokens) for i in range(n_requests)]
+        futs = [pool.submit(one, i) for i in range(n_requests)]
         for f in concurrent.futures.as_completed(futs):
             ttft, itls, n, qwait = f.result()
             ttfts.append(ttft)
@@ -338,37 +396,77 @@ def _get_json(url: str, timeout: float = 10.0) -> dict:
         return json.loads(r.read())
 
 
+class _Servers:
+    """Port servers in subprocesses (``python -m
+    skypilot_tpu_torch.infer.server``), each started with ``flags`` after
+    the common ones, waited on until healthy together and stopped on
+    exit. ``bases`` are their URLs."""
+
+    def __init__(self, args, device, flag_sets) -> None:
+        self.procs, self.bases, self.logs = [], [], []
+        self.ready_s = None
+        for i, flags in enumerate(flag_sets):
+            port = _free_port()
+            cmd = [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
+                   '--host', '127.0.0.1', '--port', str(port), '--model',
+                   args.model, '--slots', str(args.slots), '--max-seq-len',
+                   str(args.max_seq_len), '--page-size', str(args.page_size),
+                   '--device', str(device), '--seed', str(args.seed),
+                   *flags]
+            log = (open(f'{args.server_log}.{i}' if i else args.server_log,
+                        'w') if args.server_log else subprocess.DEVNULL)
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                                               stderr=subprocess.STDOUT))
+            self.bases.append(f'http://127.0.0.1:{port}')
+        self._boot_timeout = args.boot_timeout
+
+    def __enter__(self) -> '_Servers':
+        try:
+            deadline = time.time() + self._boot_timeout
+            t_boot = time.perf_counter()
+            waiting = list(zip(self.procs, self.bases))
+            while waiting:
+                proc, base = waiting[0]
+                if proc.poll() is not None:
+                    raise RuntimeError(f'a server exited with '
+                                       f'{proc.returncode} before it was '
+                                       f'healthy')
+                try:
+                    if _get_json(base + '/health', 2.0).get(
+                            'status') == 'ok':
+                        waiting.pop(0)
+                        continue
+                except OSError:
+                    pass
+                if time.time() > deadline:
+                    raise RuntimeError('a server never became healthy')
+                time.sleep(0.25)
+            self.ready_s = time.perf_counter() - t_boot
+        except BaseException:
+            self.__exit__()
+            raise
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for proc in self.procs:
+            proc.terminate()
+        for proc in self.procs:
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for log in self.logs:
+            if log is not subprocess.DEVNULL:
+                log.close()
+
+
 def run_concurrency_sweep(args, device: torch.device) -> dict:
     """The port's server in a subprocess, driven over HTTP."""
-    port = _free_port()
-    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
-           '--host', '127.0.0.1', '--port', str(port), '--model', args.model,
-           '--slots', str(args.slots), '--max-seq-len',
-           str(args.max_seq_len), '--page-size', str(args.page_size),
-           '--device', str(device), '--seed', str(args.seed)]
-    if args.fused_prefill:
-        cmd.append('--fused-prefill')
-    log = open(args.server_log, 'w') if args.server_log else \
-        subprocess.DEVNULL
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log,
-                            stderr=subprocess.STDOUT)
-    base = f'http://127.0.0.1:{port}'
-    try:
-        deadline = time.time() + args.boot_timeout
-        t_boot = time.perf_counter()
-        while True:
-            if proc.poll() is not None:
-                raise RuntimeError(f'the server exited with {proc.returncode}'
-                                   f' before it was healthy')
-            try:
-                if _get_json(base + '/health', 2.0).get('status') == 'ok':
-                    break
-            except OSError:
-                pass
-            if time.time() > deadline:
-                raise RuntimeError('the server never became healthy')
-            time.sleep(0.25)
-        ready_s = time.perf_counter() - t_boot
+    flags = ['--fused-prefill'] if args.fused_prefill else []
+    with _Servers(args, device, [flags]) as servers:
+        base = servers.bases[0]
         gen_url = base + '/generate'
         cold_s = _streamed_request(gen_url, {'prompt': 'cold request'},
                                    args.new_tokens)[0]
@@ -378,15 +476,7 @@ def run_concurrency_sweep(args, device: torch.device) -> dict:
                               args.new_tokens)
                  for conc in args.concurrency]
         metrics = _get_json(base + '/metrics')
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        if log is not subprocess.DEVNULL:
-            log.close()
+        ready_s = servers.ready_s
     first = sweep[0] if sweep else {}
     return {
         'metric': 'serve_ttft_warm_p50_s',
@@ -413,9 +503,226 @@ def run_concurrency_sweep(args, device: torch.device) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# --sweep shared-prefix and --sweep disagg
+# ---------------------------------------------------------------------------
+TAIL_TOKENS = 16
+
+
+def _block(seed: int, n: int) -> list:
+    """A deterministic token block, ids in [2, 201] (inside every model's
+    vocabulary); the seed goes through a PRNG, so distinct seeds give
+    distinct leading blocks (the reference's ``_block``)."""
+    rng = random.Random(seed)
+    return [2 + rng.randrange(200) for _ in range(n)]
+
+
+def _cohort(base: int, sys_tokens: int):
+    """Request i of a cohort: one shared system block, a unique tail."""
+    shared = _block(base, sys_tokens)
+    return lambda i: {'tokens': shared + _block(base + 200003 + i,
+                                                TAIL_TOKENS)}
+
+
+def _prefix_counters(m: dict) -> dict:
+    return {k: m.get(k) or 0 for k in (
+        'prefix_hits', 'prefix_misses', 'prefix_tokens_saved',
+        'kv_transfers_total', 'kv_transfer_bytes', 'kv_transfer_failures')}
+
+
+def _window(before: dict, after: dict) -> dict:
+    """Counter deltas over a pass, and its hit rate."""
+    d = {k: after[k] - before[k] for k in before}
+    lookups = d['prefix_hits'] + d['prefix_misses']
+    d['prefix_hit_rate'] = (round(d['prefix_hits'] / lookups, 4)
+                            if lookups else 0.0)
+    return d
+
+
+def run_shared_prefix_sweep(args, device: torch.device) -> dict:
+    """The port's server with the prefix cache: cold then shared passes
+    at each concurrency level."""
+    sys_tokens = args.shared_prefix_tokens
+    with _Servers(args, device, [['--prefix-cache']]) as servers:
+        base = servers.bases[0]
+        gen_url, metrics_url = base + '/generate', base + '/metrics'
+        # Cold and warm off the clock: every chunk bucket's program, and
+        # the bucket a hit's tail takes.
+        cold_s = _streamed_request(
+            gen_url, _cohort(1, sys_tokens)(0), args.new_tokens)[0]
+        _sweep_level(gen_url, max(args.concurrency), 2 * args.slots,
+                     args.new_tokens, payload_for=_cohort(2, sys_tokens))
+        sweep = []
+        for li, conc in enumerate(args.concurrency):
+            ub = (li + 1) * 1_000_000
+            cold = _sweep_level(
+                gen_url, conc, args.requests_per_level, args.new_tokens,
+                payload_for=lambda i, ub=ub: _cohort(ub + 7 + i,
+                                                     sys_tokens)(0))
+            shared = _cohort(ub, sys_tokens)
+            _streamed_request(gen_url, shared(0), args.new_tokens)  # seed
+            m0 = _prefix_counters(_get_json(metrics_url))
+            warm = _sweep_level(gen_url, conc, args.requests_per_level,
+                                args.new_tokens,
+                                payload_for=lambda i, f=shared: f(i + 1))
+            win = _window(m0, _prefix_counters(_get_json(metrics_url)))
+            sweep.append({
+                'concurrency': conc,
+                'samples': cold['samples'] + warm['samples'],
+                'system_prompt_tokens': sys_tokens,
+                'tail_tokens': TAIL_TOKENS,
+                'cold': cold, 'shared': warm,
+                'prefix_hit_rate': win['prefix_hit_rate'],
+                'tokens_prefill_saved': win['prefix_tokens_saved'],
+                'ttft_improvement_x': cold['ttft_p50_s'] / warm['ttft_p50_s'],
+                # > 1: the shared pass decodes slower (reuse must not tax
+                # decode).
+                'itl_ratio_shared_over_cold': (warm['itl_p50_ms']
+                                               / cold['itl_p50_ms'])})
+        metrics = _get_json(metrics_url)
+        ready_s = servers.ready_s
+    first = sweep[0] if sweep else {}
+    return {
+        'metric': 'shared_prefix_ttft_improvement_x',
+        'value': first.get('ttft_improvement_x'),
+        'unit': 'x (cold ttft p50 / shared ttft p50, first level)',
+        'sweep_mode': 'shared-prefix',
+        'server_ready_s': ready_s,
+        'cold_first_request_s': cold_s,
+        'sweep': sweep,
+        'total_samples': sum(lv['samples'] for lv in sweep),
+        'model': args.model, 'slots': args.slots,
+        'page_size': args.page_size, 'new_tokens': args.new_tokens,
+        'server_metrics': {k: metrics.get(k) for k in (
+            'prefix_hit_rate', 'prefix_tokens_saved', 'prefix_cached_pages',
+            'prefix_evictions', 'step_programs', 'kernel_launches',
+            'integrity')},
+        'path': 'client -> torch replica server with --prefix-cache '
+                '(streamed; client-side send -> first token line clock)',
+    }
+
+
+def run_disagg_sweep(args, device: torch.device) -> dict:
+    """A prefill server and a decode server on the one card, int8 pages,
+    the prefix cache on both; the bench routes as the serve load balancer
+    would."""
+    from skypilot_tpu_torch.utils import prefix_hash
+    sys_tokens = args.shared_prefix_tokens
+    common = ['--prefix-cache', '--kv-dtype', 'int8']
+    if args.n_pages:
+        common += ['--n-pages', str(args.n_pages)]
+    with _Servers(args, device, [common + ['--role', 'prefill'],
+                                 common + ['--role', 'decode']]) as servers:
+        pre, dec = servers.bases
+        dec_gen, pre_gen = dec + '/generate', pre + '/generate'
+        # Cold and warm both servers off the clock.
+        cold_s = _streamed_request(pre_gen, _cohort(1, sys_tokens)(0),
+                                   args.new_tokens)[0]
+        for base in (pre, dec):
+            _sweep_level(base + '/generate', max(args.concurrency),
+                         2 * args.slots, args.new_tokens,
+                         payload_for=_cohort(900001, sys_tokens))
+
+        def donor_for(payload):
+            """The header the load balancer would send: the prefill
+            server while the decode server's advertised index lacks the
+            longest chain of this prompt that the prefill server holds."""
+            def headers(_i):
+                chain = prefix_hash.chain_hashes(payload(_i)['tokens'],
+                                                 args.page_size)
+                held = {}
+                for name, url in (('pre', pre), ('dec', dec)):
+                    snap = _get_json(url + '/metrics')['kv_prefix_index']
+                    held[name] = prefix_hash.match_depth(
+                        chain, set(snap.get('full') or ()))
+                return ({'X-SkyTpu-KV-Donor': pre}
+                        if held['pre'] > held['dec'] else {})
+            return headers
+
+        sweep = []
+        for li, conc in enumerate(args.concurrency):
+            ub = (li + 1) * 1_000_000
+            # Each cohort's first request goes alone: the decode server
+            # recomputes the block, or pulls it; then the rest at the
+            # level's concurrency.
+            d0 = _prefix_counters(_get_json(dec + '/metrics'))
+            rec = _cohort(ub, sys_tokens)
+            rec_first = _streamed_request(dec_gen, rec(0),
+                                          args.new_tokens)[0]
+            recompute = _sweep_level(dec_gen, conc, args.requests_per_level,
+                                     args.new_tokens,
+                                     payload_for=lambda i, f=rec: f(i + 1))
+            d1 = _prefix_counters(_get_json(dec + '/metrics'))
+            pay = _cohort(ub + 5_000_000, sys_tokens)
+            _streamed_request(pre_gen, pay(0), args.new_tokens)   # seed
+            p1 = _prefix_counters(_get_json(pre + '/metrics'))
+            route = donor_for(pay)
+            pull_first = _streamed_request(dec_gen, pay(1), args.new_tokens,
+                                           headers=route(1))[0]
+            transfer = _sweep_level(
+                dec_gen, conc, args.requests_per_level, args.new_tokens,
+                payload_for=lambda i, f=pay: f(i + 2),
+                headers_for=lambda i, r=route: r(i + 2))
+            dm = _get_json(dec + '/metrics')
+            d2 = _prefix_counters(dm)
+            p2 = _prefix_counters(_get_json(pre + '/metrics'))
+            moved = _window(d1, d2)
+            sweep.append({
+                'concurrency': conc,
+                'samples': recompute['samples'] + transfer['samples'],
+                'system_prompt_tokens': sys_tokens,
+                'recompute': recompute, 'transfer': transfer,
+                'recompute_hit_rate': _window(d0, d1)['prefix_hit_rate'],
+                'transfer_hit_rate': moved['prefix_hit_rate'],
+                'kv_transfers': moved['kv_transfers_total'],
+                'kv_transfer_bytes': moved['kv_transfer_bytes'],
+                'kv_transfer_failures': moved['kv_transfer_failures'],
+                'donor_exports': (p2['kv_transfers_total']
+                                  - p1['kv_transfers_total']),
+                'kv_transfer_p99_s': dm.get('kv_transfer_p99_s'),
+                'recompute_first_ttft_s': rec_first,
+                'transfer_first_ttft_s': pull_first,
+                'first_ttft_improvement_x': rec_first / pull_first,
+                'ttft_improvement_x': (recompute['ttft_p50_s']
+                                       / transfer['ttft_p50_s'])})
+        metrics = {'prefill': _get_json(pre + '/metrics'),
+                   'decode': _get_json(dec + '/metrics')}
+        ready_s = servers.ready_s
+    first = sweep[0] if sweep else {}
+    return {
+        'metric': 'disagg_first_ttft_improvement_x',
+        'value': first.get('first_ttft_improvement_x'),
+        'unit': 'x (a cohort\'s first request alone on the decode server: '
+                'ttft recomputing the shared block / ttft pulling it from '
+                'the prefill server, first level)',
+        'kv_transfers_total': sum(lv['kv_transfers'] for lv in sweep),
+        'kv_transfer_failures': sum(lv['kv_transfer_failures']
+                                    for lv in sweep),
+        'transfer_p99_s': metrics['decode'].get('kv_transfer_p99_s'),
+        'sweep_mode': 'disagg',
+        'server_ready_s': ready_s,
+        'cold_first_request_s': cold_s,
+        'sweep': sweep,
+        'total_samples': sum(lv['samples'] for lv in sweep),
+        'model': args.model, 'slots': args.slots,
+        'page_size': args.page_size, 'kv_dtype': 'int8',
+        'n_pages': args.n_pages, 'roles': ['prefill', 'decode'],
+        'server_metrics': {role: {k: m.get(k) for k in (
+            'role', 'prefix_hit_rate', 'prefix_cached_pages',
+            'kv_transfers_total', 'kv_transfer_bytes',
+            'kv_transfer_failures', 'kv_transfer_p99_s', 'step_programs',
+            'kv_page_bytes')} for role, m in metrics.items()},
+        'path': 'client (routing as the serve load balancer: '
+                'X-SkyTpu-KV-Donor while the decode server lacks the '
+                'prefix) -> torch decode server, pulling int8 pages from '
+                'the torch prefill server over /kv/export',
+    }
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    p.add_argument('--sweep', choices=['chunked', 'concurrency'],
+    p.add_argument('--sweep', choices=['chunked', 'concurrency',
+                                       'shared-prefix', 'disagg'],
                    default='concurrency')
     p.add_argument('--model', default='8b',
                    choices=['tiny', '350m', '1b', '8b'])
@@ -431,7 +738,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         'default slots - 1)')
     p.add_argument('--requests-per-level', type=int, default=32)
     p.add_argument('--new-tokens', type=int, default=32,
-                   help='tokens per request (concurrency sweep)')
+                   help='tokens per request (the server sweeps)')
     p.add_argument('--fused-prefill', action='store_true',
                    help='serve with fused mixed steps (concurrency sweep)')
     p.add_argument('--repeats', type=int, default=4,
@@ -439,6 +746,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--aggressor-tokens', type=int, default=768,
                    help='the aggressor prompt (chunked sweep; 6 chunks '
                         'of 128)')
+    p.add_argument('--shared-prefix-tokens', type=int, default=1024,
+                   help='the system block of the shared-prefix and '
+                        'disagg sweeps (each request adds a 16-token '
+                        'tail)')
+    p.add_argument('--n-pages', type=int, default=257,
+                   help='KV pool pages of each disagg server (both 8B '
+                        'servers share one card)')
     p.add_argument('--boot-timeout', type=float, default=900.0)
     p.add_argument('--server-log', default=None,
                    help='file for the server subprocess output')
@@ -460,8 +774,10 @@ def sweep(argv: Optional[List[str]] = None) -> dict:
         device = torch.device('cuda', torch.cuda.current_device()
                               if device.index is None else device.index)
     t0 = time.perf_counter()
-    run = (run_chunked_sweep if args.sweep == 'chunked'
-           else run_concurrency_sweep)
+    run = {'chunked': run_chunked_sweep,
+           'concurrency': run_concurrency_sweep,
+           'shared-prefix': run_shared_prefix_sweep,
+           'disagg': run_disagg_sweep}[args.sweep]
     result = run(args, device)
     result.update(device=str(device), card=card_line(device),
                   torch=torch.__version__, wall_s=time.perf_counter() - t0)

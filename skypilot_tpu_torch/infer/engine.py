@@ -48,7 +48,20 @@ What the port keeps from the reference:
   finishes ``'sdc'`` and flips ``integrity_suspect()`` for good;
 - ``resume_tokens`` on ``submit``: a stream continued from tokens already
   delivered elsewhere (pre-seeded into the output and prefilled with the
-  prompt).
+  prompt);
+- the shared-prefix KV cache (``prefix_cache``, ``prefix_cache.py``): a
+  finished, cut or preempted request donates its full pages to a radix
+  tree, a new request attaches the longest cached page-aligned prefix of
+  its source and prefills only from there (its first chunk runs at the
+  matched offset through the same chunk programs), cached pages are
+  LRU-evicted under page pressure before anyone is preempted, and every
+  write range is copy-on-written private before dispatch (the chunk's,
+  decode's and a verify run's); greedy outputs are the same on and off;
+- KV prefix transfer jobs: ``request_kv_export`` serializes a cached
+  prefix into the int8 wire format (``kv_wire.py``), ``request_kv_import``
+  grafts a donor's blob into the pool and the tree, both serviced on the
+  engine thread at the start of a step; ``kv_index_snapshot`` publishes
+  the tree's chained-hash index for the serve load balancer.
 
 The reference jits each step into one program. The port's counterpart is
 a CUDA graph per step program: the decode step (model, sampling and the
@@ -67,11 +80,13 @@ Graphs are on whenever the device is CUDA (``EngineConfig.cuda_graphs``
 turns them off for the on == off gate); on the CPU the same
 static-buffer code runs eagerly. A capture that fails raises; nothing
 falls back to eager. The recorder and the sentinel touch nothing that is
-captured: the sentinel's row is part of each program.
+captured: the sentinel's row is part of each program. The prefix cache
+adds no program: a page copy-on-write and a KV import write the pool
+tensors in place, eagerly on the step's stream, never rebinding them (the
+graphs keep their pointers).
 
-What it leaves out (ROADMAP queue 1): the prefix cache (and so the
-copy-on-write of shared pages and the KV transfer routes), int8 weights,
-tensor parallelism and the engine pool.
+What it leaves out (ROADMAP queue 1): int8 weights, tensor parallelism
+and the engine pool.
 
 Device placement is explicit: the engine runs on ``device`` (default
 ``'cuda'``) and raises if CUDA was asked for and is missing.
@@ -89,13 +104,16 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.infer import drafter as drafter_lib
+from skypilot_tpu_torch.infer import kv_wire
 from skypilot_tpu_torch.infer import model as model_lib
 from skypilot_tpu_torch.infer import paged_cache as paged_cache_lib
+from skypilot_tpu_torch.infer import prefix_cache as prefix_cache_lib
 from skypilot_tpu_torch.infer import sampling as sampling_lib
 from skypilot_tpu_torch.infer import sched as sched_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import stepline as stepline_lib
 from skypilot_tpu_torch.ops import paged_attention as paged_attn
+from skypilot_tpu_torch.utils import prefix_hash
 
 # The server catches admission refusals by this name, as the
 # reference's does.
@@ -132,6 +150,14 @@ class EngineConfig:
     # capacity, n_slots * max_seq_len / page_size + 1. A smaller pool
     # preempts under pressure.
     n_pages: Optional[int] = None
+    # Shared-prefix KV reuse (prefix_cache.py): finished, cut and
+    # preempted requests donate their full pages to a radix tree keyed by
+    # per-page token blocks; a new request attaches the longest cached
+    # page-aligned prefix of its prompt (refcount++) and prefills only
+    # from the match boundary. Unreferenced cached pages are LRU-evicted
+    # strictly under page pressure, before preemption is considered.
+    # Greedy outputs are the same with the cache on and off.
+    prefix_cache: bool = False
     # KV page value dtype: 'bfloat16' (pages of cache_dtype) or 'int8'
     # (int8 values plus one fp32 absmax scale per row per KV head,
     # quantized on write and dequantized in the kernels: about half the
@@ -199,8 +225,8 @@ class Request:
     # When the first prefill chunk dispatched (not re-stamped on a
     # preemption resume): submit -> here is the queue wait.
     first_dispatch_at: Optional[float] = None
-    # Prompt tokens served from a prefix cache; always 0 in the port so
-    # far (reported by the server like the reference's).
+    # Prompt tokens served from the prefix cache (the longest attach of
+    # this request's residencies, capped at the prompt).
     cached_tokens: int = 0
     # Tokens this request resumed from (a stream continued after its
     # replica died): pre-seeded into output_tokens and prefilled with the
@@ -274,6 +300,30 @@ class _ChunkPlan:
     total: int         # prompt + resume tokens the slot must cache
     padded: np.ndarray
     table_row: np.ndarray   # the slot's block-table row at preparation
+
+
+class _KVJob:
+    """One queued KV transfer (export or import). Any thread enqueues
+    (``request_kv_export`` / ``request_kv_import``); only the stepping
+    thread services it, since the tree and the page pool are engine-thread
+    confined. The waiter blocks on the event."""
+
+    def __init__(self, kind: str, payload: Any,
+                 fetch_s: float = 0.0) -> None:
+        self.kind = kind          # 'export' | 'import'
+        self.payload = payload    # export: token list; import: blob
+        self.fetch_s = fetch_s    # import: the upstream fetch's wall time
+        self.result: Any = None
+        self.error: Optional[Exception] = None
+        self._done = threading.Event()
+
+    def finish(self, result: Any = None,
+               error: Optional[Exception] = None) -> None:
+        self.result, self.error = result, error
+        self._done.set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._done.wait(timeout)
 
 
 @dataclasses.dataclass
@@ -367,6 +417,26 @@ class InferenceEngine:
                 max_queue_tokens=ecfg.max_queue_tokens,
                 tenant_weights=ecfg.tenant_weights))
         self._slots: List[Optional[Request]] = [None] * ecfg.n_slots
+        # Shared-prefix radix tree over the page pool (None = disabled).
+        self.prefix: Optional[prefix_cache_lib.PrefixCache] = (
+            prefix_cache_lib.PrefixCache(self.allocator)
+            if ecfg.prefix_cache else None)
+        # Slots that already ran their prefix match for the current
+        # residency (a rolled-back attach discards the entry so the retry
+        # re-matches), and slots mapping attached (possibly shared) pages:
+        # the only ones _unshare_write_range must scan.
+        self._matched: set = set()
+        self._attached_slots: set = set()
+        # KV transfer jobs, serviced at step start; transfer counters and
+        # a bounded duration window for the p99; the last published index
+        # copy (gen, crc, page, journal, hashes) HTTP threads read.
+        self._kv_jobs: collections.deque = collections.deque()
+        self._kv_transfers = 0
+        self._kv_transfer_bytes = 0
+        self._kv_transfer_failures = 0
+        self._kv_transfer_window: collections.deque = collections.deque(
+            maxlen=512)
+        self._kv_index_pub: tuple = (0, 0, page, (), frozenset())
         # slot -> tokens already prefilled; a slot decodes only once its
         # prompt (plus, after a preemption, its output) is fully cached.
         self._prefilling: Dict[int, int] = {}
@@ -636,6 +706,175 @@ class InferenceEngine:
             req.cancelled = True
         return True
 
+    # ---- KV prefix transfers ---------------------------------------------
+    def kv_index_armed(self) -> bool:
+        """Whether this engine advertises a fleet prefix index."""
+        return self.prefix is not None
+
+    def kv_page_size(self) -> int:
+        """KV page size in tokens (the server's export cap needs it)."""
+        return self.allocator.page_size
+
+    def kv_index_snapshot(self, since_gen: int = -1
+                          ) -> Optional[Dict[str, Any]]:
+        """Wire summary of the radix index for the load balancer's sync
+        tick, delta-encoded against ``since_gen``. Built from the step
+        loop's published copy, never the live tree. None when the prefix
+        cache is off."""
+        if self.prefix is None:
+            return None
+        with self._lock:
+            gen, crc, page, journal, hashes = self._kv_index_pub
+        return prefix_hash.build_snapshot(gen, crc, page, journal, hashes,
+                                          since_gen)
+
+    def request_kv_export(self, tokens: Sequence[int]) -> _KVJob:
+        """Queue an export of the cached prefix of ``tokens`` (any
+        thread); the stepping thread serializes it at its next step.
+        ``job.result`` is the wire blob, or None when nothing is cached.
+        The donor's refcounts are never touched."""
+        job = _KVJob('export', [int(t) for t in tokens])
+        with self._lock:
+            self._kv_jobs.append(job)
+        return job
+
+    def request_kv_import(self, blob: bytes,
+                          fetch_s: float = 0.0) -> _KVJob:
+        """Queue the import of a transferred prefix blob (any thread).
+        ``fetch_s``, the upstream pull's wall time, folds into the
+        duration window so ``kv_transfer_p99_s`` prices the whole pull."""
+        job = _KVJob('import', blob, fetch_s=fetch_s)
+        with self._lock:
+            self._kv_jobs.append(job)
+        return job
+
+    def note_kv_transfer_failure(self) -> None:
+        """Count a transfer that died before reaching the engine (donor
+        fetch error, stall past the budget)."""
+        with self._lock:
+            self._kv_transfer_failures += 1
+
+    def _service_kv_jobs(self) -> None:
+        """Run the queued KV transfer jobs, then republish the index copy,
+        on the stepping thread (which owns the tree and the pool). A job
+        that fails is counted and handed its error; the step loop goes
+        on (the caller recomputes)."""
+        with self._lock:
+            jobs = list(self._kv_jobs)
+            self._kv_jobs.clear()
+        for job in jobs:
+            t0 = time.perf_counter()
+            try:
+                result = (self._kv_export(job.payload)
+                          if job.kind == 'export'
+                          else self._kv_import(job.payload))
+            except Exception as exc:  # noqa: BLE001 -- degrade, never crash
+                with self._lock:
+                    self._kv_transfer_failures += 1
+                job.finish(error=exc)
+                continue
+            if job.kind == 'export' and result is None:
+                job.finish(result=None)   # nothing cached: not a transfer
+                continue
+            dur = time.perf_counter() - t0 + job.fetch_s
+            nbytes = len(result) if job.kind == 'export' else len(job.payload)
+            with self._lock:
+                self._kv_transfers += 1
+                self._kv_transfer_bytes += nbytes
+                self._kv_transfer_window.append(dur)
+            job.finish(result=result)
+        if self.prefix is not None:
+            pub = self.prefix.publishable()
+            with self._lock:
+                if pub[0] != self._kv_index_pub[0]:
+                    self._kv_index_pub = pub
+
+    def _kv_export(self, tokens: List[int]) -> Optional[bytes]:
+        """The cached prefix of ``tokens`` in the int8 wire format (engine
+        thread); None when nothing is cached. bf16 pools quantize on
+        export with the rules the int8 pages use on write. Read-only: no
+        refcount moves, no LRU touch. The host copy synchronizes, so every
+        step in flight has run before the pages are read (none writes a
+        cached page anyway)."""
+        if self.prefix is None:
+            raise ValueError('KV export requires the prefix cache')
+        pages, matched = self.prefix.peek(tokens)
+        if not pages:
+            return None
+        pids = torch.tensor(pages, dtype=torch.long, device=self.device)
+        c = self.cache
+        k = c.k_pages.index_select(2, pids).cpu()
+        v = c.v_pages.index_select(2, pids).cpu()
+        if c.k_scales is not None:
+            kq, vq = k.numpy(), v.numpy()
+            ks = c.k_scales.index_select(2, pids).cpu().numpy()
+            vs = c.v_scales.index_select(2, pids).cpu().numpy()
+        else:
+            kq, ks = kv_wire.quantize_rows_np(k.float().numpy())
+            vq, vs = kv_wire.quantize_rows_np(v.float().numpy())
+        return kv_wire.pack(tokens[:matched], self.allocator.page_size,
+                            kq, vq, ks, vs)
+
+    def _kv_import(self, blob: bytes) -> int:
+        """Decode, verify, write and graft a transferred prefix (engine
+        thread). Returns the pages grafted (0 when all were cached here
+        already). Raises WireError on anything corrupt, mismatched or
+        unsatisfiable; the caller recomputes. The pages are written into
+        the pool tensors in place (``index_copy_``), eagerly, after every
+        step already dispatched."""
+        if self.prefix is None:
+            raise ValueError('KV import requires the prefix cache')
+        blk = kv_wire.unpack(blob)
+        page = self.allocator.page_size
+        if blk.page_size != page:
+            raise kv_wire.WireError(f'page size {blk.page_size} != local '
+                                    f'{page}')
+        cfg = self.config
+        if (blk.k.shape[0] != cfg.n_layers or blk.k.shape[1] != cfg.n_kv_heads
+                or blk.k.shape[4] != cfg.head_dim):
+            raise kv_wire.WireError(
+                f'KV geometry {blk.k.shape} does not match this model')
+        n = blk.n_pages
+        if len(blk.tokens) != n * page:
+            raise kv_wire.WireError(f'{len(blk.tokens)} tokens do not fill '
+                                    f'{n} pages')
+        _, have = self.prefix.peek(blk.tokens, whole=True)
+        start = have // page
+        need = n - start
+        if need <= 0:
+            return 0
+        new = self.allocator.alloc_pages(need)
+        if new is None:
+            # Page pressure: the same LRU eviction the local attach uses.
+            self.prefix.evict(need - self.allocator.free_pages)
+            new = self.allocator.alloc_pages(need)
+        if new is None:
+            raise kv_wire.WireError(f'page pool dry ({need} pages needed)')
+        pids = torch.tensor(new, dtype=torch.long, device=self.device)
+        c = self.cache
+
+        def put(dst: torch.Tensor, src) -> None:
+            dst.index_copy_(2, pids, torch.from_numpy(
+                np.ascontiguousarray(src)).to(self.device, dst.dtype))
+
+        if c.k_scales is not None:
+            # int8 pool: the transferred bytes land verbatim.
+            put(c.k_pages, blk.k[:, :, start:])
+            put(c.v_pages, blk.v[:, :, start:])
+            put(c.k_scales, blk.k_scales[:, :, start:])
+            put(c.v_scales, blk.v_scales[:, :, start:])
+        else:
+            put(c.k_pages, kv_wire.dequantize_rows_np(
+                blk.k[:, :, start:], blk.k_scales[:, :, start:]))
+            put(c.v_pages, kv_wire.dequantize_rows_np(
+                blk.v[:, :, start:], blk.v_scales[:, :, start:]))
+        added = self.prefix.insert_remote(blk.tokens,
+                                          [None] * start + list(new))
+        if added != need:
+            raise AssertionError(f'import diff went stale on the owner '
+                                 f'thread: grafted {added} of {need}')
+        return added
+
     # ---- internals -------------------------------------------------------
     def _bucket(self, n: int) -> int:
         for b in self._buckets:
@@ -680,25 +919,66 @@ class InferenceEngine:
 
     def _prepare_chunk(self, slot: int) -> Optional[_ChunkPlan]:
         """The host half of advancing a prefilling slot by one chunk:
-        page coverage, bucket, padded tokens; everything but the device
-        call, so the chunk can go standalone or ride the decode
-        dispatch. None when the pool cannot cover it right now."""
+        the prefix-cache attach (rolled back if the chunk defers), page
+        coverage, bucket, padded tokens; everything but the device call,
+        so the chunk can go standalone or ride the decode dispatch. None
+        when the pool cannot cover it right now."""
         req = self._slots[slot]
         off = self._prefilling[slot]
         source = self._source_tokens(req)
+        just_attached = 0
+        prev_cached = req.cached_tokens
+        if (self.prefix is not None and off == 0
+                and slot not in self._matched
+                and self.allocator.pages_of(slot) == 0):
+            self._matched.add(slot)
+            # First chunk of this residency: attach the longest cached
+            # page-aligned prefix and start past it. Attach and dispatch
+            # are one host step: if the chunk defers, the attach is rolled
+            # back below, so no step ever runs with cached pages in the
+            # slot's table while its device length is still 0 (an
+            # inactive lane writes its garbage row at table[slot,
+            # lengths // page], which must then be the sink).
+            pages, matched = self.prefix.match(source)
+            if matched:
+                self.allocator.attach(slot, pages)
+                self._attached_slots.add(slot)
+                self._prefilling[slot] = off = matched
+                req.cached_tokens = max(req.cached_tokens,
+                                        min(matched, len(req.prompt_tokens)))
+                just_attached = matched
         n = len(source)
         remaining = n - off
         bucket = self._bucket(min(remaining, self._chunk_cap))
+        # A matched offset is page-aligned, not cap-aligned: clamp the
+        # bucket so it never runs past the cache end (extend would refuse
+        # it forever); the page-sized bucket always fits.
         while off + bucket > self.ecfg.max_seq_len:
             bucket = max(b for b in self._buckets if b < bucket)
         tl = min(remaining, bucket)
-        if not self.allocator.extend(slot, off + bucket):
+        ok = self._extend_pages(slot, off + bucket)
+        if not ok:
             # Dry by stale accounting: in-flight steps may be about to
             # free pages. Catch up before deferring, so page decisions
             # are the same at every depth.
             self._drain_inflight()
-            if not self.allocator.extend(slot, off + bucket):
-                return None
+            ok = self._extend_pages(slot, off + bucket)
+        if ok:
+            # The chunk writes its whole padded bucket: every page of that
+            # range must be private before the dispatch.
+            ok = self._unshare_write_range(slot, off, off + bucket)
+        if not ok:
+            if just_attached:
+                # Roll the attach back before deferring (see above); the
+                # retry re-runs the match, so its stats are uncounted.
+                self.allocator.free(slot)
+                self._attached_slots.discard(slot)
+                self._matched.discard(slot)
+                self._prefilling[slot] = 0
+                req.cached_tokens = prev_cached
+                self.prefix.hits -= 1
+                self.prefix.tokens_saved -= just_attached
+            return None
         padded = np.zeros((bucket,), np.int32)
         padded[:tl] = source[off:off + tl]
         return _ChunkPlan(slot=slot, req=req, off=off, bucket=bucket, tl=tl,
@@ -794,12 +1074,26 @@ class InferenceEngine:
             return True
         return False
 
-    def _release_slot(self, slot: int) -> None:  # holds: _lock
-        """Free the slot's pages and zero its device length (the
-        reference's ``_release_slot_pages`` plus ``_free``; without a
-        prefix cache nothing is donated)."""
+    def _release_slot(self, slot: int, req: Request,  # holds: _lock
+                      prefilled_to: Optional[int] = None) -> None:
+        """Empty the slot: its pages go to the prefix tree when the cache
+        is on (full pages become cached prefixes, the partial tail frees)
+        or back to the pool, and its device length goes to 0 (the
+        reference's ``_release_slot_pages`` plus ``_free``). Donation
+        covers the positions whose K/V the pages hold: ``_slot_len``, or
+        ``prefilled_to``, the prefill frontier of a slot released
+        mid-prefill (its chunks are dispatched, so in stream order the
+        pages hold them before any later step reads them)."""
         self._slots[slot] = None
-        self.allocator.free(slot)
+        self._matched.discard(slot)
+        self._attached_slots.discard(slot)
+        if self.prefix is None or not self.allocator.pages_of(slot):
+            self.allocator.free(slot)
+        else:
+            covered = (prefilled_to if prefilled_to is not None
+                       else int(self._slot_len[slot]))
+            self.prefix.donate(
+                (req.prompt_tokens + req.output_tokens)[:covered], slot)
         self._slot_len[slot] = 0
         self.cache = paged_cache_lib.free_slot(self.cache, slot)
 
@@ -839,7 +1133,7 @@ class InferenceEngine:
                     'request_id': req.request_id, 'tenant': req.tenant,
                     'slot': slot})
             self._prefilling.pop(slot, None)
-            self._release_slot(slot)
+            self._release_slot(slot, req)
         req._notify()
 
     def _finish_queued(self, req: Request, reason: str) -> None:
@@ -855,11 +1149,11 @@ class InferenceEngine:
         (client gone, deadline passed), mid-prefill included. In-flight
         steps for the slot drop their tokens by the stale-by-one rule."""
         with self._lock:
-            self._prefilling.pop(slot, None)
+            prefilled_to = self._prefilling.pop(slot, None)
             req.finish_reason = reason
             req.finished_at = time.time()
             self._note_done(req)
-            self._release_slot(slot)
+            self._release_slot(slot, req, prefilled_to)
         req._notify()
 
     def _sweep_dead_requests(self) -> None:  # holds: _lock
@@ -889,12 +1183,14 @@ class InferenceEngine:
     def _preempt(self, slot: int) -> None:
         """Evict ``slot`` to reclaim its pages: the request goes back to
         the FRONT of the queue and resumes by recomputing prompt +
-        generated tokens. Streamed output is kept; TTFT is not
+        generated tokens (with the prefix cache its donated pages make the
+        resume re-match its own prefix, so the recompute shrinks to the
+        partial tail). Streamed output is kept; TTFT is not
         re-recorded."""
         with self._lock:
             req = self._slots[slot]
-            self._prefilling.pop(slot, None)
-            self._release_slot(slot)
+            prefilled_to = self._prefilling.pop(slot, None)
+            self._release_slot(slot, req, prefilled_to)
             self._sched.requeue(req)
             self._preemptions += 1
             self._note_anomaly('preemption', {
@@ -903,12 +1199,63 @@ class InferenceEngine:
                 'tokens_recomputed': len(req.prompt_tokens)
                 + len(req.output_tokens)})
 
+    def _unshare_write_range(self, slot: int, start_tok: int,
+                             end_tok: int) -> bool:
+        """Copy-on-write every shared page the coming writes to positions
+        [start_tok, end_tok) would touch, so no dispatch ever mutates a
+        page the tree (or another slot) still maps. False when a copy
+        could not get a page (pool dry, nothing evictable): the caller
+        treats that like a failed ``extend``. Under the current match
+        policy no copy fires (a match stops strictly before the prompt's
+        last token, so attached pages sit behind the write frontier); the
+        invariant is enforced here all the same. The copy is an eager
+        in-place write of the pool, ordered on the stream after every
+        step already dispatched."""
+        if self.prefix is None or slot not in self._attached_slots:
+            # Only a slot that attached cached pages can map a shared
+            # page: fresh pages are born at refcount 1.
+            return True
+        al = self.allocator
+        page = al.page_size
+        first = start_tok // page
+        last = (max(end_tok, start_tok + 1) - 1) // page
+        for idx in range(first, min(last + 1, al.pages_of(slot))):
+            if al.refcount(al.page_at(slot, idx)) <= 1:
+                continue
+            if not al.free_pages:
+                self.prefix.evict(1)
+            pair = al.cow(slot, idx)
+            if pair is None:
+                return False
+            paged_cache_lib.copy_page(self.cache, *pair)
+        return True
+
+    def _extend_pages(self, slot: int, upto_tokens: int) -> bool:
+        """``allocator.extend`` with the prefix cache's LRU evictor as the
+        pressure valve: reclaim unreferenced cached pages (leaf first)
+        only when the free stack cannot cover the growth, and only as
+        many as the shortfall, before the caller drains or preempts."""
+        if self.allocator.extend(slot, upto_tokens):
+            return True
+        if self.prefix is None:
+            return False
+        need = self.allocator.pages_needed(upto_tokens)
+        if need > self.allocator.max_pages_per_slot:
+            return False   # the per-slot ceiling: eviction cannot help
+        shortfall = (need - self.allocator.pages_of(slot)
+                     - self.allocator.free_pages)
+        if shortfall <= 0 or not self.prefix.evict(shortfall):
+            return False
+        return self.allocator.extend(slot, upto_tokens)
+
     def _ensure_decode_pages(self, decoding: List[int]) -> List[int]:
         """Every decoding slot must own the page its next token writes,
         counting the tokens still in flight (slot_len + in-flight + 1).
         Where the pool is dry: drain the in-flight steps, then preempt
         the scheduler's victim, then finish 'cache_full' (the slot
-        outgrew its ceiling or is alone). Decisions follow a drain only,
+        outgrew its ceiling or is alone); with the prefix cache, unreferenced
+        cached pages are evicted before any of that. Decisions follow a
+        drain only,
         so they are the same at every depth. Returns the slots still
         decoding."""
         decoding = list(decoding)
@@ -922,7 +1269,13 @@ class InferenceEngine:
             if self._slots[slot] is None:
                 decoding.remove(slot)
                 continue
-            while not self.allocator.extend(slot, target(slot)):
+            # The unshare runs once coverage exists; its failure (a shared
+            # page the pool cannot copy) walks the same ladder as a dry
+            # pool.
+            while not (self._extend_pages(slot, target(slot))
+                       and self._unshare_write_range(
+                           slot, int(self._slot_len[slot]),
+                           target(slot))):
                 if self._queue:
                     self._drain_inflight()
                     if self._slots[slot] is None:
@@ -981,6 +1334,7 @@ class InferenceEngine:
             return worked
 
     def _step(self) -> int:
+        self._service_kv_jobs()
         with self._lock:
             self._sweep_dead_requests()
             spec_k = self._spec_k
@@ -991,6 +1345,7 @@ class InferenceEngine:
                         break
                     self._slots[slot] = req
                     self._prefilling[slot] = 0
+                    self._matched.discard(slot)
                     if self._sl_on and req.first_dispatch_at is not None:
                         # Back in a slot after a dispatch: a preemption
                         # resume.
@@ -1363,7 +1718,8 @@ class InferenceEngine:
         scheduler's ``spec_budget``, cut so every drafted position and
         the corrected token fit in the cache and no token past the
         request's budget is drafted; a pool that cannot cover the run
-        trims the draft, never the workload."""
+        trims the draft, never the workload, and every page the run
+        writes is made private first (copy-on-write)."""
         lens = np.zeros((self.ecfg.n_slots,), np.int32)
         mat = np.zeros((self.ecfg.n_slots, spec_k), np.int32)
         fresh = set(just_prefilled)
@@ -1391,6 +1747,11 @@ class InferenceEngine:
                 covered = (self.allocator.pages_of(s)
                            * self.allocator.page_size)
                 prop = prop[:max(0, covered - base - 1)]
+            if prop and not self._unshare_write_range(
+                    s, base, base + len(prop) + 1):
+                # The run writes [base, base + len + 1): a shared page
+                # there that cannot be copied drops the draft.
+                prop = []
             if not prop:
                 continue
             lens[s] = len(prop)
@@ -1668,7 +2029,9 @@ class InferenceEngine:
                 prefilling=len(self._prefilling),
                 spec_drafted=self._spec_drafted - pre_drafted,
                 spec_accepted=self._spec_accepted - pre_accepted,
-                pages_free=self.allocator.free_pages, prefix_evictions=0,
+                pages_free=self.allocator.free_pages,
+                prefix_evictions=(self.prefix.evictions
+                                  if self.prefix is not None else 0),
                 preemptions=self._preemptions, queue_depth=depth,
                 tenant_depths=tenant_depths))
 
@@ -1704,10 +2067,15 @@ class InferenceEngine:
         Greedy steady state: prefill one per chunk bucket used, decode 1,
         verify 1 per draft width once speculation ran, and (fused on
         only) mixed one per chunk bucket used. Slot frees are eager
-        index writes, not programs."""
+        index writes, not programs. With the prefix cache, ``cow`` is 0:
+        a page copy-on-write is an eager in-place copy, and a chunk at a
+        matched offset runs its bucket's program (the offset is read on
+        the device), so the cache adds no program."""
         out = {'prefill': 0, 'decode': 0}
         if self._fused:
             out['mixed'] = 0
+        if self.prefix is not None:
+            out['cow'] = 0
         # A copy: metrics() calls this from HTTP threads while the engine
         # thread may add a program.
         for kind, _, _ in list(self._programs):
@@ -1742,7 +2110,14 @@ class InferenceEngine:
                      cancelled=self._cancelled,
                      preemptions=self._preemptions,
                      in_flight=sum(self._inflight_tok),
-                     pages_free=self.allocator.free_pages)
+                     pages_free=self.allocator.free_pages,
+                     kv_transfers=self._kv_transfers,
+                     kv_bytes=self._kv_transfer_bytes,
+                     kv_failures=self._kv_transfer_failures,
+                     kv_window=sorted(self._kv_transfer_window))
+            prefix_stats = (self.prefix.stats() if self.prefix is not None
+                            else {})
+        kvw = c['kv_window']
         return {
             'decode_steps': c['steps'],
             'decode_tokens': c['tokens'],
@@ -1795,6 +2170,16 @@ class InferenceEngine:
             # SDC sentinel hits and the one-way verdict.
             'sdc_events_total': c['sdc'],
             'integrity': 'suspect' if c['suspect'] else 'ok',
+            # KV prefix transfers this replica took part in (exports served
+            # and imports applied), wire bytes moved, transfers that died
+            # anywhere on the pull path, and the p99 wall time of a recent
+            # window.
+            'kv_transfers_total': c['kv_transfers'],
+            'kv_transfer_bytes': c['kv_bytes'],
+            'kv_transfer_failures': c['kv_failures'],
+            'kv_transfer_p99_s': (round(
+                kvw[min(len(kvw) - 1, int(len(kvw) * 0.99))], 6)
+                if kvw else None),
             'cuda_graphs': self._graphs_on,
             'step_programs': self.compiled_counts(),
             'paged': True,
@@ -1809,6 +2194,7 @@ class InferenceEngine:
             # wrappers' counters, graph replays included): shows the
             # path ran through them.
             'kernel_launches': dict(paged_attn.launches),
+            **prefix_stats,
         }
 
     def _kv_page_bytes(self) -> int:

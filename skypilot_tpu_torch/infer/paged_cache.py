@@ -117,6 +117,10 @@ class PageAllocator:
     def owned_pages(self, slot: int) -> List[int]:
         return list(self._owned[slot])
 
+    def page_at(self, slot: int, idx: int) -> int:
+        """One page id, no list copy (per-token hot-path accessor)."""
+        return self._owned[slot][idx]
+
     def refcount(self, pid: int) -> int:
         return int(self._ref[pid])
 
@@ -147,6 +151,21 @@ class PageAllocator:
         self.version += 1
         return True
 
+    def alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` fresh pages at refcount 1 WITHOUT binding them to a
+        slot: a KV import lands pulled pages in the prefix tree directly,
+        owned by the tree's reference alone until a slot attaches them.
+        All or nothing; None when the pool cannot cover it. The caller
+        must hand every returned page to the tree (or decref it)."""
+        if n > len(self._free):
+            return None
+        out: List[int] = []
+        for _ in range(n):
+            pid = self._free.pop()
+            self._ref[pid] = 1
+            out.append(pid)
+        return out
+
     # -- reference counting ------------------------------------------------
     def incref(self, pid: int) -> None:
         self._ref[pid] += 1
@@ -173,6 +192,15 @@ class PageAllocator:
         self._owned[slot] = list(pids)
         if pids:
             self.version += 1
+
+    def clear_slot(self, slot: int) -> None:
+        """Reset a slot's table WITHOUT touching refcounts, for a caller
+        (``PrefixCache.donate``) that already disposed of every reference
+        the slot held."""
+        if self._owned[slot]:
+            self.version += 1
+        self._owned[slot] = []
+        self._table[slot, :] = 0
 
     def cow(self, slot: int, page_idx: int) -> Optional[tuple]:
         """Copy-on-write the slot's page at ``page_idx``: swap in a fresh
@@ -215,3 +243,7 @@ class PageAllocator:
             self.decref(pid)
         self._owned[slot] = []
         self._table[slot, :] = 0
+
+    def used_tokens_capacity(self) -> int:
+        """Tokens coverable by currently-owned pages (observability)."""
+        return sum(len(o) for o in self._owned) * self.page_size

@@ -33,9 +33,26 @@ Endpoints:
   steps, the scheduler and its per-tenant stats, the pipeline depth,
   preemptions, the KV dtype and page bytes, the speculation counters,
   the fused-step and stall counters, the recorder's and the sentinel's,
-  each kernel's launch count) plus the server's drain and shed state;
-  ``?format=prometheus`` gives the same as Prometheus text.
+  each kernel's launch count, the prefix cache's and the KV transfers'
+  counters) plus the server's drain and shed state and its ``role``;
+  with the prefix cache on, ``kv_prefix_index``: the radix tree's
+  chained-hash summary for the serve load balancer's fleet index,
+  delta-encoded against ``?prefix_gen=N``. ``?format=prometheus`` gives
+  the same as Prometheus text.
 - ``GET  /debug/stepline`` -> the flight recorder's rings as JSON.
+- ``POST /kv/export`` -> {"tokens": [int]}: this replica's cached KV pages
+  for the prompt's prefix in the int8 wire format (``kv_wire.py``,
+  ``application/octet-stream``), at most ``--kv-export-max-pages`` pages;
+  404 when nothing is cached, 409 when the prefix cache is off, 503 when
+  the engine failed or did not answer within ``--kv-pull-timeout-s``.
+
+A ``/generate`` carrying ``X-SkyTpu-KV-Donor: <url>`` (the load balancer
+names a replica that holds a longer cached prefix) first pulls that
+donor's ``/kv/export`` of the prompt and grafts it into the local prefix
+cache, so the prefill starts at the transferred boundary. Best effort end
+to end: any failure (donor unreachable or stalled past the budget, a
+corrupt blob, a dry pool) is counted in ``kv_transfer_failures`` and the
+request recomputes; the client never sees it.
 
 It uses the standard library's ``ThreadingHTTPServer``: one thread per
 connection enqueues its request and waits on the request's condition,
@@ -49,7 +66,9 @@ Without a checkpoint the server serves random weights sized by
 speculatively, ``--kv-dtype int8`` for int8 KV pages, ``--scheduler wfq
 --tenant-weights gold=4,free=1`` for weighted fair queueing,
 ``--max-queue-requests N`` to shed load past N waiting requests,
-``--fused-prefill`` for fused mixed steps).
+``--fused-prefill`` for fused mixed steps, ``--prefix-cache`` for the
+shared-prefix KV cache and the KV transfer routes, ``--role prefill``
+or ``decode`` for a disaggregated pair).
 """
 from __future__ import annotations
 
@@ -59,7 +78,9 @@ import json
 import logging
 import threading
 import time
+import urllib.error
 import urllib.parse
+import urllib.request
 from typing import List, Optional
 
 import torch
@@ -74,6 +95,10 @@ logger = logging.getLogger(__name__)
 # utils/common.py names).
 DEADLINE_HEADER = 'X-SkyTpu-Deadline-S'
 TENANT_HEADER = 'X-SkyTpu-Tenant'
+# A replica holding a longer cached prefix of this prompt, whose pages
+# the receiving replica pulls (/kv/export) before it prefills.
+KV_DONOR_HEADER = 'X-SkyTpu-KV-Donor'
+ROLES = ('mixed', 'prefill', 'decode')
 
 MODELS = {
     'tiny': llama.LlamaConfig.tiny,
@@ -166,9 +191,22 @@ class InferenceServer:
     """The engine loop thread plus the HTTP front end."""
 
     def __init__(self, engine: engine_lib.InferenceEngine,
-                 tokenizer: Optional[Tokenizer] = None) -> None:
+                 tokenizer: Optional[Tokenizer] = None,
+                 role: str = 'mixed', kv_pull_timeout_s: float = 10.0,
+                 kv_export_max_pages: int = 64) -> None:
         self.engine = engine
         self.tokenizer = tokenizer or Tokenizer()
+        # Disaggregation role, advertised in /metrics for the load
+        # balancer to route by; the server never refuses work by role.
+        if role not in ROLES:
+            raise ValueError(f'role must be mixed|prefill|decode, got '
+                             f'{role!r}')
+        self.role = role
+        # The budget of one donor pull (fetch, then the import's wait) and
+        # of serving one /kv/export, and the largest prefix an export
+        # ships, in pages.
+        self.kv_pull_timeout_s = kv_pull_timeout_s
+        self.kv_export_max_pages = kv_export_max_pages
         # One-way flags written by the engine thread, read by handlers.
         self.ready = False
         self.dead = ''
@@ -259,9 +297,11 @@ class InferenceServer:
             return 503, {'status': 'warming'}
         return 200, {'status': 'ok'}
 
-    def metrics(self, prometheus: bool = False):
+    def metrics(self, prometheus: bool = False, since_gen: int = -1):
         """(status, the metrics dict) or, with ``prometheus``, (status,
-        its Prometheus text)."""
+        its Prometheus text). ``since_gen``: the caller's last-seen
+        generation of the prefix index (a delta against it, or the full
+        list)."""
         m = self.engine.metrics()
         with self._active_lock:
             m['server_inflight'] = self._active
@@ -269,13 +309,67 @@ class InferenceServer:
             m['requests_shed'] = self._requests_shed
             if self.drain_duration_s is not None:
                 m['drain_duration_s'] = round(self.drain_duration_s, 4)
-        m['role'] = 'mixed'
+        m['role'] = self.role
+        if self.engine.kv_index_armed():
+            m['kv_prefix_index'] = self.engine.kv_index_snapshot(since_gen)
         if prometheus:
             return 200, prom_lib.render_replica(m)
         return 200, m
 
     def stepline(self):
         return 200, self.engine.stepline_snapshot()
+
+    # ---- KV prefix transfer ----------------------------------------------
+    def kv_export(self, body: dict):
+        """(status, blob bytes or an error payload): the donor half of a
+        transfer. The readback runs on the engine thread between steps;
+        this handler only waits."""
+        if not self.engine.kv_index_armed():
+            return 409, {'error': 'prefix cache disabled'}
+        try:
+            tokens = [int(t) for t in body['tokens']]
+        except (KeyError, TypeError, ValueError):
+            return 400, {'error': 'need {"tokens": [int, ...]}'}
+        cap = self.kv_export_max_pages * self.engine.kv_page_size()
+        job = self.engine.request_kv_export(tokens[:cap])
+        self._woken.set()
+        done = job.wait(self.kv_pull_timeout_s)
+        if not done or job.error is not None:
+            return 503, {'error': 'export failed' if done
+                         else 'export timed out'}
+        if job.result is None:
+            return 404, {'error': 'no cached prefix'}
+        return 200, job.result
+
+    def pull_kv(self, donor_url: str, tokens: List[int]) -> None:
+        """Pull the donor's cached prefix of ``tokens`` and graft it here
+        before the prefill (the decode half of a transfer). Any failure
+        lands on plain recompute; a donor 404 is a clean miss, not a
+        failure."""
+        url = donor_url.rstrip('/') + '/kv/export'
+        t0 = time.monotonic()
+        req = urllib.request.Request(
+            url, data=json.dumps({'tokens': tokens}).encode(),
+            headers={'Content-Type': 'application/json'})
+        try:
+            with urllib.request.urlopen(
+                    req, timeout=self.kv_pull_timeout_s) as r:
+                blob = r.read()
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                self.engine.note_kv_transfer_failure()
+            return
+        except (OSError, ValueError):
+            # Unreachable, reset, stalled past the budget, or a bad URL.
+            self.engine.note_kv_transfer_failure()
+            return
+        job = self.engine.request_kv_import(blob,
+                                            fetch_s=time.monotonic() - t0)
+        self._woken.set()
+        if not job.wait(self.kv_pull_timeout_s):
+            # Import errors are counted by the engine; only a wait past
+            # the budget is ours to count.
+            self.engine.note_kv_transfer_failure()
 
     # ---- graceful drain --------------------------------------------------
     def enter_generate(self) -> bool:
@@ -374,6 +468,12 @@ class InferenceServer:
         if self.engine.integrity_suspect():
             # The sentinel may have tripped while the body was read.
             return None, corrupt
+        donor = headers.get(KV_DONOR_HEADER)
+        if donor and self.engine.kv_index_armed():
+            # The load balancer saw a longer cached prefix on the donor:
+            # pull those pages first, so the prefill below starts at the
+            # transferred boundary.
+            self.pull_kv(donor, tokens)
         try:
             req = self.engine.submit(
                 tokens, max_new_tokens=body.get('max_new_tokens'),
@@ -423,8 +523,11 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         logger.debug('%s - ' + fmt, self.address_string(), *args)
 
     def _json(self, status: int, payload, headers=None) -> None:
-        """Send ``payload``: a dict as JSON, a str as plain text."""
-        if isinstance(payload, str):
+        """Send ``payload``: a dict as JSON, a str as plain text, bytes as
+        an octet stream."""
+        if isinstance(payload, bytes):
+            data, ctype = payload, 'application/octet-stream'
+        elif isinstance(payload, str):
             data, ctype = payload.encode(), 'text/plain; charset=utf-8'
         else:
             data, ctype = json.dumps(payload).encode(), 'application/json'
@@ -450,8 +553,14 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         if path == '/health':
             self._json(*self.srv.health())
         elif path == '/metrics':
-            fmt = urllib.parse.parse_qs(query).get('format', [''])[0]
-            self._json(*self.srv.metrics(prometheus=fmt == 'prometheus'))
+            qs = urllib.parse.parse_qs(query)
+            try:
+                since_gen = int(qs.get('prefix_gen', ['-1'])[0])
+            except ValueError:
+                since_gen = -1
+            self._json(*self.srv.metrics(
+                prometheus=qs.get('format', [''])[0] == 'prometheus',
+                since_gen=since_gen))
         elif path == '/debug/stepline':
             self._json(*self.srv.stepline())
         else:
@@ -469,6 +578,13 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             except (TypeError, ValueError):
                 deadline_s = 30.0
             self._json(*self.srv.drain(deadline_s))
+            return
+        if path == '/kv/export':
+            try:
+                body = self._body()
+            except (ValueError, UnicodeDecodeError):
+                body = {}
+            self._json(*self.srv.kv_export(body))
             return
         if path != '/generate':
             self._json(404, {'error': f'no route {self.path}'})
@@ -560,7 +676,8 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
                  cuda_graphs: bool = True, fused_prefill: bool = False,
                  stepline: bool = True, stepline_cap: Optional[int] = None,
                  ttft_slo_s: Optional[float] = None,
-                 sdc_sentinel: bool = True) -> engine_lib.InferenceEngine:
+                 sdc_sentinel: bool = True,
+                 prefix_cache: bool = False) -> engine_lib.InferenceEngine:
     """Random weights for ``model`` drawn from ``seed`` on ``device``,
     and a paged engine over them."""
     dev = engine_lib.resolve_device(device)
@@ -580,7 +697,7 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
             max_queue_tokens=max_queue_tokens, cuda_graphs=cuda_graphs,
             fused_prefill=fused_prefill, stepline=stepline,
             stepline_cap=stepline_cap, ttft_slo_s=ttft_slo_s,
-            sdc_sentinel=sdc_sentinel),
+            sdc_sentinel=sdc_sentinel, prefix_cache=prefix_cache),
         seed=seed, device=dev)
 
 
@@ -653,6 +770,26 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              'default: a non-finite logit marks the '
                              'replica corrupt, 503 on /health; greedy '
                              'outputs unchanged either way)')
+    parser.add_argument('--prefix-cache', action='store_true',
+                        help='shared-prefix KV reuse over the page pool: '
+                             'repeated prompt prefixes attach cached pages '
+                             'instead of re-prefilling; /metrics gains the '
+                             'prefix_* counters and kv_prefix_index, answers '
+                             'a cached_tokens count, and /kv/export and the '
+                             'donor pull turn on')
+    parser.add_argument('--role', default='mixed', choices=list(ROLES),
+                        help='disaggregation role, advertised in /metrics '
+                             'so the serve load balancer routes first '
+                             'prefills to prefill replicas and has decode '
+                             'replicas pull cached prefixes from them; '
+                             'mixed (default) behaves as before')
+    parser.add_argument('--kv-pull-timeout-s', type=float, default=10.0,
+                        help='budget of one donor KV pull (fetch, then '
+                             'import) and of serving one /kv/export; past '
+                             'it the request recomputes')
+    parser.add_argument('--kv-export-max-pages', type=int, default=64,
+                        help='largest cached prefix one /kv/export ships, '
+                             'in pages; the puller recomputes the rest')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default; raises without a card) or "
                              "'cpu'")
@@ -679,7 +816,8 @@ def engine_from_args(args: argparse.Namespace) -> engine_lib.InferenceEngine:
                         stepline=not args.no_stepline,
                         stepline_cap=args.stepline_cap,
                         ttft_slo_s=args.ttft_slo_s,
-                        sdc_sentinel=not args.no_sdc_sentinel)
+                        sdc_sentinel=not args.no_sdc_sentinel,
+                        prefix_cache=args.prefix_cache)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -690,7 +828,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                    args.model, args.device)
     engine = engine_from_args(args)
     logger.info('weights and KV pool ready in %.1fs', time.time() - t0)
-    InferenceServer(engine).run(args.host, args.port)
+    InferenceServer(engine, role=args.role,
+                    kv_pull_timeout_s=args.kv_pull_timeout_s,
+                    kv_export_max_pages=args.kv_export_max_pages).run(
+                        args.host, args.port)
 
 
 if __name__ == '__main__':

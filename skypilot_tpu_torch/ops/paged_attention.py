@@ -118,10 +118,14 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     axis, the reference's rules: ``(values int8[...], scales
     fp32[...[:-1]])`` with ``x ≈ values * scales[..., None]``, scale =
     absmax / 127, round half to even, clip to ±127, and an all-zero row
-    gets scale 1.0."""
+    gets scale 1.0. Bitwise ``kv_wire.quantize_rows_np`` on the same rows,
+    on the card too: the divisor 127 is a device tensor, since CUDA
+    divides by a host scalar as a product with its reciprocal, which can
+    miss the quotient by one ulp."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, absmax / 127.0,
+    scale = torch.where(absmax > 0,
+                        absmax / torch.full_like(absmax, 127.0),
                         torch.ones_like(absmax))
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale

@@ -1,5 +1,6 @@
-"""The port's serving sweep (``skypilot_tpu_torch/bench_ttft.py``) at a
-tiny size on the CPU: each sweep prints one well-formed JSON document
+"""The port's serving sweeps (``skypilot_tpu_torch/bench_ttft.py``: chunked,
+concurrency, shared-prefix, disagg) at a tiny size on the CPU: each sweep
+prints one well-formed JSON document
 with the keys ``PERF.md`` reads, and without ``--device`` it refuses to
 run where there is no CUDA (it never falls back to the CPU quietly)."""
 import json
@@ -49,6 +50,13 @@ def test_chunked_sweep_prints_one_json_document():
         unfused['victim_itl_p99_ms'] / fused['victim_itl_p99_ms'])
     axis = doc['kv_dtype_axis']
     assert axis['resident_page_ratio'] > 1
+    # The prefix half: the int8 pool keeps more of the 30 prefixes.
+    assert axis['resident_pages_int8'] > axis['resident_pages_bf16']
+    assert axis['prefix_hit_rate_int8'] >= axis['prefix_hit_rate_bf16']
+    assert axis['prefix_hit_rate_delta'] == pytest.approx(
+        axis['prefix_hit_rate_int8'] - axis['prefix_hit_rate_bf16'],
+        abs=1e-4)
+    assert axis['prefix_evictions_bf16'] > 0
 
 
 def test_concurrency_sweep_prints_one_json_document(tmp_path):
@@ -66,6 +74,47 @@ def test_concurrency_sweep_prints_one_json_document(tmp_path):
     assert doc['cold_first_request_s'] > 0
     assert doc['server_metrics']['integrity'] == 'ok'
     assert json.loads((tmp_path / 'sweep.json').read_text()) == doc
+
+
+TINY_SERVER = ('--model', 'tiny', '--device', 'cpu', '--slots', '2',
+               '--max-seq-len', '256', '--page-size', '16', '--concurrency',
+               '1', '2', '--requests-per-level', '3', '--new-tokens', '4',
+               '--shared-prefix-tokens', '64')
+
+
+def test_shared_prefix_sweep_prints_one_json_document():
+    doc = _doc(_run('--sweep', 'shared-prefix', *TINY_SERVER))
+    assert doc['sweep_mode'] == 'shared-prefix'
+    assert [lv['concurrency'] for lv in doc['sweep']] == [1, 2]
+    for lv in doc['sweep']:
+        assert lv['cold']['samples'] == lv['shared']['samples'] == 3
+        assert lv['prefix_hit_rate'] == 1.0
+        # Each shared request attaches the 4 full pages of its block.
+        assert lv['tokens_prefill_saved'] == 3 * 64
+        assert lv['ttft_improvement_x'] > 0
+        assert lv['itl_ratio_shared_over_cold'] > 0
+    assert doc['value'] == doc['sweep'][0]['ttft_improvement_x']
+    assert doc['server_metrics']['step_programs']['cow'] == 0
+
+
+def test_disagg_sweep_prints_one_json_document():
+    doc = _doc(_run('--sweep', 'disagg', *TINY_SERVER, '--n-pages', '40'))
+    assert doc['sweep_mode'] == 'disagg' and doc['kv_dtype'] == 'int8'
+    roles = doc['server_metrics']
+    assert roles['prefill']['role'] == 'prefill'
+    assert roles['decode']['role'] == 'decode'
+    for lv in doc['sweep']:
+        # The first request of the transfer cohort pulled the block; the
+        # donor exported what the decode server imported.
+        assert lv['kv_transfers'] >= 1 and lv['kv_transfer_failures'] == 0
+        assert lv['donor_exports'] == lv['kv_transfers']
+        assert lv['kv_transfer_bytes'] > 0
+        assert lv['transfer_hit_rate'] == 1.0
+        assert lv['recompute_hit_rate'] < 1.0
+        assert lv['recompute_first_ttft_s'] > 0
+        assert lv['transfer_first_ttft_s'] > 0
+    assert doc['transfer_p99_s'] > 0
+    assert doc['value'] == doc['sweep'][0]['first_ttft_improvement_x']
 
 
 def test_defaults_to_cuda_and_refuses_without_it():

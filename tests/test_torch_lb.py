@@ -3,7 +3,10 @@
 server on the CPU and, beside it, in front of the JAX replica server on
 the same weights (``params_from_jax``). Streamed ``/generate`` answers
 through the two load balancers must carry the same tokens (joined
-across their lines) and the same finish reason.
+across their lines) and the same finish reason. Then the ``cache_aware``
+policy with its fleet prefix index in front of a torch prefill replica
+and a torch decode replica: the decode replica pulls the cohort's prefix
+from the prefill replica, and every stream equals a JAX replica's.
 
 Each replica runs its own default control loop (the port: depth 1, fcfs,
 paged; the JAX replica: paged at depth 1), so the gate also holds the
@@ -136,3 +139,123 @@ def test_lb_streams_identical_from_torch_and_jax_replicas():
         loop.close()
         tsrv.shutdown()
         jsrv._stop.set()
+
+
+def _kv_replica(tparams, role):
+    srv = tserver.InferenceServer(
+        tengine.InferenceEngine(
+            tllama.LlamaConfig.tiny(), tparams, tengine.EngineConfig(
+                **{**ENGINE_KW, 'n_slots': 3}, n_pages=13, kv_dtype='int8',
+                prefix_cache=True),
+            device='cpu'), role=role)
+    return srv, f'http://127.0.0.1:{srv.start("127.0.0.1", 0)}'
+
+
+def _metrics(url):
+    with urllib.request.urlopen(url + '/metrics', timeout=10) as r:
+        return json.loads(r.read())
+
+
+def test_cache_aware_lb_routes_a_cohort_through_a_torch_prefill_decode_pair(
+        monkeypatch):
+    """The real load balancer with its ``cache_aware`` policy and the
+    fleet prefix index in front of a torch ``--role prefill`` replica and
+    a torch ``--role decode`` replica (int8 pages, prefix cache): the
+    cold seed goes to the prefill replica, its radix summary reaches the
+    index through ``/metrics``, and the cohort goes to the decode replica
+    naming the prefill replica as donor, so the decode replica pulls the
+    prefix over ``/kv/export``. Every stream equals a JAX replica's on
+    the same weights (int8 pages, no transfer)."""
+    monkeypatch.setenv('SKY_TPU_LB_SYNC_INTERVAL_S', '0.2')
+    cfg = jllama.LlamaConfig.tiny()
+    jparams = jllama.init_params(cfg, jax.random.PRNGKey(0))
+    tparams = tllama.params_from_jax(jax.tree.map(np.asarray, jparams))
+    (psrv, pre), (dsrv, dec) = (_kv_replica(tparams, 'prefill'),
+                                _kv_replica(tparams, 'decode'))
+    jsrv = jserver.InferenceServer(jengine.InferenceEngine(
+        cfg, jparams, jengine.EngineConfig(
+            paged=True, **{**ENGINE_KW, 'n_slots': 3}, n_pages=13,
+            kv_dtype='int8')))
+    jport = common_lib.free_port()
+    jax_url = f'http://127.0.0.1:{jport}'
+    name = 'torch-disagg-svc'
+    serve_state.add_service(name, spec_json='{}', task_yaml='', lb_port=0,
+                            lb_policy='cache_aware')
+    for i, url in enumerate((pre, dec)):
+        rid = serve_state.add_replica(name, f'{name}-r{i}', version=1)
+        serve_state.set_replica_url(rid, url)
+        serve_state.set_replica_status(rid,
+                                       serve_state.ReplicaStatus.READY)
+    lb_port = common_lib.free_port()
+    loop = asyncio.new_event_loop()
+    lb = lb_lib.LoadBalancer(name, 'cache_aware')
+    lb.policy.set_ready_replicas([pre, dec])
+    runners, tasks = [], []
+
+    def run_all():
+        from aiohttp import web
+        asyncio.set_event_loop(loop)
+        runner = web.AppRunner(jsrv.make_app())
+        runners.append(runner)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(
+            web.TCPSite(runner, '127.0.0.1', jport).start())
+        tasks.append(loop.create_task(lb.run('127.0.0.1', lb_port)))
+        loop.run_forever()
+
+    async def close():
+        await asyncio.gather(*tasks, return_exceptions=True)
+        for runner in runners:
+            await runner.cleanup()
+
+    jsrv._thread.start()
+    thread = threading.Thread(target=run_all, daemon=True)
+    thread.start()
+    base = f'http://127.0.0.1:{lb_port}'
+    shared = [(i * 7 + 3) % 250 for i in range(32)]
+    cohort = [shared + [100 + i, 7, 9, i] for i in range(4)]
+    try:
+        for url, what in ((pre, 'the prefill replica'),
+                          (dec, 'the decode replica'),
+                          (jax_url, 'the JAX replica')):
+            _wait(url + '/health', what)
+        _wait(base + '/-/urls', 'the load balancer')
+
+        def both(prompt):
+            body = {'tokens': prompt, 'max_new_tokens': NEW, 'stream': True}
+            got = _stream(base + '/generate', body)
+            want = _stream(jax_url + '/generate', body)
+            assert got[-1]['done'] and want[-1]['done']
+            toks = [t for ln in got[:-1] for t in ln['tokens']]
+            assert toks == [t for ln in want[:-1] for t in ln['tokens']]
+            assert len(toks) == NEW
+            return got[-1]
+
+        both(shared + [1])                  # cold: the prefill replica
+        assert _metrics(pre)['decode_tokens'] >= NEW
+        end = time.time() + 30
+        while not _lb_metrics(base).get('fleet_prefix_pages'):
+            assert time.time() < end, 'the fleet index never folded'
+            time.sleep(0.1)
+        done = [both(p) for p in cohort]
+        assert done[0]['cached_tokens'] == 32
+        mp, md = _metrics(pre), _metrics(dec)
+        assert md['kv_transfers_total'] >= 1
+        assert md['kv_transfer_failures'] == 0
+        assert mp['kv_transfers_total'] >= 1, 'the donor never exported'
+        assert md['decode_tokens'] >= len(cohort) * NEW - len(cohort)
+        assert md['prefix_hits'] >= len(cohort)
+    finally:
+        lb.stop()
+        asyncio.run_coroutine_threadsafe(close(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+        psrv.shutdown()
+        dsrv.shutdown()
+        jsrv._stop.set()
+
+
+def _lb_metrics(base):
+    with urllib.request.urlopen(base + '/-/metrics', timeout=10) as r:
+        return json.loads(r.read())

@@ -189,3 +189,178 @@ def test_int8_spec_metrics(served_int8_spec):
                 'spec_accept_rate', 'accepted_len_mean'):
         assert key in m, key
     assert m['spec_steps'] >= 1
+
+
+# ---------- the prefix cache's routes: /kv/export and the donor pull ------
+PREFIX = [(i * 7 + 3) % 250 for i in range(40)]   # 2 full pages + a tail
+
+
+def _kv_server(role, **kw):
+    args = tserver.parse_args(
+        ['--port', '0', '--model', 'tiny', '--slots', '3', '--max-seq-len',
+         '128', '--page-size', '16', '--n-pages', '13', '--device', 'cpu',
+         '--kv-dtype', 'int8', '--prefix-cache', '--role', role,
+         '--kv-pull-timeout-s', '5'])
+    srv = tserver.InferenceServer(
+        tserver.engine_from_args(args), role=args.role,
+        kv_pull_timeout_s=kw.get('timeout', args.kv_pull_timeout_s),
+        kv_export_max_pages=args.kv_export_max_pages)
+    port = srv.start('127.0.0.1', 0)
+    base = f'http://127.0.0.1:{port}'
+    deadline = time.time() + 60
+    while _get(base + '/health')[0] != 200:
+        assert time.time() < deadline, 'server never turned healthy'
+        time.sleep(0.05)
+    return srv, base
+
+
+def _post_hdr(url, body, headers):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={'Content-Type': 'application/json',
+                                          **headers})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+class _StubDonor:
+    """A donor whose /kv/export answers ``blob`` after ``delay`` s (or
+    ``status`` with no body)."""
+
+    def __init__(self, blob=b'', delay=0.0, status=200):
+        import http.server
+        import threading
+        stub = self
+
+        class H(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 -- http.server API
+                self.rfile.read(int(self.headers.get('Content-Length')
+                                    or 0))
+                stub.calls += 1
+                time.sleep(delay)
+                try:
+                    self.send_response(status)
+                    self.send_header('Content-Length', str(len(blob)))
+                    self.end_headers()
+                    self.wfile.write(blob)
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
+
+            def log_message(self, *a):
+                pass
+
+        self.calls = 0
+        self.httpd = http.server.ThreadingHTTPServer(('127.0.0.1', 0), H)
+        self.httpd.daemon_threads = True
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+        self.url = f'http://127.0.0.1:{self.httpd.server_address[1]}'
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+@pytest.fixture(scope='module')
+def kv_pair():
+    donor = _kv_server('prefill')
+    puller = _kv_server('decode', timeout=1.0)
+    yield donor, puller
+    donor[0].shutdown()
+    puller[0].shutdown()
+
+
+def test_kv_export_answers_200_404_409_400(kv_pair, served):
+    (dsrv, donor), _ = kv_pair
+    status, raw = _post(donor + '/kv/export', {'tokens': PREFIX})
+    assert status == 404 and json.loads(raw)['error'] == 'no cached prefix'
+    status, raw = _post(donor + '/generate', {'tokens': PREFIX,
+                                              'max_new_tokens': 4})
+    assert status == 200
+    status, blob = _post(donor + '/kv/export', {'tokens': PREFIX})
+    assert status == 200
+    assert blob == dsrv.engine._kv_export(PREFIX)
+    from skypilot_tpu_torch.infer import kv_wire
+    assert kv_wire.unpack(blob).tokens == PREFIX[:32]
+    # The page cap: the prompt is cut to 2 pages of tokens, whose cached
+    # prefix stops a page short of the cut (a match never covers the last
+    # token).
+    dsrv.kv_export_max_pages = 2
+    try:
+        status, one = _post(donor + '/kv/export', {'tokens': PREFIX})
+    finally:
+        dsrv.kv_export_max_pages = 64
+    assert status == 200 and kv_wire.unpack(one).n_pages == 1
+    assert _post(donor + '/kv/export', {'nope': 1})[0] == 400
+    status, raw = _post(served + '/kv/export', {'tokens': PREFIX})
+    assert status == 409
+
+
+def test_metrics_carry_role_and_the_prefix_index(kv_pair, served):
+    (_, donor), (_, puller) = kv_pair
+    _post(donor + '/generate', {'tokens': PREFIX, 'max_new_tokens': 4})
+    status, m = _get(donor + '/metrics')
+    assert status == 200 and m['role'] == 'prefill'
+    snap = m['kv_prefix_index']
+    assert snap['page'] == 16 and len(snap['full']) >= 2
+    status, m2 = _get(donor + f'/metrics?prefix_gen={snap["gen"]}')
+    assert m2['kv_prefix_index'] == {'gen': snap['gen'], 'crc': snap['crc'],
+                                     'page': 16, 'delta': []}
+    assert _get(puller + '/metrics')[1]['role'] == 'decode'
+    status, m = _get(served + '/metrics')
+    assert m['role'] == 'mixed' and 'kv_prefix_index' not in m
+    with pytest.raises(ValueError):
+        tserver.InferenceServer(_engine(), role='router')
+    with pytest.raises(SystemExit):
+        tserver.parse_args(['--port', '0', '--role', 'router'])
+
+
+def test_donor_pull_transfers_and_degrades_to_recompute(kv_pair):
+    """A clean pull grafts the donor's pages (the answer is the donor's
+    own); a corrupt blob and a donor stalled past the budget are counted
+    failures and the request recomputes to the same tokens; a donor 404
+    is a clean miss, not a failure."""
+    (dsrv, donor), (psrv, puller) = kv_pair
+    prompts = [PREFIX + [101, 55, 3, 9], [33] * 16 + [7] * 30 + [1, 2],
+               [60 + i for i in range(40)] + [5], [77] * 37]
+    want = []
+    for p in prompts:
+        status, raw = _post(donor + '/generate', {'tokens': p,
+                                                  'max_new_tokens': 6})
+        want.append(json.loads(raw)['tokens'])
+    hdr = {tserver.KV_DONOR_HEADER: donor}
+
+    def metrics():
+        return _get(puller + '/metrics')[1]
+
+    m0 = metrics()
+    got = _post_hdr(puller + '/generate', {'tokens': prompts[0],
+                                           'max_new_tokens': 6}, hdr)
+    m1 = metrics()
+    assert got['tokens'] == want[0] and got['cached_tokens'] == 32
+    assert m1['kv_transfers_total'] == m0['kv_transfers_total'] + 1
+    assert m1['kv_transfer_bytes'] > m0['kv_transfer_bytes']
+    assert m1['kv_transfer_failures'] == m0['kv_transfer_failures']
+    assert m1['kv_transfer_p99_s'] > 0
+
+    blob = dsrv.engine._kv_export(prompts[1])
+    bad = _StubDonor(blob[:-1] + bytes([blob[-1] ^ 0xFF]))
+    slow = _StubDonor(blob, delay=3.0)
+    miss = _StubDonor(status=404)
+    try:
+        for i, stub, failed in ((1, bad, 1), (2, slow, 1), (3, miss, 0)):
+            before = metrics()
+            got = _post_hdr(puller + '/generate',
+                            {'tokens': prompts[i], 'max_new_tokens': 6},
+                            {tserver.KV_DONOR_HEADER: stub.url})
+            after = metrics()
+            assert stub.calls == 1
+            assert got['tokens'] == want[i], i
+            assert got['cached_tokens'] == 0, i
+            assert (after['kv_transfer_failures']
+                    - before['kv_transfer_failures']) == failed, i
+            assert after['kv_transfers_total'] == before[
+                'kv_transfers_total'], i
+    finally:
+        for stub in (bad, slow, miss):
+            stub.close()
+    assert _get(puller + '/health')[0] == 200
