@@ -7,15 +7,15 @@ Phases, in order; any failure exits non-zero:
    limit as ``nvidia-smi`` reports them.
 2. Build: compiles every kernel source of the port from
    ``skypilot_tpu_torch/ops/csrc`` with ``nvcc`` (one process per
-   source, all five started together) and prints the seconds and the
+   source, all six started together) and prints the seconds and the
    compiler's register/spill report and warnings; then reads the
    compiled kernels back (``cuobjdump -sass``) and fails unless every
    instance of the flash forward, dQ and dK/dV kernels and the fused
    cross-entropy forward holds wgmma products (``HGMMA``), TMA tile
    loads (``UTMALDG``) and mbarrier operations (``SYNCS``), and every
    instance of the paged decode/verify
-   and prefill kernels (bf16 and int8) ``mma.sync`` products (``HMMA``)
-   and ``cp.async`` copies (``LDGSTS``).
+   and prefill kernels (bf16 and int8) and of the int8-weight product
+   ``mma.sync`` products (``HMMA``) and ``cp.async`` copies (``LDGSTS``).
 3. Kernel vs plain: each kernel is held against its plain PyTorch
    version on the same inputs, at a stated tolerance. The paged kernels
    at the Llama-3-8B shapes (8 KV heads, group 4, head_dim 128, pages of
@@ -47,17 +47,23 @@ Phases, in order; any failure exits non-zero:
    multiple of its tile, with targets in the last tile and outside the
    vocabulary, at vocabularies one tile short of, on and one tile past
    the edge of its vocabulary splits (``ce_split_edges``), at llama-350m's
-   d 1024 x V 32768 and at Llama-3's head, d 4096 x V 128,256.
+   d 1024 x V 32768 and at Llama-3's head, d 4096 x V 128,256; the
+   int8-weight product (``qdot_int8``, W8A16) at every weight shape of the
+   8B and 350m models and at an N off its tile, at 1, 17, 64, 128 and 256
+   rows, where every row must also be bitwise the same row of the
+   256-row product (also through a 1-D and a 3-D x).
 4. Timing: each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls:
    ``scaled_dot_product_attention`` for attention, its backward through
-   autograd, ``matmul`` + ``logsumexp`` for the cross-entropy), by CUDA
+   autograd, ``matmul`` + ``logsumexp`` for the cross-entropy, ``matmul``
+   with the bf16 dequantized weight for the int8-weight product), by CUDA
    events with the L2 cache flushed between launches and a sleep kernel
    ahead of each, so the events time the device's work and not the
    host's enqueueing; plus the least time the card could take for the
    same work (``bound_ms``). Prefill is timed twice: a 256-token chunk
    at offset 192 and the last 256-token chunk of a 2048-token prompt,
-   each from its host-scalar and its device-scalar entry.
+   each from its host-scalar and its device-scalar entry; the int8-weight
+   product at each 8B weight at 64 and 256 rows.
 5. Serving end to end: starts ``python -m skypilot_tpu_torch.infer.server
    --model 8b --slots 8 --max-seq-len 2048 --spec-k 4`` (full width and
    depth, random weights from a seed; the server's default control loop:
@@ -124,6 +130,16 @@ Phases, in order; any failure exits non-zero:
    and 128; its kv-dtype axis now runs the prefix cache through a bf16
    and an int8 pool of the same bytes): its JSON document on a line of
    its own.
+5f. int8 weights at full 8B width and depth: the card's quantizer bitwise
+   the CPU's on layer 0's weights and the embedding; in process with
+   ``EngineConfig(quantize=True)``, bf16 pages, 5b's prompts: depth 0
+   eager vs depth 1 with graphs, speculation on (the oracle drafter) vs
+   off, and with 5d's aggressor fused on vs off, every token list
+   identical, one graph per program kind, no page leaked, the int8 tree
+   at most 0.55 of the bf16 tree's bytes; then the server with
+   ``--quantize --spec-k 4`` as in phase 5 (a repeated greedy request,
+   ``"spec": false`` vs on, ``qdot_int8`` launched), its TTFT, time
+   between tokens and tokens/s printed beside the bf16 server's.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -137,6 +153,10 @@ Phases, in order; any failure exits non-zero:
    ``python -m skypilot_tpu_torch.train.run --model llama-350m --steps 4
    --batch 4 --seq 2048`` with a checkpoint every 2 steps, and again with
    ``--steps 6``, which must resume at step 4.
+7b. ``server --model 350m --checkpoint <phase 7's directory> --quantize``
+   answers 8 greedy requests, whose tokens must equal an in-process
+   engine's on ``restore_to_host`` + ``quantize_params(..., 'cuda')`` of
+   the same directory; ``qdot_int8`` must have launched in the server.
 
 Then it prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -145,7 +165,8 @@ Run from the root of the repository: ``python3 chip_smoke.py`` (one
 card). ``--kernels-only`` stops after phase 3; ``--profile`` adds, at
 the end, ``torch.profiler`` breakdowns of decode steps and of verify
 steps (bf16 and int8 pages; the synchronous eager loop, then the default
-one with CUDA graphs) of an in-process engine, of mixed steps and of
+one with CUDA graphs) of an in-process engine, of decode steps with int8
+weights (the ``qdot_int8`` kernel's share), of mixed steps and of
 standalone prefill chunks (eager and with their graphs), the decode step
 with the flight recorder on and off, and of a bench_1b training step.
 Subprocess logs go to
@@ -154,6 +175,7 @@ Subprocess logs go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -252,6 +274,28 @@ FP32_RTOL, FP32_ATOL_FRAC = 1e-5, 1e-5
 # on both sides in another order: loss within 1e-2, each gradient leaf
 # within 5e-2 by relative norm.
 SLICE_LOSS_ATOL, SLICE_GRAD_RTOL = 1e-2, 5e-2
+# The int8-weight product (csrc/qdot_int8.cu), [K, N] per weight: the 8B
+# model's (wq and wo, wk and wv, w_gate and w_up, w_down, lm_head), an N
+# that is not a multiple of the kernel's 128-column tile, and llama-350m's
+# (phase 7b serves it). Row counts: a chunk's last-row logits (1), a
+# ragged count (17), a decode or verify step on 8 and 16 slots (64, 128)
+# and a 256-token chunk. Kernel and plain version both round the fp32
+# sum to bf16 and the scaled product to bf16 again, summing in other
+# orders: each rounding may land on the neighbouring bf16 value, so
+# within two bf16 steps (2^-6 of the value), plus 1e-3 of the largest
+# magnitude for sums that cancel.
+QDOT_SHAPES = {
+    'wq/wo': (4096, 4096), 'wk/wv': (4096, 1024),
+    'w_gate/w_up': (4096, 14336), 'w_down': (14336, 4096),
+    'lm_head': (4096, 128_256), 'n1040': (4096, 1040),
+    '350m wq/wo': (1024, 1024), '350m wk/wv': (1024, 512),
+    '350m w_gate/w_up': (1024, 4096), '350m w_down': (4096, 1024),
+    '350m lm_head': (1024, 32_768)}
+QDOT_8B = ('wq/wo', 'wk/wv', 'w_gate/w_up', 'w_down', 'lm_head')
+QDOT_MAIN = 'w_gate/w_up'
+QDOT_ROWS = (1, 17, 64, 128, 256)
+QDOT_TIMED_ROWS = (64, 256)
+QDOT_RTOL, QDOT_ATOL_FRAC = 2.0 ** -6, 1e-3
 TRAINING_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                     'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd')
 # --profile: decode steps with every slot at this context.
@@ -273,7 +317,8 @@ SASS_REQUIRED = {
                   ('flash_bwd_dkv_kernel', _WGMMA_TMA)),
     'ce_fwd': (('ce_fwd_kernel', _WGMMA_TMA),),
     'paged_decode': (('paged_attention_kernel', _MMA_CP_ASYNC),),
-    'paged_prefill': (('paged_prefill_kernel', _MMA_CP_ASYNC),)}
+    'paged_prefill': (('paged_prefill_kernel', _MMA_CP_ASYNC),),
+    'qdot_int8': (('qdot_int8_kernel', _MMA_CP_ASYNC),)}
 
 
 def fail(msg: str) -> None:
@@ -899,6 +944,102 @@ def time_spec_int8_kernels(torch, pa, checked):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3 + 4, the int8-weight product
+# ---------------------------------------------------------------------------
+def qdot_case(torch, quant, gen, k: int, n: int):
+    """A [k, n] weight quantized on the card (bf16 normal draws at the
+    model's init scale) and QDOT_ROWS[-1] bf16 rows of x."""
+    w = quant.quantize_weight((torch.randn((k, n), generator=gen,
+                                           device='cuda')
+                               * k ** -0.5).to(torch.bfloat16))
+    x = torch.randn((max(QDOT_ROWS), k), generator=gen,
+                    device='cuda').to(torch.bfloat16)
+    return x, w
+
+
+def check_qdot_kernel(torch, quant):
+    """Phase 3, the int8-weight product: at every weight shape of the 8B
+    and 350m models and at an N off the 128-column tile, at every row
+    count of QDOT_ROWS, against its plain version (QDOT_RTOL,
+    QDOT_ATOL_FRAC); every row bitwise the same row of the largest
+    product (a row's bits may not depend on the row count), also through
+    a 1-D and a 3-D x. Returns {'qdot_int8': (max abs error at the
+    w_gate shape,)}."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    bad, worst = [], 0.0
+    for name, (k, n) in QDOT_SHAPES.items():
+        x, w = qdot_case(torch, quant, gen, k, n)
+        full = quant.qdot(x, w)
+        errs = []
+        for m in QDOT_ROWS:
+            got = quant.qdot(x[:m], w)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, got, quant.qdot_reference(x[:m], w),
+                              QDOT_RTOL, QDOT_ATOL_FRAC)
+            errs.append(err)
+            if not ok:
+                bad.append(f'{name} M {m}: max abs error {err:.3e}')
+            if not torch.equal(got, full[:m]):
+                bad.append(f'{name} M {m}: rows differ from the same rows '
+                           f'at M {len(x)}')
+        if not torch.equal(quant.qdot(x[0], w), full[0]) \
+                or not torch.equal(quant.qdot(x[:64].view(8, 8, k), w),
+                                   full[:64].view(8, 8, n)):
+            bad.append(f'{name}: a 1-D or 3-D x gave other bits')
+        print(f'qdot_int8 vs plain at {name} [K {k}, N {n}] '
+              f'({quant.cuda_splits(k, n)} K-splits), M {list(QDOT_ROWS)}: '
+              + ', '.join(f'{e:.3e}' for e in errs)
+              + f' (rtol 2^-6 + {QDOT_ATOL_FRAC} x max); rows bitwise '
+              f'across M', flush=True)
+        if name == QDOT_MAIN:
+            worst = max(errs)
+    if bad:
+        fail('qdot_int8 disagrees with its plain version: ' + '; '.join(bad))
+    return {'qdot_int8': (worst,)}
+
+
+def time_qdot_kernel(torch, quant):
+    """Phase 4, the int8-weight product at each 8B weight shape at
+    QDOT_TIMED_ROWS rows: the kernel, its plain version and the library
+    yardstick, ``torch.matmul`` of the same x with the bf16 dequantized
+    weight (what a bf16 server runs, reading twice the weight bytes).
+    Prints the table; returns the kernel line's row (QDOT_MAIN at 64
+    rows, a decode step's product)."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
+    table, main = [], None
+    for name, (k, n) in QDOT_SHAPES.items():
+        if name not in QDOT_8B:
+            continue
+        x, w = qdot_case(torch, quant, gen, k, n)
+        wb = w.q.to(torch.bfloat16) * w.scale[None, :]
+        for m in QDOT_TIMED_ROWS:
+            xm = x[:m]
+            r = dict(
+                ms=time_ms(torch, lambda: quant.qdot(xm, w), 20, flush),
+                plain_ms=time_ms(torch, lambda: quant.qdot_reference(xm, w),
+                                 5, flush),
+                library_ms=time_ms(torch, lambda: torch.matmul(xm, wb), 20,
+                                   flush),
+                bound=bound(m * k * 2 + k * n + n * 2 + m * n * 2,
+                            2.0 * m * k * n))
+            table.append({'weight': name, 'K': k, 'N': n, 'M': m,
+                          'splits': quant.cuda_splits(k, n), **r})
+            if name == QDOT_MAIN and m == QDOT_TIMED_ROWS[0]:
+                main = r
+        del x, w, wb
+    print('qdot_int8 timing (' + card_line() + '): ' + json.dumps(table),
+          flush=True)
+    for r in table:
+        print(f'  qdot_int8 {r["weight"]} M {r["M"]}: {r["ms"]:.4f} ms, '
+              f'plain {r["plain_ms"]:.4f}, bf16 matmul {r["library_ms"]:.4f}, '
+              f'bound {r["bound"][0]:.4f} ({r["bound"][1]})', flush=True)
+    return {'qdot_int8': main}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: end to end through the server
 # ---------------------------------------------------------------------------
 def free_port() -> int:
@@ -1070,13 +1211,17 @@ def serve_and_check(base: str, vocab: int, card: str, kernels, label: str):
     return launches, summary
 
 
-def run_server(card: str, flags, log_name: str, kernels, label: str):
+@contextlib.contextmanager
+def served(args, log_name: str):
+    """``python -m skypilot_tpu_torch.infer.server`` started with ``args``
+    in a subprocess (its output to ``OUT_DIR / log_name``), waited on
+    until healthy (fails if it exits, its loop dies or 600 s pass);
+    yields its base URL and stops it, process group and all."""
     OUT_DIR.mkdir(exist_ok=True)
     port = free_port()
     log_path = OUT_DIR / log_name
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
-           '--model', '8b', '--slots', '8', '--max-seq-len', str(MAX_SEQ),
-           '--host', '127.0.0.1', '--port', str(port), *flags]
+           '--host', '127.0.0.1', '--port', str(port), *args]
     print('starting: ' + ' '.join(cmd[1:]), flush=True)
     t0 = time.time()
     with open(log_path, 'wb') as log:
@@ -1103,7 +1248,7 @@ def run_server(card: str, flags, log_name: str, kernels, label: str):
                 time.sleep(1.0)
             print(f'server healthy after {time.time() - t0:.1f} s',
                   flush=True)
-            return serve_and_check(base, 128_256, card, kernels, label)
+            yield base
         finally:
             os.killpg(proc.pid, signal.SIGTERM)
             try:
@@ -1111,6 +1256,12 @@ def run_server(card: str, flags, log_name: str, kernels, label: str):
             except subprocess.TimeoutExpired:
                 os.killpg(proc.pid, signal.SIGKILL)
                 proc.wait(timeout=30)
+
+
+def run_server(card: str, flags, log_name: str, kernels, label: str):
+    with served(['--model', '8b', '--slots', '8', '--max-seq-len',
+                 str(MAX_SEQ), *flags], log_name) as base:
+        return serve_and_check(base, 128_256, card, kernels, label)
 
 
 # ---------------------------------------------------------------------------
@@ -1925,12 +2076,170 @@ def chunked_sweep(torch, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5f: int8 weights end to end
+# ---------------------------------------------------------------------------
+def int8_weights_in_process(torch, pa, quant, card: str):
+    """Phase 5f, in process at full 8B width and depth (random weights,
+    seed 0), bf16 pages.
+
+    1. The card's quantizer against the CPU's, on layer 0's weights and
+       the embedding of the 8B init: int8 bytes and bf16 scales bitwise.
+    2. ``EngineConfig(quantize=True)`` over 5b's 8 prompts x SPEC_NEW new
+       tokens: depth 0 eager against depth 1 with CUDA graphs, speculation
+       on (5b's oracle drafter) against off, and with 5d's aggressor
+       arriving mid-decode, fused on against off (depth 0 eager and depth
+       1 graphs): every token list identical, one graph per program kind,
+       no page leaked, qdot_int8 and the paged kernels launched; the
+       quantized tree at most 0.55 of the bf16 tree's bytes.
+    Returns a summary for the server comparison."""
+    import random
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.models import llama
+    t0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, 'cuda')
+    checks = []
+    # 1. The quantizer, card against CPU.
+    t1 = time.perf_counter()
+    for key in ('wq', 'wk', 'wv', 'wo', 'w_gate', 'w_up', 'w_down'):
+        leaf = params['layers'][key][0]
+        card_q, cpu_q = (quant.quantize_weight(leaf),
+                         quant.quantize_weight(leaf.cpu()))
+        if not (torch.equal(card_q.q.cpu(), cpu_q.q)
+                and torch.equal(card_q.scale.cpu(), cpu_q.scale)):
+            checks.append(f'the card quantized layer 0 {key} other than '
+                          f'the CPU')
+    card_e, cpu_e = (quant.quantize_embed(params['embed']),
+                     quant.quantize_embed(params['embed'].cpu()))
+    if not (torch.equal(card_e.q.cpu(), cpu_e.q)
+            and torch.equal(card_e.scale.cpu(), cpu_e.scale)):
+        checks.append('the card quantized the embedding other than the CPU')
+    del card_e, cpu_e
+    quantizer_s = time.perf_counter() - t1
+    bf16_bytes = quant.param_bytes(params)
+    qparams = quant.quantize_params(params)
+    del params
+    torch.cuda.empty_cache()
+    int8_bytes = quant.param_bytes(qparams)
+    if int8_bytes > 0.55 * bf16_bytes:
+        checks.append(f'int8 params {int8_bytes} bytes, over 0.55 of the '
+                      f'bf16 {bf16_bytes}')
+    rnd = random.Random(4)
+    prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in SPEC_PROMPT_LENGTHS]
+    aggressor = [rnd.randrange(cfg.vocab_size)
+                 for _ in range(FUSED_AGGRESSOR)]
+    budgets = [FUSED_SHORT if n == 17 else SPEC_NEW
+               for n in SPEC_PROMPT_LENGTHS]
+
+    def run(depth, graphs, oracle=None, fused=None):
+        """One int8-weight engine over the prompts (with ``fused`` not
+        None: 5d's workload, the aggressor mid-decode)."""
+        eng = engine_lib.InferenceEngine(
+            cfg, qparams, engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                pipeline_depth=depth, cuda_graphs=graphs,
+                fused_prefill=bool(fused), quantize=True,
+                spec_k=VERIFY_R - 1 if oracle else 0),
+            seed=0, device='cuda')
+        if oracle:
+            eng._drafter = OracleDrafter(prompts, oracle, prompts[1::2],
+                                         ORACLE_WRONG_AT, cfg.vocab_size)
+        pa.reset_launches()
+        quant.reset_launches()
+        t1 = time.perf_counter()
+        if fused is None:
+            tokens = [r.output_tokens
+                      for r in eng.generate(prompts, SPEC_NEW)]
+        else:
+            reqs = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+            while any(len(r.output_tokens) < 4 and not r.done
+                      for r in reqs):
+                eng.step()
+            reqs.append(eng.submit(aggressor, SPEC_NEW))
+            eng.run_until_idle()
+            tokens = [r.output_tokens for r in reqs]
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        al = eng.allocator
+        out = {'tokens': tokens, 'wall_s': time.perf_counter() - t1,
+               'launches': {k: v for k, v in {**pa.launches,
+                                               **quant.launches}.items()
+                            if v},
+               'compiled_counts': eng.compiled_counts(),
+               'pages_leaked': al.n_pages - 1 - al.free_pages,
+               **{k: m.get(k) for k in (
+                   'decode_steps', 'fused_steps', 'decode_stall_steps',
+                   'spec_steps', 'spec_accepted_tokens', 'param_bytes')}}
+        del eng
+        return out
+
+    eager = run(0, False)
+    lanes = {'depth0_graphs_off': eager,
+             'depth1_graphs_on': run(1, True),
+             'spec_depth0_graphs_off': run(0, False, oracle=eager['tokens']),
+             'spec_depth1_graphs_on': run(1, True, oracle=eager['tokens'])}
+    fused_ref = run(0, False, fused=False)
+    fused_lanes = {'fused_off_depth0': fused_ref,
+                   'fused_on_depth0': run(0, False, fused=True),
+                   'fused_off_depth1': run(1, True, fused=False),
+                   'fused_on_depth1': run(1, True, fused=True)}
+    torch.cuda.empty_cache()
+    for name, r in [*lanes.items(), *fused_lanes.items()]:
+        want = (fused_ref if name.startswith('fused') else eager)['tokens']
+        parted = [i for i, (a, b) in enumerate(zip(r['tokens'], want))
+                  if a != b]
+        if parted:
+            checks.append(f'{name}: requests {parted} parted')
+        if r['pages_leaked']:
+            checks.append(f'{name}: {r["pages_leaked"]} pages leaked')
+        for kernel in ('qdot_int8', 'paged_decode_attention',
+                       'paged_prefill_attention'):
+            if r['launches'].get(kernel, 0) <= 0:
+                checks.append(f'{name}: {kernel} never launched')
+        spec = name.startswith('spec')
+        fused = name.startswith('fused_on')
+        if spec and (r['spec_accepted_tokens'] or 0) < 1:
+            checks.append(f'{name}: the oracle run accepted no draft')
+        if spec and r['launches'].get('paged_verify_attention', 0) <= 0:
+            checks.append(f'{name}: paged_verify_attention never launched')
+        if fused and (r['fused_steps'] <= 0 or r['decode_stall_steps']):
+            checks.append(f'{name}: {r["fused_steps"]} mixed steps, '
+                          f'{r["decode_stall_steps"]} stalls')
+        if 'depth1' in name and not one_graph_each(
+                r['compiled_counts'], spec, fused):
+            checks.append(f'{name}: step graphs {r["compiled_counts"]}')
+    summary = {
+        'card': card, 'prompt_tokens': SPEC_PROMPT_LENGTHS,
+        'max_new_tokens': SPEC_NEW, 'aggressor_tokens': FUSED_AGGRESSOR,
+        'quantizer_check_s': quantizer_s, 'param_bytes_bf16': bf16_bytes,
+        'param_bytes_int8': int8_bytes,
+        'param_bytes_ratio': int8_bytes / bf16_bytes,
+        **{name: {k: v for k, v in r.items() if k != 'tokens'}
+           for name, r in [*lanes.items(), *fused_lanes.items()]},
+        'wall_s': time.perf_counter() - t0}
+    print('phase 5f (int8 weights in process, Llama-3-8B, bf16 pages, '
+          + card + '): ' + json.dumps(summary), flush=True)
+    if checks:
+        for c in checks:
+            print('phase 5f: ' + c, flush=True)
+        fail(f'phase 5f: {len(checks)} checks failed (above)')
+    del qparams
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # --profile: where a decode step's time goes
 # ---------------------------------------------------------------------------
 def _kernel_kind(name: str) -> str:
     low = name.lower()
     if 'paged_prefill_kernel' in low:
         return 'paged_prefill_attention'
+    if 'qdot_int8_kernel' in low:
+        return 'qdot_int8'
     if 'paged_attention_kernel' in low:
         return 'paged_decode_attention'
     if any(k in low for k in ('gemm', 'gemv', 'xmma', 'cutlass', 'cublas',
@@ -1958,7 +2267,7 @@ LAUNCH_APIS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
 
 
 def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
-                   graphs: bool, depth: int) -> None:
+                   graphs: bool, depth: int, quantize: bool = False) -> None:
     """An in-process 8B engine (``kv_dtype`` pages, pipeline ``depth``,
     the step's CUDA graph on or off) with all 8 slots at PROFILE_PROMPT
     tokens of context, stepping decode steps or (``verify``, spec_k
@@ -1981,7 +2290,8 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
     eng = server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None, 'cuda',
                                   kv_dtype=kv_dtype,
                                   spec_k=VERIFY_R - 1 if verify else 0,
-                                  pipeline_depth=depth, cuda_graphs=graphs)
+                                  pipeline_depth=depth, cuda_graphs=graphs,
+                                  quantize=quantize)
     if verify:
         eng._drafter = RepeatDrafter()
     slots, vocab = eng.ecfg.n_slots, eng.config.vocab_size
@@ -2000,7 +2310,8 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
     narrow_ms = None
-    if kv_dtype == 'bfloat16' and not verify and not graphs:
+    if kv_dtype == 'bfloat16' and not verify and not graphs \
+            and not quantize:
         rows, model_lib.STEP_ROWS = model_lib.STEP_ROWS, 1
         try:
             eng.step()
@@ -2048,11 +2359,14 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
         kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0) + ms
     paged = [(ms, c) for name, (ms, c) in kernels.items()
              if _kernel_kind(name) == 'paged_decode_attention']
+    qdot = [(ms, c) for name, (ms, c) in kernels.items()
+            if _kernel_kind(name) == 'qdot_int8']
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:15]
     step = 'verify' if verify else 'decode'
-    print(f'{step} step profile (Llama-3-8B, {kv_dtype} pages, 8 slots at '
-          f'{PROFILE_PROMPT} tokens'
+    print(f'{step} step profile (Llama-3-8B, '
+          f'{"int8 weights, " if quantize else ""}{kv_dtype} pages, 8 slots '
+          f'at {PROFILE_PROMPT} tokens'
           + (f', spec_k {VERIFY_R - 1}' if verify else '')
           + f', depth {depth}, CUDA graphs {"on" if graphs else "off"}, '
           f'{card}): ' + json.dumps({
@@ -2072,6 +2386,9 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
               f'paged_{step}_kernel_launches_per_step':
                   sum(c for _, c in paged),
               'paged_kernel_wrapper_count_per_step': wrapper / n,
+              'qdot_int8_ms_per_step': sum(ms for ms, _ in qdot),
+              'qdot_int8_launches_per_step': sum(c for _, c in qdot),
+              'qdot_int8_share_of_busy': sum(ms for ms, _ in qdot) / busy,
               'host_launch_calls_per_step': api,
               'device_ms_per_step_by_kind': kinds,
               'top_kernels': [{'name': k[:100], 'ms_per_step': ms,
@@ -2549,11 +2866,12 @@ def run_bench(ce_flavor: str, card: str):
     return result
 
 
-def train_and_resume(card: str):
+def train_and_resume(card: str, after=None):
     """llama-350m (head_dim 64, group 2: the flash kernels' other
     variant) for 4 steps with a checkpoint every 2, then to step 6 from
-    the same directory, which must resume at step 4. The checkpoints
-    (about 2 GB each) go to a temporary directory that is removed."""
+    the same directory, which must resume at step 4; then ``after`` (if
+    given) with the directory. The checkpoints (about 2 GB each) go to a
+    temporary directory that is removed."""
     pat = re.compile(r'step (\d+)/(\d+) loss=(\S+) tokens/s=(\d+)')
     runs = []
     with tempfile.TemporaryDirectory(prefix='chip_smoke_ckpt_') as ckpt:
@@ -2573,6 +2891,8 @@ def train_and_resume(card: str):
                          else None,
                          'logged': logged,
                          'checkpoints': sorted(os.listdir(ckpt))})
+        if after is not None:
+            after(ckpt)
     print(f'llama-350m train and resume ({card}): ' + json.dumps(runs),
           flush=True)
     first, second = runs
@@ -2586,6 +2906,54 @@ def train_and_resume(card: str):
                for _, loss, _ in r['logged']):
         fail('llama-350m logged a non-finite loss')
     return runs
+
+
+def serve_checkpoint_int8(torch, quant, card: str, ckpt: str):
+    """Phase 7b: ``server --model 350m --checkpoint <ckpt> --quantize``
+    (phase 7's train.run directory: a train state at step 6) answers 8
+    greedy requests; their tokens must equal an in-process engine's on
+    ``restore_to_host`` + ``quantize_params(..., 'cuda')`` of the same
+    directory, and qdot_int8 must have launched in the server."""
+    import random
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+    cfg = llama.LlamaConfig.bench_350m()
+    rnd = random.Random(7)
+    prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in (17, 64, 100, 300, 5, 129, 256, 700)]
+    new = 32
+    with served(['--model', '350m', '--checkpoint', ckpt, '--quantize',
+                 '--slots', '8', '--max-seq-len', str(MAX_SEQ)],
+                'chip_smoke_server_350m_ckpt.log') as base:
+        served_out, _ = burst(base, prompts, new, cfg.vocab_size)
+        _, raw = http_json(base + '/metrics')
+        m = json.loads(raw)
+    restored = ckpt_lib.CheckpointManager(ckpt).restore_to_host()
+    qparams = quant.quantize_params(restored.params, 'cuda')
+    del restored
+    eng = engine_lib.InferenceEngine(
+        cfg, qparams, engine_lib.EngineConfig(
+            n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE, quantize=True),
+        seed=0, device='cuda')
+    local = [r.output_tokens for r in eng.generate(prompts, new)]
+    del eng, qparams
+    torch.cuda.empty_cache()
+    parted = [i for i, (r, want) in enumerate(zip(served_out, local))
+              if r[0] != want]
+    summary = {'card': card, 'prompt_tokens': [len(p) for p in prompts],
+               'max_new_tokens': new, 'parted': parted,
+               'param_bytes': m['param_bytes'],
+               'qdot_int8_launches': m['kernel_launches']['qdot_int8'],
+               'step_programs': m['step_programs']}
+    print('phase 7b (llama-350m checkpoint served with --quantize, '
+          + card + '): ' + json.dumps(summary), flush=True)
+    if parted:
+        fail(f'phase 7b: requests {parted} gave other tokens than the '
+             f'in-process engine on the same checkpoint')
+    if m['kernel_launches']['qdot_int8'] <= 0:
+        fail('phase 7b: qdot_int8 never launched in the checkpoint server')
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -2666,6 +3034,7 @@ def main() -> int:
     from skypilot_tpu_torch.ops import attention as att
     from skypilot_tpu_torch.ops import cross_entropy as ce
     from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.ops import quant
     # The plain versions' fp32 products stay fp32 (no TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2691,6 +3060,7 @@ def main() -> int:
     # Phase 3: kernels vs their plain versions.
     checked = check_kernels(torch, pa)
     checked.update(check_spec_int8_kernels(torch, pa))
+    checked.update(check_qdot_kernel(torch, quant))
     checked.update(check_training_kernels(torch, att, ce))
     print('paged_prefill: the device-scalar entry is bitwise the '
           'host-scalar entry at ' + json.dumps(DEVICE_SCALAR_CHECKS)
@@ -2707,6 +3077,7 @@ def main() -> int:
     # Phase 4: timing.
     timed = time_kernels(torch, pa, checked)
     timed.update(time_spec_int8_kernels(torch, pa, checked))
+    timed.update(time_qdot_kernel(torch, quant))
     timed.update(time_training_kernels(torch, att, ce, checked))
     for key in checked:              # keep the errors, free the inputs
         checked[key] = (checked[key][0],)
@@ -2741,6 +3112,22 @@ def main() -> int:
     # sweep at one level.
     prefix_launches = prefix_in_process(torch, pa, card)
     chunked_sweep(torch, card)
+    # Phase 5f: int8 weights in process, then the int8-weight server.
+    int8_weights_in_process(torch, pa, quant, card)
+    w8_launches, w8 = run_server(
+        card, ['--quantize', '--spec-k', str(VERIFY_R - 1)],
+        'chip_smoke_server_int8_weights.log',
+        ('qdot_int8', 'paged_decode_attention', 'paged_prefill_attention',
+         'paged_verify_attention'), 'int8 weights, bf16 pages, spec_k 4')
+    launches['qdot_int8'] = w8_launches['qdot_int8']
+    print('bf16 vs int8 weights (' + card + '): ' + json.dumps({
+        key: [bf16[key], w8[key]]
+        for key in ('ttft_cold_p50_s', 'ttft_warm_p50_s')}
+        | {'itl_p50_ms': [bf16['decode_burst']['itl_p50_ms'],
+                          w8['decode_burst']['itl_p50_ms']],
+           'tokens_per_sec': [bf16['decode_burst']['tokens_per_sec'],
+                              w8['decode_burst']['tokens_per_sec']]}),
+          flush=True)
 
     # Phase 6: the training slice against its plain path.
     check_slice(torch, att, ce)
@@ -2755,7 +3142,9 @@ def main() -> int:
     launches.update(bench['launches'])
     print(f'bench_1b launches per step: {json.dumps(per_step)}', flush=True)
     run_bench('dense', card)
-    train_and_resume(card)
+    # Phase 7b: the trained checkpoint served with --quantize.
+    train_and_resume(card, after=lambda ckpt: serve_checkpoint_int8(
+        torch, quant, card, ckpt))
     if args.profile:
         for kv_dtype in ('bfloat16', 'int8'):
             for verify in (False, True):
@@ -2763,6 +3152,9 @@ def main() -> int:
                 for graphs, depth in ((False, 0), (True, 1)):
                     profile_decode(torch, pa, card, kv_dtype, verify,
                                    graphs, depth)
+        for graphs, depth in ((False, 0), (True, 1)):
+            profile_decode(torch, pa, card, 'bfloat16', False, graphs,
+                           depth, quantize=True)
         for mixed in (True, False):
             for graphs in (False, True):
                 profile_chunks(torch, pa, card, mixed, graphs)
@@ -2790,6 +3182,8 @@ def main() -> int:
          'skypilot_tpu/ops/attention.py:213'),
         ('fused_cross_entropy_fwd', 'fused_cross_entropy_fwd', 'ce_fwd',
          'skypilot_tpu/ops/cross_entropy.py:131'),
+        ('qdot_int8', 'qdot_int8', 'qdot_int8',
+         'skypilot_tpu/ops/quant.py:73'),
     ]
     kernels = []
     for wrapper, key, source, where in rows:

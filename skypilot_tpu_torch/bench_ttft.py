@@ -39,6 +39,10 @@ and of its default concurrency sweep, for a torch replica).
   It reports the transfers, their bytes, ``kv_transfer_p99_s`` and the
   TTFT of each cohort.
 
+``--quantize`` serves int8 weights in every sweep (the servers get
+``--quantize``; the chunked sweep's engines int8 params drawn from the
+same seed), recorded in the JSON as ``quantize``.
+
 Both run on the CUDA device unless ``--device cpu`` is given, and print
 one JSON document that names the card by name and power limit
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``).
@@ -139,7 +143,11 @@ def _chunked_victim_run(engine, conc: int, aggr_prompt: list,
     standalone chunk stalls), and the aggressor's TTFT, on the host clock
     around the in-process step loop."""
     from skypilot_tpu_torch.ops import paged_attention as paged_attn
-    launches0 = dict(paged_attn.launches)
+    from skypilot_tpu_torch.ops import quant as quant_lib
+
+    def launched():
+        return {**paged_attn.launches, **quant_lib.launches}
+    launches0 = launched()
     victims = [engine.submit([3 + i] * 8, max_new_tokens=400)
                for i in range(conc)]
     while any(len(v.output_tokens) < 4 for v in victims):
@@ -185,7 +193,7 @@ def _chunked_victim_run(engine, conc: int, aggr_prompt: list,
         'step_programs': m['step_programs'],
         # This run's launches of each kernel (graph replays included).
         'kernel_launches': {k: v - launches0[k]
-                            for k, v in paged_attn.launches.items()
+                            for k, v in launched().items()
                             if v != launches0[k]},
         'step_time_breakdown': breakdown,
     }
@@ -237,15 +245,13 @@ def _kv_axis(config, params, device, *, slots: int, max_seq_len: int,
 def run_chunked_sweep(args, device: torch.device) -> dict:
     """Fused vs unfused at each concurrency, plus the kv-dtype axis."""
     from skypilot_tpu_torch.infer import server as server_lib
-    from skypilot_tpu_torch.models import llama
     config = server_lib.MODELS[args.model]()
     if config.max_seq_len < args.max_seq_len:
         # The aggressor spans several chunks; a small preset's rotary
         # horizon widens for free.
         config = dataclasses.replace(config, max_seq_len=args.max_seq_len)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = llama.init_params(config, gen, device)
+    params = server_lib.random_params(config, args.seed, device,
+                                      args.quantize)
     max_seq_len = min(args.max_seq_len, config.max_seq_len)
     page_size = min(args.page_size, 64)
     aggr_prompt = [5] * min(args.aggressor_tokens, max_seq_len - 144)
@@ -412,7 +418,7 @@ class _Servers:
                    args.model, '--slots', str(args.slots), '--max-seq-len',
                    str(args.max_seq_len), '--page-size', str(args.page_size),
                    '--device', str(device), '--seed', str(args.seed),
-                   *flags]
+                   *(['--quantize'] if args.quantize else []), *flags]
             log = (open(f'{args.server_log}.{i}' if i else args.server_log,
                         'w') if args.server_log else subprocess.DEVNULL)
             self.logs.append(log)
@@ -497,7 +503,8 @@ def run_concurrency_sweep(args, device: torch.device) -> dict:
         'server_metrics': {k: metrics.get(k) for k in (
             'decode_steps', 'decode_tokens', 'tokens_per_step',
             'prefill_tokens', 'fused_steps', 'decode_stall_steps',
-            'step_programs', 'stepline_steps', 'integrity')},
+            'step_programs', 'stepline_steps', 'integrity', 'param_bytes',
+            'kernel_launches')},
         'path': 'client -> torch replica server (streamed; client-side '
                 'send -> first token line clock)',
     }
@@ -753,6 +760,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--n-pages', type=int, default=257,
                    help='KV pool pages of each disagg server (both 8B '
                         'servers share one card)')
+    p.add_argument('--quantize', action='store_true',
+                   help='int8 weights: the servers it boots get '
+                        '--quantize, the chunked sweep\'s engines int8 '
+                        'params')
     p.add_argument('--boot-timeout', type=float, default=900.0)
     p.add_argument('--server-log', default=None,
                    help='file for the server subprocess output')
@@ -780,7 +791,8 @@ def sweep(argv: Optional[List[str]] = None) -> dict:
            'disagg': run_disagg_sweep}[args.sweep]
     result = run(args, device)
     result.update(device=str(device), card=card_line(device),
-                  torch=torch.__version__, wall_s=time.perf_counter() - t0)
+                  torch=torch.__version__, quantize=args.quantize,
+                  wall_s=time.perf_counter() - t0)
     result['args'] = vars(args)
     return result
 

@@ -23,6 +23,9 @@ What the port keeps from the reference:
   outputs equal speculation-off's token for token;
 - int8 KV pages (``kv_dtype='int8'``): quantized on write, dequantized in
   the kernels;
+- int8 weights (``quantize``): the params quantized per output channel
+  at construction (``ops/quant.py``), every dense product a W8A16 kernel
+  launch on the card;
 - the dispatch-ahead loop (``pipeline_depth``, default 1): step N + 1 is
   dispatched before step N's token rows are read back; each dispatched
   step copies its rows into a pinned host ring of ``depth + 1`` buffers
@@ -85,8 +88,8 @@ adds no program: a page copy-on-write and a KV import write the pool
 tensors in place, eagerly on the step's stream, never rebinding them (the
 graphs keep their pointers).
 
-What it leaves out (ROADMAP queue 1): int8 weights, tensor parallelism
-and the engine pool.
+What it leaves out (ROADMAP queue 1): tensor parallelism and the engine
+pool.
 
 Device placement is explicit: the engine runs on ``device`` (default
 ``'cuda'``) and raises if CUDA was asked for and is missing.
@@ -113,6 +116,7 @@ from skypilot_tpu_torch.infer import sched as sched_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import stepline as stepline_lib
 from skypilot_tpu_torch.ops import paged_attention as paged_attn
+from skypilot_tpu_torch.ops import quant as quant_lib
 from skypilot_tpu_torch.utils import prefix_hash
 
 # The server catches admission refusals by this name, as the
@@ -128,6 +132,12 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f'device {device!r} requested but CUDA is not '
                            f'available; pass device="cpu" to run on the CPU')
     return dev
+
+
+def _captured_launches() -> Dict[str, int]:
+    """Every kernel wrapper's launches recorded under CUDA graph capture
+    so far (the paged attention kernels' and the int8-weight product's)."""
+    return {**paged_attn.captured, **quant_lib.captured}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +217,11 @@ class EngineConfig:
     # engine integrity_suspect (one-way). Greedy outputs and
     # decode_steps are the same on and off.
     sdc_sentinel: bool = True
+    # int8 weight-only quantization (ops/quant.py): the params are
+    # quantized at construction unless they already are; every dense
+    # product then runs the W8A16 kernel on the card, streaming half the
+    # weight bytes a step.
+    quantize: bool = False
 
 
 @dataclasses.dataclass
@@ -405,7 +420,10 @@ class InferenceEngine:
             dtype=(torch.int8 if ecfg.kv_dtype == 'int8'
                    else llama.torch_dtype(ecfg.cache_dtype)),
             device=self.device)
+        if ecfg.quantize and not quant_lib.is_quantized(params):
+            params = quant_lib.quantize_params(params)
         self.params = params
+        self._param_bytes = quant_lib.param_bytes(params)
         self._rope = model_lib.rope_tables(config, self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
@@ -1515,7 +1533,7 @@ class InferenceEngine:
                 # The sampled program draws from the engine's generator:
                 # each replay must advance it.
                 graph.register_generator_state(self._generator)
-            before = dict(paged_attn.captured)
+            before = _captured_launches()
             try:
                 with torch.cuda.graph(graph, stream=stream):
                     out = body()
@@ -1526,11 +1544,14 @@ class InferenceEngine:
                     f'={key[1]}, sampled={key[2]}) failed; no eager '
                     f'fallback') from e
             prog.graph, prog.out = graph, out
-            prog.launches = {k: paged_attn.captured[k] - before[k]
-                             for k in before
-                             if paged_attn.captured[k] != before[k]}
+            now = _captured_launches()
+            prog.launches = {k: now[k] - before[k] for k in before
+                             if now[k] != before[k]}
         prog.graph.replay()
-        paged_attn.count_replay(prog.launches)
+        paged_attn.count_replay({k: n for k, n in prog.launches.items()
+                                 if k in paged_attn.launches})
+        quant_lib.count_replay({k: n for k, n in prog.launches.items()
+                                if k in quant_lib.launches})
         return prog.out
 
     @staticmethod
@@ -2190,10 +2211,13 @@ class InferenceEngine:
             'kv_dtype': self.ecfg.kv_dtype,
             'kv_page_bytes': self._kv_page_bytes(),
             'device': str(self.device),
+            # Device bytes of the weights (int8 + scales with quantize).
+            'param_bytes': self._param_bytes,
             # Launches of each hand-written kernel in this process (the
             # wrappers' counters, graph replays included): shows the
             # path ran through them.
-            'kernel_launches': dict(paged_attn.launches),
+            'kernel_launches': {**paged_attn.launches,
+                                **quant_lib.launches},
             **prefix_stats,
         }
 

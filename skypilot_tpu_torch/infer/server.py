@@ -59,8 +59,15 @@ connection enqueues its request and waits on the request's condition,
 while a background thread drives ``engine.step()`` (continuous batching
 over every waiting request).
 
-Without a checkpoint the server serves random weights sized by
-``--model``, drawn from ``--seed``. Run:
+Without ``--checkpoint DIR`` (the params of the latest checkpoint under
+DIR, as ``train.run`` writes them) the server serves random weights sized
+by ``--model``, drawn from ``--seed``. ``--quantize`` serves int8 weights
+(restored to the host and quantized onto the card leaf by leaf, or the
+int8 form of the random draw); ``--tokenizer`` names a ``tokenizer.json``
+(the optional ``tokenizers`` package) or a sentencepiece ``.model`` for
+text prompts. The replica stamps its cold-start timeline into the recorder:
+``coldstart.weights_loaded`` (``load_s``) once the weights exist,
+``coldstart.compiled`` (``warm_s``, ``total_s``) once warm. Run:
 ``python -m skypilot_tpu_torch.infer.server --port 8000 --model 8b``
 (add ``--device cpu`` to run on the CPU, ``--spec-k 4`` to decode
 speculatively, ``--kv-dtype int8`` for int8 KV pages, ``--scheduler wfq
@@ -88,6 +95,7 @@ import torch
 from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import prometheus as prom_lib
+from skypilot_tpu_torch.ops import quant as quant_lib
 
 logger = logging.getLogger(__name__)
 
@@ -109,15 +117,63 @@ MODELS = {
 
 
 class Tokenizer:
-    """Byte-level text<->token codec for ``/generate`` prompts (the
-    reference's fallback path; ``tokens`` callers need none)."""
+    """Text<->token codec for ``/generate`` (a host copy of the
+    reference's).
 
-    kind = 'bytes'
+    A ``tokenizer.json`` (the HuggingFace ``tokenizers`` format, an
+    optional import) or a sentencepiece ``.model`` (``sentencepiece``, an
+    optional import); the byte-level fallback otherwise, so ``tokens``
+    callers and tests need no vocab file. ``vocab_limit`` (the model's
+    vocabulary) refuses a tokenizer whose ids would fall outside it.
+    """
+
+    def __init__(self, path: Optional[str] = None,
+                 vocab_limit: int = 0) -> None:
+        self.kind = 'bytes'
+        self._tok = None
+        if path:
+            if path.endswith('.json'):
+                try:
+                    from tokenizers import Tokenizer as HFTokenizer
+                except ImportError:
+                    raise SystemExit(
+                        "the 'tokenizers' package is not installed in "
+                        'this image; install it (it ships with '
+                        'transformers) or serve with token ids only')
+                self._tok = HFTokenizer.from_file(path)
+                self.kind = 'hf'
+                size = self._tok.get_vocab_size()
+            else:
+                try:
+                    import sentencepiece as spm
+                except ImportError:
+                    raise SystemExit(
+                        'sentencepiece not installed; use a '
+                        'tokenizer.json (tokenizers format) instead')
+                self._tok = spm.SentencePieceProcessor(model_file=path)
+                self.kind = 'spm'
+                size = self._tok.vocab_size()
+            if vocab_limit and size > vocab_limit:
+                raise SystemExit(
+                    f'tokenizer vocab ({size}) exceeds the model vocab '
+                    f'({vocab_limit}); ids would be out of range')
 
     def encode(self, text: str) -> List[int]:
+        if self.kind == 'hf':
+            return list(self._tok.encode(text).ids)
+        if self.kind == 'spm':
+            return list(self._tok.encode(text))
         return list(text.encode('utf-8'))
 
     def decode(self, tokens: List[int]) -> str:
+        if self.kind == 'hf':
+            return self._tok.decode(tokens)
+        if self.kind == 'spm':
+            # A model vocab larger than the spm vocab can sample ids the
+            # tokenizer has no piece for; spm raises where the HF path
+            # skips them: filter to match.
+            size = self._tok.vocab_size()
+            return self._tok.decode([t for t in tokens if 0 <= t < size])
         try:
             return bytes(t for t in tokens if 0 <= t < 256).decode(
                 'utf-8', errors='replace')
@@ -192,10 +248,14 @@ class InferenceServer:
 
     def __init__(self, engine: engine_lib.InferenceEngine,
                  tokenizer: Optional[Tokenizer] = None,
+                 boot_t0: Optional[float] = None,
                  role: str = 'mixed', kv_pull_timeout_s: float = 10.0,
                  kv_export_max_pages: int = 64) -> None:
         self.engine = engine
         self.tokenizer = tokenizer or Tokenizer()
+        # When the process started (main's first line): the cold-start
+        # timeline's total_s counts from it.
+        self.boot_t0 = boot_t0 if boot_t0 is not None else time.time()
         # Disaggregation role, advertised in /metrics for the load
         # balancer to route by; the server never refuses work by role.
         if role not in ROLES:
@@ -235,8 +295,12 @@ class InferenceServer:
             while not warm.done:
                 self.engine.step()
             logger.info('engine warm in %.1fs', time.time() - t0)
-            self.engine.note_lifecycle_event('warm',
-                                             warm_s=time.time() - t0)
+            # Cold-start timeline: weights_loaded was stamped by main();
+            # this is the edge at which the replica becomes serviceable.
+            self.engine.note_lifecycle_event(
+                'coldstart.compiled',
+                warm_s=round(time.time() - t0, 3),
+                total_s=round(time.time() - self.boot_t0, 3))
             self.ready = True
             while not self._stop.is_set():
                 if self.engine.step() == 0:
@@ -677,14 +741,16 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
                  stepline: bool = True, stepline_cap: Optional[int] = None,
                  ttft_slo_s: Optional[float] = None,
                  sdc_sentinel: bool = True,
-                 prefix_cache: bool = False) -> engine_lib.InferenceEngine:
-    """Random weights for ``model`` drawn from ``seed`` on ``device``,
-    and a paged engine over them."""
+                 prefix_cache: bool = False, quantize: bool = False,
+                 params: Optional[llama.Params] = None
+                 ) -> engine_lib.InferenceEngine:
+    """A paged engine for ``model`` on ``device`` over ``params``, or,
+    when None, random weights drawn from ``seed`` (their int8 form with
+    ``quantize``)."""
     dev = engine_lib.resolve_device(device)
     config = MODELS[model]()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = llama.init_params(config, gen, dev)
+    if params is None:
+        params = random_params(config, seed, dev, quantize)
     return engine_lib.InferenceEngine(
         config, params,
         engine_lib.EngineConfig(
@@ -697,8 +763,58 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
             max_queue_tokens=max_queue_tokens, cuda_graphs=cuda_graphs,
             fused_prefill=fused_prefill, stepline=stepline,
             stepline_cap=stepline_cap, ttft_slo_s=ttft_slo_s,
-            sdc_sentinel=sdc_sentinel, prefix_cache=prefix_cache),
+            sdc_sentinel=sdc_sentinel, prefix_cache=prefix_cache,
+            quantize=quantize),
         seed=seed, device=dev)
+
+
+def random_params(config: llama.LlamaConfig, seed: int, device,
+                  quantize: bool = False) -> llama.Params:
+    """Random weights drawn from ``seed`` on ``device``; with
+    ``quantize`` the int8 form of the same draw (its bf16 tree is
+    dropped once quantized)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = llama.init_params(config, gen, device)
+    if quantize:
+        return quant_lib.quantize_params(params)
+    return params
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {key: _map_leaves(fn, value) for key, value in tree.items()}
+    return fn(tree)
+
+
+def load_params(args: argparse.Namespace,
+                config: llama.LlamaConfig) -> llama.Params:
+    """The weights ``main`` serves (the reference's logic). With
+    ``--checkpoint``: restored into host RAM and quantized onto the
+    device leaf by leaf with ``--quantize`` (the bf16 tree never lands on
+    the card whole), else moved onto the device; a bare params tree and
+    a train state that nests it under ``params`` (what ``train.run``
+    saves) are both accepted, and its shapes must be ``--model``'s.
+    Without one: random weights from ``--seed``, their int8 form with
+    ``--quantize``."""
+    dev = engine_lib.resolve_device(args.device)
+    if args.checkpoint:
+        from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+        mgr = ckpt_lib.CheckpointManager(args.checkpoint)
+        restored = mgr.restore_to_host()
+        params = restored.get('params', restored) if isinstance(
+            restored, dict) else restored.params
+        ckpt_lib.check_like(params, llama.init_params(config, None, 'meta'))
+        if args.quantize:
+            return quant_lib.quantize_params(params, dev)
+        return _map_leaves(lambda leaf: leaf.to(dev), params)
+    if args.quantize:
+        logger.warning('no --checkpoint: serving random int8 weights '
+                       '(%s, tp=%d)', args.model, 1)
+    else:
+        logger.warning('no --checkpoint: serving random weights (%s)',
+                       args.model)
+    return random_params(config, args.seed, dev, args.quantize)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -798,10 +914,26 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              'command line; the KV cache is always paged')
     parser.add_argument('--seed', type=int, default=0,
                         help='seed of the random weights and of sampling')
+    parser.add_argument('--checkpoint', default=None,
+                        help='serve the params of the latest checkpoint '
+                             'under this directory (a train.run '
+                             'directory, or a bare params tree), in place '
+                             'of random weights')
+    parser.add_argument('--quantize', action='store_true',
+                        help='int8 weight-only quantization '
+                             '(ops/quant.py): every dense product streams '
+                             'int8 weights through the W8A16 kernel, half '
+                             'the weight bytes of bf16')
+    parser.add_argument('--tokenizer', default=None,
+                        help='tokenizer.json (needs the optional tokenizers '
+                             'package) or sentencepiece .model for '
+                             '/generate text; default: bytes')
     return parser.parse_args(argv)
 
 
-def engine_from_args(args: argparse.Namespace) -> engine_lib.InferenceEngine:
+def engine_from_args(args: argparse.Namespace,
+                     params: Optional[llama.Params] = None
+                     ) -> engine_lib.InferenceEngine:
     return build_engine(args.model, args.slots, args.max_seq_len,
                         args.page_size, args.n_pages, args.device, args.seed,
                         kv_dtype=args.kv_dtype, spec_k=args.spec_k,
@@ -817,21 +949,40 @@ def engine_from_args(args: argparse.Namespace) -> engine_lib.InferenceEngine:
                         stepline_cap=args.stepline_cap,
                         ttft_slo_s=args.ttft_slo_s,
                         sdc_sentinel=not args.no_sdc_sentinel,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache,
+                        quantize=args.quantize, params=params)
+
+
+def server_from_args(args: argparse.Namespace,
+                     boot_t0: Optional[float] = None) -> 'InferenceServer':
+    """What ``main`` serves, not yet started: the tokenizer, the weights
+    (then the cold-start stamp ``coldstart.weights_loaded``), the engine
+    and the server. ``boot_t0``: when the process started (default
+    now)."""
+    boot_t0 = time.time() if boot_t0 is None else boot_t0
+    config = MODELS[args.model]()
+    tokenizer = Tokenizer(args.tokenizer, vocab_limit=config.vocab_size)
+    params = load_params(args, config)
+    # Cold-start timeline stamp #1: t_weights covers the checkpoint
+    # restore (and quantization) or the random init; the KV pool's
+    # allocation rides in the gap before the compile stamp.
+    t_weights = time.time()
+    engine = engine_from_args(args, params)
+    engine.note_lifecycle_event('coldstart.weights_loaded',
+                                load_s=round(t_weights - boot_t0, 3))
+    return InferenceServer(engine, tokenizer, boot_t0=boot_t0,
+                           role=args.role,
+                           kv_pull_timeout_s=args.kv_pull_timeout_s,
+                           kv_export_max_pages=args.kv_export_max_pages)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    t0 = time.time()
-    logger.warning('no checkpoint: serving random weights (%s) on %s',
-                   args.model, args.device)
-    engine = engine_from_args(args)
-    logger.info('weights and KV pool ready in %.1fs', time.time() - t0)
-    InferenceServer(engine, role=args.role,
-                    kv_pull_timeout_s=args.kv_pull_timeout_s,
-                    kv_export_max_pages=args.kv_export_max_pages).run(
-                        args.host, args.port)
+    boot_t0 = time.time()
+    server = server_from_args(args, boot_t0)
+    logger.info('weights and KV pool ready in %.1fs', time.time() - boot_t0)
+    server.run(args.host, args.port)
 
 
 if __name__ == '__main__':

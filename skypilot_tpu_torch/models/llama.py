@@ -122,7 +122,8 @@ class LlamaConfig:
         return LlamaConfig(**base)
 
 
-def init_params(config: LlamaConfig, generator: torch.Generator,
+def init_params(config: LlamaConfig,
+                generator: Optional[torch.Generator],
                 device='cpu') -> Params:
     """Scaled-normal init, layers stacked on axis 0, with the
     reference's shapes and scales. The numbers come from ``generator``
@@ -131,13 +132,18 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
 
     Each stacked weight is drawn one layer at a time in fp32 and cast
     into a preallocated tensor, so the fp32 temporaries stay one layer
-    large (an 8B model's stacked fp32 draw would not fit beside it)."""
+    large (an 8B model's stacked fp32 draw would not fit beside it).
+    On the ``'meta'`` device nothing is drawn (``generator`` may be
+    None): the tree's shapes and dtypes alone, what a checkpoint restore
+    checks against."""
     dtype = torch_dtype(config.dtype)
     d, hd = config.dim, config.head_dim
     L = config.n_layers
 
     def normal(shape, scale, stacked=False):
         out = torch.empty(shape, dtype=dtype, device=device)
+        if out.is_meta:
+            return out
         for i in range(shape[0] if stacked else 1):
             part = out[i] if stacked else out
             part.copy_(torch.randn(part.shape, generator=generator,
@@ -171,7 +177,10 @@ def params_from_jax(tree: Params, device='cpu') -> Params:
     arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) in the
     reference's layout; the result is the same dict of tensors on
     ``device``. bf16 leaves arrive as ml_dtypes bfloat16 arrays and are
-    reinterpreted bit for bit."""
+    reinterpreted bit for bit. A quantized tree keeps the reference's
+    ``QuantArray`` nodes (``jax.tree.map`` maps their ``q`` and ``scale``
+    fields); the port cannot import that class, so it recognises them by
+    those two fields and builds its own :class:`quant_lib.QuantArray`."""
     def convert(a):
         a = np.asarray(a)
         if a.dtype.name == 'bfloat16':
@@ -183,12 +192,16 @@ def params_from_jax(tree: Params, device='cpu') -> Params:
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if hasattr(node, 'q') and hasattr(node, 'scale'):
+            return quant_lib.QuantArray(q=convert(node.q),
+                                        scale=convert(node.scale))
         return convert(node)
     return walk(tree)
 
 
 def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer weights (views)."""
+    """Layer ``i``'s slice of the stacked layer weights (views; a
+    quantized leaf gives the layer's int8 weight and scales)."""
     return {k: v[i] for k, v in params['layers'].items()}
 
 

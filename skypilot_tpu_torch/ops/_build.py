@@ -33,10 +33,11 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 # Every kernel source of the port (csrc/<name>.cu): the paged attention
-# of the serving path, then the flash attention forward/backward and the
-# fused cross-entropy forward of the training path.
-SOURCES = ('paged_decode', 'paged_prefill', 'flash_fwd', 'flash_bwd',
-           'ce_fwd')
+# and the int8-weight product of the serving path, then the flash
+# attention forward/backward and the fused cross-entropy forward of the
+# training path.
+SOURCES = ('paged_decode', 'paged_prefill', 'qdot_int8', 'flash_fwd',
+           'flash_bwd', 'ce_fwd')
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

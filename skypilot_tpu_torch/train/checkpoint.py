@@ -15,8 +15,10 @@ saved, and so is the first save of a manager with no checkpoints;
 ``force`` saves regardless (an existing step raises). Beyond
 ``max_to_keep`` the oldest steps are deleted.
 
-``restore_to_host`` (the int8 serving path's restore) waits for the
-port of that path (ROADMAP.md queue 1 item 10).
+``restore_to_host`` is the int8 serving path's restore: the saved tree on
+the host, whatever device it was saved from, for
+``ops/quant.quantize_params(params, device)`` to quantize onto the card
+leaf by leaf.
 """
 from __future__ import annotations
 
@@ -43,23 +45,39 @@ def _to(tree, fn):
 
 def _onto(saved, target):
     """``saved`` with every tensor moved to the device of the matching
-    leaf of ``target``; shapes and dtypes must agree."""
+    leaf of ``target`` (whose tree :func:`check_like` held it to)."""
     if dataclasses.is_dataclass(target) and not isinstance(target, type):
         return dataclasses.replace(target, **{
             f.name: _onto(getattr(saved, f.name), getattr(target, f.name))
             for f in dataclasses.fields(target)})
     if isinstance(target, dict):
-        if set(saved) != set(target):
-            raise ValueError(f'checkpoint keys {sorted(saved)} do not match '
-                             f'the target {sorted(target)}')
         return {k: _onto(saved[k], target[k]) for k in target}
     if isinstance(target, torch.Tensor):
-        if saved.shape != target.shape or saved.dtype != target.dtype:
-            raise ValueError(f'checkpoint leaf {tuple(saved.shape)} '
-                             f'{saved.dtype} does not match the target '
-                             f'{tuple(target.shape)} {target.dtype}')
         return saved.to(target.device)
     return saved
+
+
+def check_like(saved, target) -> None:
+    """Raise ValueError unless ``saved`` has ``target``'s tree (dict keys
+    and dataclass fields) and every tensor leaf its shape and dtype; the
+    target's leaves may lie on any device, ``'meta'`` included."""
+    if dataclasses.is_dataclass(target) and not isinstance(target, type):
+        for f in dataclasses.fields(target):
+            check_like(getattr(saved, f.name), getattr(target, f.name))
+    elif isinstance(target, dict):
+        keys = sorted(saved) if isinstance(saved, dict) else saved
+        if keys != sorted(target):
+            raise ValueError(f'checkpoint keys {keys} do not match the '
+                             f'target {sorted(target)}')
+        for k in target:
+            check_like(saved[k], target[k])
+    elif isinstance(target, torch.Tensor):
+        if not isinstance(saved, torch.Tensor) \
+                or saved.shape != target.shape or saved.dtype != target.dtype:
+            got = (f'{tuple(saved.shape)} {saved.dtype}'
+                   if isinstance(saved, torch.Tensor) else repr(saved))
+            raise ValueError(f'checkpoint leaf {got} does not match the '
+                             f'target {tuple(target.shape)} {target.dtype}')
 
 
 class CheckpointManager:
@@ -116,7 +134,23 @@ class CheckpointManager:
                 f'No checkpoint under {self.directory}')
         saved = torch.load(os.path.join(self.directory, str(step), _FILE),
                            map_location='cpu', weights_only=False)
-        return saved if target is None else _onto(saved, target)
+        if target is None:
+            return saved
+        check_like(saved, target)
+        return _onto(saved, target)
+
+    def restore_to_host(self, target: Optional[Any] = None,
+                        step: Optional[int] = None) -> Any:
+        """The state saved at ``step`` (default the latest) on the CPU,
+        whatever device it was saved from, never on the card: an 8B bf16
+        checkpoint (16 GB) must not land whole on the card it is being
+        quantized for. ``target`` (a tree of tensors on any device,
+        ``'meta'`` included) checks the saved tree's structure, shapes
+        and dtypes without moving anything."""
+        saved = self.restore(step)
+        if target is not None:
+            check_like(saved, target)
+        return saved
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is pending."""

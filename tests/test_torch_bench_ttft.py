@@ -76,6 +76,23 @@ def test_concurrency_sweep_prints_one_json_document(tmp_path):
     assert json.loads((tmp_path / 'sweep.json').read_text()) == doc
 
 
+def test_quantize_reaches_the_server_and_the_json():
+    """--quantize: the server it boots serves int8 weights (its
+    param_bytes are under half the bf16 tree's) and the JSON says so."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import quant
+    doc = _doc(_run('--sweep', 'concurrency', '--model', 'tiny', '--device',
+                    'cpu', '--slots', '2', '--max-seq-len', '128',
+                    '--page-size', '16', '--concurrency', '1',
+                    '--requests-per-level', '2', '--new-tokens', '2',
+                    '--quantize'))
+    assert doc['quantize'] is True and doc['args']['quantize'] is True
+    plain = quant.param_bytes(llama.init_params(
+        llama.LlamaConfig.tiny(), torch.Generator().manual_seed(0)))
+    assert 0 < doc['server_metrics']['param_bytes'] < plain / 2
+    assert 'qdot_int8' in doc['server_metrics']['kernel_launches']
+
+
 TINY_SERVER = ('--model', 'tiny', '--device', 'cpu', '--slots', '2',
                '--max-seq-len', '256', '--page-size', '16', '--concurrency',
                '1', '2', '--requests-per-level', '3', '--new-tokens', '4',

@@ -64,7 +64,8 @@ def test_greedy_outputs_identical_to_jax_engine(params):
     assert tm['kernel_launches'] == dict.fromkeys(
         ['paged_decode_attention', 'paged_prefill_attention',
          'paged_verify_attention', 'paged_decode_attention_int8',
-         'paged_prefill_attention_int8', 'paged_verify_attention_int8'], 0)
+         'paged_prefill_attention_int8', 'paged_verify_attention_int8',
+         'qdot_int8'], 0)
     assert tm['ttft_p50_s'] is not None
 
 

@@ -33,6 +33,8 @@ assert ({'skypilot_tpu_torch.observability.' + m
 assert {'skypilot_tpu_torch.utils.prefix_hash',
         'skypilot_tpu_torch.infer.kv_wire',
         'skypilot_tpu_torch.infer.prefix_cache'} <= set(names), names
+assert {'skypilot_tpu_torch.ops.quant',
+        'skypilot_tpu_torch.train.checkpoint'} <= set(names), names
 '''
 
 

@@ -169,7 +169,8 @@ def test_server_routes_and_corrupt_verdict(params):
         status, raw, _ = _get(url + '/debug/stepline')
         snap = json.loads(raw)
         assert status == 200 and snap['enabled'] and snap['steps']
-        assert any(e['event'] == 'warm' for e in snap['events'])
+        assert any(e['event'] == 'coldstart.compiled'
+                   for e in snap['events'])
         status, raw = _post(url + '/generate',
                             {'tokens': PROMPTS[1], 'max_new_tokens': 4})
         assert status == 200 and json.loads(raw)['finish_reason'] == 'sdc'

@@ -8,7 +8,11 @@ change there shows up here), plain and streamed, and its tokens equal
 answers with the kernels' launch counts. A second server, started from
 the command line's ``--kv-dtype int8 --spec-k 4``, takes the ``spec``
 body key, answers ``accepted_len_mean``, and shows the KV dtype, the page
-bytes and the speculation counters in ``/metrics``.
+bytes and the speculation counters in ``/metrics``. ``--tokenizer``,
+``--quantize`` and ``--checkpoint`` parse, so does the quantized
+single-chip variant of ``examples/serve_llm.yaml``, and a ``--quantize``
+replica built as ``main`` builds it serves the tokens of an engine on
+the same int8 weights.
 """
 import ast
 import json
@@ -147,7 +151,8 @@ def test_metrics_answers(served):
     assert set(m['kernel_launches']) == {
         'paged_decode_attention', 'paged_prefill_attention',
         'paged_verify_attention', 'paged_decode_attention_int8',
-        'paged_prefill_attention_int8', 'paged_verify_attention_int8'}
+        'paged_prefill_attention_int8', 'paged_verify_attention_int8',
+        'qdot_int8'}
     assert m['paged'] is True and m['pipeline_depth'] == 1
 
 
@@ -364,3 +369,66 @@ def test_donor_pull_transfers_and_degrades_to_recompute(kv_pair):
         for stub in (bad, slow, miss):
             stub.close()
     assert _get(puller + '/health')[0] == 200
+
+
+def _yaml_run_args():
+    """The replica's flags in examples/serve_llm.yaml's run command."""
+    path = REF_SERVER.parents[2] / 'examples' / 'serve_llm.yaml'
+    run = path.read_text().split('run: |', 1)[1].split('service:', 1)[0]
+    words = run.replace('\\', ' ').split()
+    return words[words.index('skypilot_tpu.infer.server') + 1:]
+
+
+def test_tokenizer_quantize_checkpoint_flags_parse():
+    args = tserver.parse_args(['--port', '0'])
+    assert (args.tokenizer, args.quantize, args.checkpoint) == \
+        (None, False, None)
+    args = tserver.parse_args(['--port', '0', '--tokenizer', 't.json',
+                               '--quantize', '--checkpoint', '/ck'])
+    assert (args.tokenizer, args.quantize, args.checkpoint) == \
+        ('t.json', True, '/ck')
+    # The example's quantized single-chip variant: its run line with
+    # --quantize in place of --tp 8 (tensor parallelism is not ported).
+    words = _yaml_run_args()
+    i = words.index('--tp')
+    variant = words[:i] + words[i + 2:] + ['--quantize']
+    variant[variant.index('$SKYPILOT_SERVE_PORT')] = '8000'
+    args = tserver.parse_args(variant)
+    assert (args.model, args.quantize, args.slots, args.max_seq_len,
+            args.tokenizer) == ('8b', True, 16, 2048,
+                                'examples/tokenizer_8k.json')
+
+
+def test_quantized_replica_serves_the_int8_engines_tokens(monkeypatch):
+    """server_from_args with --quantize draws random int8 weights (the
+    reference's log line) and serves an engine's tokens on them; a
+    tokenizer over the model's vocabulary exits before any weight."""
+    args = tserver.parse_args(
+        ['--port', '0', '--model', 'tiny', '--slots', '2', '--max-seq-len',
+         '128', '--page-size', '16', '--device', 'cpu', '--quantize'])
+    srv = tserver.server_from_args(args)
+    assert tserver.quant_lib.is_quantized(srv.engine.params)
+    port = srv.start('127.0.0.1', 0)
+    base = f'http://127.0.0.1:{port}'
+    try:
+        deadline = time.time() + 60
+        while _get(base + '/health')[0] != 200:
+            assert time.time() < deadline
+            time.sleep(0.05)
+        prompt = list(range(20, 57))
+        want = tserver.build_engine('tiny', 2, 128, 16, None, 'cpu',
+                                    quantize=True).generate(
+                                        [prompt], max_new_tokens=9)
+        status, raw = _post(base + '/generate',
+                            {'tokens': prompt, 'max_new_tokens': 9})
+        assert status == 200
+        assert json.loads(raw)['tokens'] == want[0].output_tokens
+        assert 'qdot_int8' in _get(base + '/metrics')[1]['kernel_launches']
+    finally:
+        srv.shutdown()
+    path = REF_SERVER.parents[2] / 'examples' / 'tokenizer_8k.json'
+    monkeypatch.setattr(tserver, 'load_params', None)   # never reached
+    with pytest.raises(SystemExit, match='exceeds the model vocab'):
+        tserver.server_from_args(tserver.parse_args(
+            ['--port', '0', '--model', 'tiny', '--device', 'cpu',
+             '--tokenizer', str(path)]))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's paged prefill kernel (or, with
-``--source ce_fwd``, of its fused cross-entropy forward) on one NVIDIA
-GPU.
+``--source ce_fwd``, of its fused cross-entropy forward, or with
+``--source qdot_int8`` of its int8-weight product) on one NVIDIA GPU.
 
 Builds ``skypilot_tpu_torch/ops/csrc/paged_prefill.cu`` once per variant,
 with its tuning constants (``kWarps``: M-tiles of 16 rows a block;
@@ -33,6 +33,15 @@ tiles a split; ``kRaster``: which CTAs are numbered together), each
 variant held against ``fused_forward_reference`` at ``chip_smoke.py``'s
 fp32 tolerances and timed at its bench_1b case (T 12288, d 1536,
 V 32768).
+
+``--source qdot_int8`` does the same for
+``skypilot_tpu_torch/ops/csrc/qdot_int8.cu`` (``kWarps``: warps a
+block, 32 columns each; ``kStages``: the tile ring's depth;
+``kTargetBlocks``, ``kMaxSplits`` and
+``kMinStepsPerSplit``: the K-split rule), each variant held against
+``quant.qdot_reference`` at ``chip_smoke.py``'s ``QDOT_RTOL`` /
+``QDOT_ATOL_FRAC`` and timed at the 8B weights at a decode step's 64
+rows and a 256-token chunk's 256 (about 30 s of command time).
 """
 from __future__ import annotations
 
@@ -55,6 +64,8 @@ DEFAULT_VARIANTS = {
                       'kPagesPerSplit=32', 'kStages=3'],
     'ce_fwd': ['', 'kBN=128,kStages=6', 'kStages=3', 'kTilesPerSplit=16',
                'kTilesPerSplit=64', 'kRaster=1'],
+    'qdot_int8': ['', 'kWarps=8', 'kStages=4', 'kTargetBlocks=396',
+                  'kMaxSplits=4', 'kMinStepsPerSplit=8'],
 }
 
 
@@ -209,6 +220,48 @@ def ce_calls(torch, libs, variants):
     return {f'T {cs.CE_T} d {cs.CE_D} V {cs.CE_V}': call}
 
 
+def qdot_calls(torch, libs, variants):
+    """{case: call(variant index)} for the int8-weight product variants
+    at each 8B weight and QDOT_TIMED_ROWS rows, each first held against
+    the plain version."""
+    from skypilot_tpu_torch.ops import quant
+    fns = []
+    for lib, _ in libs:
+        fn = lib.qdot_int8
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+    for name in cs.QDOT_8B:
+        k, n = cs.QDOT_SHAPES[name]
+        x, w = cs.qdot_case(torch, quant, gen, k, n)
+        for m in cs.QDOT_TIMED_ROWS:
+            cases[f'{name} M {m}'] = (x[:m], w, torch.empty(
+                (m, n), dtype=torch.bfloat16, device='cuda'))
+
+    def call(i, x, w, out):
+        err = fns[i](x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
+                     out.data_ptr(), x.shape[0], w.q.shape[0],
+                     w.q.shape[1], stream)
+        if err:
+            cs.fail(f'launch failed with {err}')
+        return out
+
+    for i in range(len(fns)):
+        for name, (x, w, out) in cases.items():
+            err, ok = cs.compare(torch, call(i, x, w, out),
+                                 quant.qdot_reference(x, w), cs.QDOT_RTOL,
+                                 cs.QDOT_ATOL_FRAC)
+            if not ok:
+                cs.fail(f'variant {variants[i]} disagrees with the plain '
+                        f'version at {name}: {err}')
+    return {name: (lambda i, a=a: call(i, *a)) for name, a in cases.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--source', choices=sorted(DEFAULT_VARIANTS),
@@ -232,9 +285,10 @@ def main() -> int:
                 for v in args.variant or DEFAULT_VARIANTS[args.source]]
     with tempfile.TemporaryDirectory(prefix='tune_prefill_') as tmp:
         libs = build(_build, variants, pathlib.Path(tmp), args.source)
-        setup = ce_calls if args.source == 'ce_fwd' else prefill_calls
+        setup = {'paged_prefill': prefill_calls, 'ce_fwd': ce_calls,
+                 'qdot_int8': qdot_calls}[args.source]
         calls = setup(torch, libs, variants)
-        reps = 20 if args.source == 'ce_fwd' else 50
+        reps = 50 if args.source == 'paged_prefill' else 20
 
         flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
         times = [{name: [] for name in calls} for _ in variants]
