@@ -56,7 +56,8 @@ Phases, in order; any failure exits non-zero:
    computing the same function (a yardstick the port never calls:
    ``scaled_dot_product_attention`` for attention, its backward through
    autograd, ``matmul`` + ``logsumexp`` for the cross-entropy, ``matmul``
-   with the bf16 dequantized weight for the int8-weight product), by CUDA
+   with the bf16 dequantized weight for the int8-weight product, which
+   is also timed beside ``torch._weight_int8pack_mm``), by CUDA
    events with the L2 cache flushed between launches and a sleep kernel
    ahead of each, so the events time the device's work and not the
    host's enqueueing; plus the least time the card could take for the
@@ -307,8 +308,8 @@ PROFILE_AGGRESSOR, PROFILE_WINDOWS = 1792, 5
 
 # Phase 2: instructions each tensor-core kernel's compiled code must
 # hold (cuobjdump -sass), by source and kernel: wgmma products, TMA tile
-# loads and mbarrier waits in the flash and cross-entropy kernels;
-# mma.sync products and cp.async copies in the paged kernels.
+# loads and mbarrier waits in the flash, cross-entropy and int8-weight
+# kernels; mma.sync products and cp.async copies in the paged kernels.
 _WGMMA_TMA = ('HGMMA', 'UTMALDG', 'SYNCS')
 _MMA_CP_ASYNC = ('HMMA', 'LDGSTS')
 SASS_REQUIRED = {
@@ -318,7 +319,7 @@ SASS_REQUIRED = {
     'ce_fwd': (('ce_fwd_kernel', _WGMMA_TMA),),
     'paged_decode': (('paged_attention_kernel', _MMA_CP_ASYNC),),
     'paged_prefill': (('paged_prefill_kernel', _MMA_CP_ASYNC),),
-    'qdot_int8': (('qdot_int8_kernel', _MMA_CP_ASYNC),)}
+    'qdot_int8': (('qdot_int8_kernel', _WGMMA_TMA),)}
 
 
 def fail(msg: str) -> None:
@@ -999,13 +1000,31 @@ def check_qdot_kernel(torch, quant):
     return {'qdot_int8': (worst,)}
 
 
+def int8pack_call(torch, x, w):
+    """``torch._weight_int8pack_mm``, PyTorch's one call for a W8A16
+    product, on x and the weight transposed to its [N, K] layout (built
+    here, outside any timed call): (call, None), or (None, the reason)
+    when this torch has no CUDA kernel for it."""
+    try:
+        wt = w.q.t().contiguous()
+        torch._weight_int8pack_mm(x, wt, w.scale)
+        torch.cuda.synchronize()
+    except (AttributeError, NotImplementedError, RuntimeError) as exc:
+        reason = f'{type(exc).__name__}: {str(exc).splitlines()[0][:160]}'
+        print(f'torch._weight_int8pack_mm: {reason}', flush=True)
+        return None, reason
+    return (lambda xm: torch._weight_int8pack_mm(xm, wt, w.scale)), None
+
+
 def time_qdot_kernel(torch, quant):
     """Phase 4, the int8-weight product at each 8B weight shape at
-    QDOT_TIMED_ROWS rows: the kernel, its plain version and the library
-    yardstick, ``torch.matmul`` of the same x with the bf16 dequantized
-    weight (what a bf16 server runs, reading twice the weight bytes).
-    Prints the table; returns the kernel line's row (QDOT_MAIN at 64
-    rows, a decode step's product)."""
+    QDOT_TIMED_ROWS rows: the kernel, its plain version and two library
+    yardsticks: ``torch.matmul`` of the same x with the bf16 dequantized
+    weight (what a bf16 server runs, reading twice the weight bytes; the
+    kernel line's ``library_ms``) and ``torch._weight_int8pack_mm`` on
+    the int8 weight (``int8pack_ms``, None with ``int8pack_note`` where
+    the card's torch has no kernel for it). Prints the table; returns the
+    kernel line's row (QDOT_MAIN at 64 rows, a decode step's product)."""
     gen = torch.Generator(device='cuda')
     gen.manual_seed(3)
     flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
@@ -1015,6 +1034,7 @@ def time_qdot_kernel(torch, quant):
             continue
         x, w = qdot_case(torch, quant, gen, k, n)
         wb = w.q.to(torch.bfloat16) * w.scale[None, :]
+        int8pack, note = int8pack_call(torch, x, w)
         for m in QDOT_TIMED_ROWS:
             xm = x[:m]
             r = dict(
@@ -1023,18 +1043,24 @@ def time_qdot_kernel(torch, quant):
                                  5, flush),
                 library_ms=time_ms(torch, lambda: torch.matmul(xm, wb), 20,
                                    flush),
+                int8pack_ms=None if int8pack is None else time_ms(
+                    torch, lambda: int8pack(xm), 20, flush),
+                int8pack_note=note,
                 bound=bound(m * k * 2 + k * n + n * 2 + m * n * 2,
                             2.0 * m * k * n))
             table.append({'weight': name, 'K': k, 'N': n, 'M': m,
                           'splits': quant.cuda_splits(k, n), **r})
             if name == QDOT_MAIN and m == QDOT_TIMED_ROWS[0]:
                 main = r
-        del x, w, wb
+        del x, w, wb, int8pack
     print('qdot_int8 timing (' + card_line() + '): ' + json.dumps(table),
           flush=True)
     for r in table:
+        pack = '—' if r['int8pack_ms'] is None \
+            else f'{r["int8pack_ms"]:.4f}'
         print(f'  qdot_int8 {r["weight"]} M {r["M"]}: {r["ms"]:.4f} ms, '
               f'plain {r["plain_ms"]:.4f}, bf16 matmul {r["library_ms"]:.4f}, '
+              f'_weight_int8pack_mm {pack}, '
               f'bound {r["bound"][0]:.4f} ({r["bound"][1]})', flush=True)
     return {'qdot_int8': main}
 

@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // and the fused cross-entropy forward: mbarriers, TMA tile loads, wgmma
 // shared-memory descriptors and products, register hand-over between
-// warpgroups, and the host-side tensor maps.
+// warpgroups, and the host-side tensor maps. The int8-weight product
+// (qdot_int8.cu) uses them too.
 //
 // Tiles. Every bf16 operand tile is loaded by TMA as 64 x 64 subtiles
 // (64 rows of 128 bytes, 8 KB, 1024-byte aligned) with the 128-byte
 // swizzle; a head_dim-128 row is two such subtiles side by side
-// (columns 0-63, then 64-127, 8 KB apart). One layout serves both ways
-// a wgmma reads a tile:
+// (columns 0-63, then 64-127, 8 KB apart); an int8 tile is 64 rows of
+// 128 one-byte columns in the same 8 KB layout. One layout serves both
+// ways a wgmma reads a tile:
 // - K-major (the reduction runs along the row, as for q and k in
 //   S = q k^T): a 16-wide k step is 32 bytes into the row, or the next
 //   subtile after four steps; 8-row groups are 1024 bytes apart (SBO).
@@ -83,6 +85,26 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
       : "memory");
+}
+
+// The same load with an L2 eviction policy (a createpolicy value).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar),
+      "l"(policy)
+      : "memory");
+}
+
+// An L2 policy that evicts the lines it loads first: for data read once.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
 }
 
 // `bytes` (a multiple of 16, 16-byte aligned ends) from global memory.
@@ -232,6 +254,64 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 64] (+)= A B, A bf16 from registers (a[0..3]), B bf16 from
+// shared memory, K-major (no transpose bit), as for x [M, K] in
+// y^T = w^T x^T.
+__device__ __forceinline__ void wgmma_rs_kb_n64(float (&d)[32],
+                                                const uint32_t* a,
+                                                uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A B, A bf16 from registers (a[0..3]), B bf16 from
+// shared memory, K-major (no transpose bit).
+__device__ __forceinline__ void wgmma_rs_kb_n128(float (&d)[64],
+                                                 const uint32_t* a,
+                                                 uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
 // D[64 x 128] += A B, A bf16 from registers (a[0..3]), B bf16 from
 // shared memory, MN-major (the transpose bit).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
@@ -376,25 +456,40 @@ inline EncodeTiled encode_tiled() {
 constexpr int kNoEncoder = 100000;  // the driver has no cuTensorMapEncodeTiled
 constexpr int kEncodeFailed = 200000;  // + the CUresult
 
-// A map of `rows` contiguous rows of `cols` bf16 (a multiple of 8: the
-// row stride must be a multiple of 16 bytes) in 64 x 64 boxes with the
-// 128-byte swizzle; rows and columns past the end load as zeros, and a
-// box's transaction still counts all its 8 KB. Returns 0 or one of the
-// codes above.
-inline int make_map(CUtensorMap* map, const void* base, uint64_t rows,
-                    int cols) {
+// A map of `rows` contiguous rows of `cols` elements of `bytes` each
+// (the row stride must be a multiple of 16 bytes) in boxes of 64 rows x
+// 128 bytes with the 128-byte swizzle; rows and columns past the end
+// load as zeros, and a box's transaction still counts all its 8 KB.
+// Returns 0 or one of the codes above.
+inline int make_map_of(CUtensorMap* map, CUtensorMapDataType type,
+                       int bytes, const void* base, uint64_t rows,
+                       int cols) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return kNoEncoder;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, 64};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / bytes), 64};
   const cuuint32_t step[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(base), dims, strides, box, step,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                  step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
+}
+
+// bf16 rows (cols a multiple of 8) in 64 x 64 boxes.
+inline int make_map(CUtensorMap* map, const void* base, uint64_t rows,
+                    int cols) {
+  return make_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows,
+                     cols);
+}
+
+// int8 rows (cols a multiple of 16) in boxes of 64 rows x 128 columns.
+inline int make_map_i8(CUtensorMap* map, const void* base, uint64_t rows,
+                       int cols) {
+  return make_map_of(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows,
+                     cols);
 }
 
 }  // namespace hopper

@@ -17,8 +17,9 @@ torch would build a bf16 copy of every weight on every call, reading 8
 GB and writing and reading 16 GB a decode step at 8B, which is slower
 than the bf16 weights themselves. So on CUDA tensors ``qdot`` on a
 :class:`QuantArray` launches ``csrc/qdot_int8.cu``, a W8A16 product that
-stages int8 weight tiles in shared memory, converts them to bf16 on their
-way to the tensor cores and applies the scale to the result. On CPU
+loads int8 weight tiles into shared memory by TMA, converts them to bf16
+on their way into the warpgroup products' register operands and applies
+the scale to the result. On CPU
 tensors it runs the plain version, :func:`qdot_reference`, the
 reference's formula. The wrapper adds one to ``launches['qdot_int8']``
 where it launches the kernel, and nowhere else; a launch recorded into a
@@ -48,7 +49,7 @@ launches: Dict[str, int] = {'qdot_int8': 0}
 captured: Dict[str, int] = dict.fromkeys(launches, 0)
 
 # The products csrc/qdot_int8.cu takes: K a multiple of its 64-deep
-# tile, N a multiple of 16 (its 16-byte copies of weight rows).
+# tile, N a multiple of 16 (a TMA row stride is a multiple of 16 bytes).
 CUDA_K_MULTIPLE = 64
 CUDA_N_MULTIPLE = 16
 
@@ -163,7 +164,8 @@ def _kernel(symbol: str):
 
 def cuda_splits(k: int, n: int) -> int:
     """How many K-splits the kernel runs for a [k, n] weight (fixed by
-    (k, n) alone, never by the row count). Needs the built library."""
+    (k, n) and the card, never by the row count). Needs the built
+    library and a CUDA device."""
     return _kernel('qdot_int8_splits')(k, n)
 
 

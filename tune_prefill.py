@@ -35,9 +35,9 @@ fp32 tolerances and timed at its bench_1b case (T 12288, d 1536,
 V 32768).
 
 ``--source qdot_int8`` does the same for
-``skypilot_tpu_torch/ops/csrc/qdot_int8.cu`` (``kWarps``: warps a
-block, 32 columns each; ``kStages``: the tile ring's depth;
-``kTargetBlocks``, ``kMaxSplits`` and
+``skypilot_tpu_torch/ops/csrc/qdot_int8.cu`` (``kBlocksPerSm`` with
+``kRingBytes``: blocks an SM holds and the shared memory of each one's
+tile ring, so its depth; ``kTargetBlocks``, ``kMaxSplits`` and
 ``kMinStepsPerSplit``: the K-split rule), each variant held against
 ``quant.qdot_reference`` at ``chip_smoke.py``'s ``QDOT_RTOL`` /
 ``QDOT_ATOL_FRAC`` and timed at the 8B weights at a decode step's 64
@@ -64,8 +64,8 @@ DEFAULT_VARIANTS = {
                       'kPagesPerSplit=32', 'kStages=3'],
     'ce_fwd': ['', 'kBN=128,kStages=6', 'kStages=3', 'kTilesPerSplit=16',
                'kTilesPerSplit=64', 'kRaster=1'],
-    'qdot_int8': ['', 'kWarps=8', 'kStages=4', 'kTargetBlocks=396',
-                  'kMaxSplits=4', 'kMinStepsPerSplit=8'],
+    'qdot_int8': ['', 'kBlocksPerSm=1,kRingBytes=196608',
+                  'kTargetBlocks=132', 'kMaxSplits=4', 'kMinStepsPerSplit=8'],
 }
 
 
