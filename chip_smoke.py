@@ -69,7 +69,7 @@ Phases, in order; any failure exits non-zero:
    --model 8b --slots 8 --max-seq-len 2048 --spec-k 4`` (full width and
    depth, random weights from a seed; the server's default control loop:
    fcfs, pipeline depth 1, the decode and verify steps replayed as CUDA
-   graphs) in a subprocess, serves
+   graphs; ``--paged``, the paged cache) in a subprocess, serves
    mixed-length requests (one streamed) twice through ``/generate``, then
    a burst of short prompts that decodes on all 8 slots; checks token
    counts and that a repeated greedy request gives the same tokens,
@@ -141,6 +141,28 @@ Phases, in order; any failure exits non-zero:
    ``--quantize --spec-k 4`` as in phase 5 (a repeated greedy request,
    ``"spec": false`` vs on, ``qdot_int8`` launched), its TTFT, time
    between tokens and tokens/s printed beside the bf16 server's.
+5g. The dense KV cache (the reference server's default) at full 8B width
+   and depth. Phase 3 has held the prefill kernel over the dense cache's
+   page view (identity rows of 32 and 128 pages) at C 16, 64 and 256,
+   offsets up to 1792 and 7936, and decode and verify over identity rows
+   (3 of 128 pages at contexts up to 8192, 16 of 32 pages), and phase 4
+   timed prefill at C 16 and at the 128-page row. In process, bf16, 5b's prompts on 8 dense slots: depth
+   0 eager vs depth 1 with graphs, speculation on (the oracle drafter)
+   and fused on, every token list identical; one decode and one verify
+   graph, at most three chunk and three mixed graphs; the decode,
+   prefill and verify kernels launched (``launches_dense`` in the kernel
+   line); the paged engine on the same weights may part from the dense
+   tokens only at a near-tie (printed). Then the replica at the
+   reference's ``examples/serve_llm.yaml`` single-chip flags with its
+   long tier (``--model 8b --quantize --slots 16 --max-seq-len 2048
+   --long-slots 2 --long-seq-len 8192 --spec-k 4``, no ``--paged``):
+   ``coldstart.compiled`` only after both tiers' warm-up, each tier's
+   every greedy program (a chunk graph a bucket, decode, verify)
+   captured before ready, phase 5's
+   burst, ``paged: false``, and a 3,000-token prompt (twice) routed to
+   the long tier with an in-process long-tier engine's tokens; prints
+   the time between tokens, tokens/s, the long prompt's warm TTFT and
+   each tier's KV bytes beside the card.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -167,8 +189,9 @@ card). ``--kernels-only`` stops after phase 3; ``--profile`` adds, at
 the end, ``torch.profiler`` breakdowns of decode steps and of verify
 steps (bf16 and int8 pages; the synchronous eager loop, then the default
 one with CUDA graphs) of an in-process engine, of decode steps with int8
-weights (the ``qdot_int8`` kernel's share), of mixed steps and of
-standalone prefill chunks (eager and with their graphs), the decode step
+weights (the ``qdot_int8`` kernel's share) and over the dense cache
+(also with int8 weights at 8 and at 16 dense slots, 5g's short tier),
+of mixed steps and of standalone prefill chunks (eager and with their graphs), the decode step
 with the flight recorder on and off, and of a bench_1b training step.
 Subprocess logs go to
 ``chiprun_out/chip_smoke_*.log``.
@@ -247,6 +270,38 @@ FUSED_AGGRESSOR, FUSED_SHORT = 768, 16
 PREFIX_SYSTEM, PREFIX_TAIL, PREFIX_TAILS = 1024, 16, 8
 PREFIX_LONG, PREFIX_NEW, PREFIX_POOL = 1792, 40, 52
 POOL_CUT = 21
+# Phase 5g: the dense cache (the reference server's default). Its page
+# view reads whole slots: a 2048-row slot is 32 pages of 64, a slot of
+# the long tier (8192 rows) a table row of 128 pages. Chunks take the
+# reference's buckets (16, 64, 256) at offsets that are multiples of the
+# 256-token cap: phase 3 holds the prefill kernel at C 16 and 64 and at
+# the 128-page row, offsets up to the last chunk of each tier.
+LONG_SEQ = 8192
+DENSE_PREFILL_CASES = [  # (slot rows, C, offset, true_len)
+    (MAX_SEQ, 16, 0, 16), (MAX_SEQ, 16, 1792, 11), (MAX_SEQ, 64, 1792, 50),
+    (MAX_SEQ, 256, 1792, 256), (LONG_SEQ, 16, 1792, 16),
+    (LONG_SEQ, 64, 7936, 64), (LONG_SEQ, 256, 7936, 256),
+    (LONG_SEQ, 256, 1792, 200)]
+# Decode and verify over the dense view, one identity row a length
+# (slot rows, lengths): the long tier's 128-page rows at a 3,000-token
+# context, the long tier's last chunk and its end, and the short tier's
+# 16 slots of 32 pages. The first verify slot's run passes its row's end
+# (capped there) with the next slot's pages right after it.
+DENSE_SHORT_LENGTHS = [1, 16, 17, 63, 64, 65, 255, 256, 257, 1000, 1500,
+                       1792, 1808, 2000, 2040, MAX_SEQ]
+DENSE_DECODE_CASES = [(LONG_SEQ, [3000, 7936, LONG_SEQ]),
+                      (MAX_SEQ, DENSE_SHORT_LENGTHS)]
+DENSE_VERIFY_CASES = [(LONG_SEQ, [LONG_SEQ - 2, 3000, 7936]),
+                      (MAX_SEQ, [MAX_SEQ - 2] + DENSE_SHORT_LENGTHS[:-1])]
+# The reference's default chunk buckets, which the dense cache keeps.
+DENSE_BUCKETS = (16, 64, 256)
+# 5g(b): the reference's examples/serve_llm.yaml single-chip variant with
+# its long-context tier (examples/serve_llm_longctx.yaml), no --paged; a
+# prompt past the short tier's 2047 tokens routes to the long one.
+DENSE_REPLICA = ['--model', '8b', '--quantize', '--slots', '16',
+                 '--max-seq-len', str(MAX_SEQ), '--long-slots', '2',
+                 '--long-seq-len', str(LONG_SEQ)]
+DENSE_LONG_PROMPT = 3000
 # A preempted request resumes by recomputing its K/V through prefill,
 # whose products run at other shapes than the decode and verify steps'
 # (so cuBLAS may round them differently): its tokens after the resume may
@@ -653,6 +708,99 @@ def check_kernels(torch, pa):
     return results
 
 
+def dense_prefill_case(torch, gen, rows, C):
+    """A prefill case over the dense cache's page view at the 8B shapes:
+    two slots of ``rows`` rows in pages of PAGE, the chunk in slot 1,
+    whose identity row lists pages rows / PAGE .. 2 rows / PAGE - 1."""
+    per = rows // PAGE
+    shape = (HKV, 2 * per, PAGE, HD)
+    k_pages = torch.randn(shape, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    v_pages = torch.randn(shape, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    q = torch.randn((C, HKV, GROUP, HD), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    row = torch.arange(per, 2 * per, dtype=torch.int32, device='cuda')
+    return q, k_pages, v_pages, row
+
+
+def check_dense_prefill(torch, pa):
+    """Phase 3 for the dense cache's chunks (``DENSE_PREFILL_CASES``): the
+    prefill kernel at C 16 and 64 (the reference's small buckets, which
+    the paged ladder never launches) and 256, over 32-page and 128-page
+    identity rows, offsets up to the last chunk of each tier; each
+    against its plain version and its device-scalar entry bitwise the
+    host-scalar one (``prefill_err``). Returns the C-16 case and the
+    128-page case for phase 4, as {name: (max_abs_err, inputs, offset,
+    true_len)}."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(5)
+    worst, out = 0.0, {}
+    for rows, C, off, tl in DENSE_PREFILL_CASES:
+        case = dense_prefill_case(torch, gen, rows, C)
+        err = prefill_err(torch, pa, case, off, tl)
+        if err > ATOL:
+            fail(f'paged_prefill disagrees with its plain version over the '
+                 f'dense view: rows {rows}, C {C}, offset {off}, true_len '
+                 f'{tl}: {err}')
+        worst = max(worst, err)
+        if (rows, C, off) == (MAX_SEQ, 16, 1792):
+            out['paged_prefill_c16'] = (err, case, off, C)
+        if (rows, C, off) == (LONG_SEQ, 256, 7936):
+            out['paged_prefill_128p'] = (err, case, off, tl)
+    print(f'paged_prefill vs plain over the dense view (identity rows of '
+          f'{MAX_SEQ // PAGE} and {LONG_SEQ // PAGE} pages; (rows, C, '
+          f'offset, true_len) {DENSE_PREFILL_CASES}): max_abs_err='
+          f'{worst:.3e} (atol {ATOL}); device-scalar entry bitwise',
+          flush=True)
+    return out
+
+
+def dense_attention_case(torch, gen, lengths, rows, R=0):
+    """A decode (R 0) or verify (R queries a slot) case over the dense
+    cache's page view at the 8B shapes: a slot of ``rows`` rows in pages
+    of PAGE per length, its table the slot's identity row."""
+    from skypilot_tpu_torch.infer import cache as cache_lib
+    slots = len(lengths)
+    shape = (HKV, slots * rows // PAGE, PAGE, HD)
+    k_pages = torch.randn(shape, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    v_pages = torch.randn(shape, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    qshape = (slots,) + ((R,) if R else ()) + (HKV, GROUP, HD)
+    q = torch.randn(qshape, generator=gen, device='cuda').to(torch.bfloat16)
+    tables = cache_lib.identity_tables(slots, rows, PAGE, 'cuda')
+    lengths = torch.tensor(lengths, dtype=torch.int32, device='cuda')
+    return q, k_pages, v_pages, tables, lengths
+
+
+def check_dense_attention(torch, pa) -> None:
+    """Phase 3 for the dense cache's decode and verify steps
+    (``DENSE_DECODE_CASES``, ``DENSE_VERIFY_CASES``): each kernel over
+    identity rows against its plain version at ATOL, and every verify
+    query bitwise the decode kernel at lengths + i + 1 (``verify_err``)."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(6)
+    worst = {'paged_decode': 0.0, 'paged_verify': 0.0}
+    for name, cases, R, err_of in (
+            ('paged_decode', DENSE_DECODE_CASES, 0, decode_err),
+            ('paged_verify', DENSE_VERIFY_CASES, VERIFY_R, verify_err)):
+        for rows, lengths in cases:
+            err = err_of(torch, pa, dense_attention_case(torch, gen, lengths,
+                                                         rows, R))
+            if err > ATOL:
+                fail(f'{name} disagrees with its plain version over the '
+                     f'dense view: {len(lengths)} rows of {rows // PAGE} '
+                     f'pages, lengths {lengths}: {err}')
+            worst[name] = max(worst[name], err)
+    print(f'paged_decode and paged_verify (R {VERIFY_R}) vs plain over the '
+          f'dense view (identity rows; decode (rows, lengths) '
+          f'{DENSE_DECODE_CASES}, verify {DENSE_VERIFY_CASES}): max_abs_err '
+          f'decode {worst["paged_decode"]:.3e}, verify '
+          f'{worst["paged_verify"]:.3e} (atol {ATOL}); every verify query '
+          f'bitwise decode', flush=True)
+
+
 def check_spec_int8_kernels(torch, pa):
     """Phase 3 for the verify kernel and the int8 flavors: at the 8B
     shapes, then at every head_dim x group x page size (x query count for
@@ -803,9 +951,10 @@ def time_prefill(torch, pa, case, kw, off, tl, flush):
         *case, off, tl, **kw), 10, flush)
     S = off + C
     kd, vd = dequantized(torch, kp, vp, kw)
-    idx = row[:S // PAGE].long()
-    kg = kd[:, idx].reshape(1, HKV, S, HD)
-    vg = vd[:, idx].reshape(1, HKV, S, HD)
+    npg = -(-S // PAGE)
+    idx = row[:npg].long()
+    kg = kd[:, idx].reshape(1, HKV, npg * PAGE, HD)[:, :, :S].contiguous()
+    vg = vd[:, idx].reshape(1, HKV, npg * PAGE, HD)[:, :, :S].contiguous()
     qs = q.reshape(C, hq, HD).permute(1, 0, 2)[None].contiguous()
     mask = (torch.arange(S, device='cuda')[None, :]
             <= off + torch.arange(C, device='cuda')[:, None])
@@ -1181,8 +1330,8 @@ def serve_and_check(base: str, vocab: int, card: str, kernels, label: str):
     _, raw = http_json(base + '/metrics')
     before = json.loads(raw)['kernel_launches']
 
-    # The first burst meets each prefill bucket's shapes for the first
-    # time since the one-token warm-up; the second runs them warm.
+    # The first burst is the first live run of each prefill bucket's
+    # program (captured at warm-up); the second runs them warm.
     cold, cold_wall = burst(base, prompts, new, vocab, stream_last=True)
     warm, warm_wall = burst(base, prompts, new, vocab, stream_last=True)
     # Greedy determinism: the first request alone gives the same tokens.
@@ -1219,14 +1368,15 @@ def serve_and_check(base: str, vocab: int, card: str, kernels, label: str):
         'speculation': spec,
         'decode_steps': metrics['decode_steps'],
         'decode_tokens': metrics['decode_tokens'],
-        'kv_dtype': metrics['kv_dtype'],
-        'kv_page_bytes': metrics['kv_page_bytes'],
+        'kv_dtype': metrics.get('kv_dtype'),
+        'kv_page_bytes': metrics.get('kv_page_bytes'),
         'kernel_launches': launches,
-        **{k: metrics[k] for k in ('scheduler', 'pipeline_depth',
-                                   'cuda_graphs', 'step_programs',
-                                   'preemptions')},
+        **{k: metrics.get(k) for k in ('scheduler', 'pipeline_depth',
+                                       'cuda_graphs', 'step_programs',
+                                       'preemptions', 'paged',
+                                       'kv_cache_bytes')},
     }
-    print(f'end to end (Llama-3-8B, random weights, 8 slots, {label}, '
+    print(f'end to end (Llama-3-8B, random weights, {label}, '
           + card + '): ' + json.dumps(summary), flush=True)
     if metrics['pipeline_depth'] != 1 or not metrics['cuda_graphs']:
         fail(f'the server did not run its default loop (depth 1, CUDA '
@@ -1285,8 +1435,8 @@ def served(args, log_name: str):
 
 
 def run_server(card: str, flags, log_name: str, kernels, label: str):
-    with served(['--model', '8b', '--slots', '8', '--max-seq-len',
-                 str(MAX_SEQ), *flags], log_name) as base:
+    with served(['--model', '8b', '--paged', '--slots', '8',
+                 '--max-seq-len', str(MAX_SEQ), *flags], log_name) as base:
         return serve_and_check(base, 128_256, card, kernels, label)
 
 
@@ -1387,7 +1537,7 @@ def serving_in_process(torch, pa, card: str):
         """One engine over ``prompts``: its tokens and what it did."""
         eng = engine_lib.InferenceEngine(
             cfg, params, engine_lib.EngineConfig(
-                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                n_slots=8, max_seq_len=MAX_SEQ, paged=True, page_size=PAGE,
                 kv_dtype=kv_dtype, pipeline_depth=depth,
                 cuda_graphs=graphs, n_pages=n_pages,
                 spec_k=VERIFY_R - 1 if oracle else 0),
@@ -1595,7 +1745,7 @@ def fused_in_process(torch, pa, card: str):
         """One engine over the workload: its tokens and what it did."""
         eng = engine_lib.InferenceEngine(
             cfg, params, engine_lib.EngineConfig(
-                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                n_slots=8, max_seq_len=MAX_SEQ, paged=True, page_size=PAGE,
                 kv_dtype=kv_dtype, pipeline_depth=depth,
                 cuda_graphs=graphs, fused_prefill=fused,
                 sdc_sentinel=sentinel,
@@ -1690,7 +1840,7 @@ def fused_in_process(torch, pa, card: str):
     poisoned['embed'][bad] = float('nan')
     nan_eng = engine_lib.InferenceEngine(
         cfg, poisoned, engine_lib.EngineConfig(
-            n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+            n_slots=8, max_seq_len=MAX_SEQ, paged=True, page_size=PAGE,
             pipeline_depth=1, fused_prefill=True),
         seed=0, device='cuda')
     victim = nan_eng.submit(prompts[0], SPEC_NEW)
@@ -1827,7 +1977,7 @@ def prefix_in_process(torch, pa, card: str):
                n_pages=PREFIX_POOL):
         return engine_lib.InferenceEngine(
             cfg, params, engine_lib.EngineConfig(
-                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                n_slots=8, max_seq_len=MAX_SEQ, paged=True, page_size=PAGE,
                 kv_dtype=kv_dtype, pipeline_depth=depth, cuda_graphs=graphs,
                 n_pages=n_pages, prefix_cache=prefix, fused_prefill=fused,
                 spec_k=VERIFY_R - 1 if spec else 0),
@@ -2165,7 +2315,7 @@ def int8_weights_in_process(torch, pa, quant, card: str):
         None: 5d's workload, the aggressor mid-decode)."""
         eng = engine_lib.InferenceEngine(
             cfg, qparams, engine_lib.EngineConfig(
-                n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+                n_slots=8, max_seq_len=MAX_SEQ, paged=True, page_size=PAGE,
                 pipeline_depth=depth, cuda_graphs=graphs,
                 fused_prefill=bool(fused), quantize=True,
                 spec_k=VERIFY_R - 1 if oracle else 0),
@@ -2260,6 +2410,220 @@ def int8_weights_in_process(torch, pa, quant, card: str):
 # ---------------------------------------------------------------------------
 # --profile: where a decode step's time goes
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Phase 5g: the dense cache and the two-tier pool
+# ---------------------------------------------------------------------------
+DENSE_KERNELS = ('paged_decode_attention', 'paged_prefill_attention',
+                 'paged_verify_attention')
+
+
+def dense_in_process(torch, pa, card: str):
+    """5g(a), in process at full 8B width and depth (random weights, seed
+    0), 5b's 8 prompts x SPEC_NEW new tokens on 8 slots of the dense
+    cache (bf16, the reference's buckets 16/64/256): depth 0 eager is the
+    reference; depth 1 with CUDA graphs, speculation on (the oracle
+    drafter, depth 1, graphs) and fused on (depth 1, graphs) must give
+    its tokens exactly; step programs one decode and one verify graph, at
+    most three chunk and three mixed graphs; the dense runs' decode,
+    prefill and verify launches (counted from 0 before the first, read
+    after the last) all non-zero. Then the paged engine on the same
+    weights (depth 1, graphs): its tokens may part from the dense ones
+    only at a near-tie (NEAR_TIE) of the dense continuation's top-2
+    logits, each parting printed. Returns (summary, launches)."""
+    import random
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import model as model_lib
+    from skypilot_tpu_torch.infer import paged_cache as pc_lib
+    from skypilot_tpu_torch.models import llama
+    t0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, 'cuda')
+    rnd = random.Random(4)
+    prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in SPEC_PROMPT_LENGTHS]
+
+    def run(depth, graphs, oracle=None, fused=False, paged=False):
+        eng = engine_lib.InferenceEngine(
+            cfg, params, engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ, paged=paged, page_size=PAGE,
+                pipeline_depth=depth, cuda_graphs=graphs,
+                fused_prefill=fused, spec_k=VERIFY_R - 1 if oracle else 0),
+            seed=0, device='cuda')
+        if oracle:
+            eng._drafter = OracleDrafter(prompts, oracle, prompts[1::2],
+                                         ORACLE_WRONG_AT, cfg.vocab_size)
+        t1 = time.perf_counter()
+        tokens = [r.output_tokens for r in eng.generate(prompts, SPEC_NEW)]
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        out = {'tokens': tokens, 'wall_s': time.perf_counter() - t1,
+               **{k: m.get(k) for k in (
+                   'paged', 'step_programs', 'decode_steps', 'fused_steps',
+                   'spec_accepted_tokens', 'cuda_graphs',
+                   'kv_cache_bytes')}}
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    pa.reset_launches()
+    base = run(0, False)
+    fast = run(1, True)
+    spec = run(1, True, oracle=base['tokens'])
+    fused = run(1, True, fused=True)
+    launches = {k: v for k, v in pa.launches.items() if v}
+    paged = run(1, True, paged=True)
+
+    def parted(a, b):
+        return [(i, next((j for j, (x, y) in enumerate(zip(p, q))
+                          if x != y), min(len(p), len(q))))
+                for i, (p, q) in enumerate(zip(a, b)) if p != q]
+
+    ties = []
+    rope = model_lib.rope_tables(cfg, 'cuda')
+    for i, j in parted(base['tokens'], paged['tokens']):
+        logits, cache, _ = prefill_logits(torch, model_lib, pc_lib, cfg,
+                                          params, rope,
+                                          prompts[i] + base['tokens'][i][:j],
+                                          torch.bfloat16)
+        del cache
+        top2 = torch.topk(logits.float(), 2).values.tolist()
+        ties.append({'request': i, 'step': j, 'margin': top2[0] - top2[1],
+                     'top_logit': top2[0]})
+    brief = {name: {k: v for k, v in r.items() if k != 'tokens'}
+             for name, r in (('depth0_eager', base), ('depth1_graphs', fast),
+                             ('spec_depth1_graphs', spec),
+                             ('fused_depth1_graphs', fused),
+                             ('paged_depth1_graphs', paged))}
+    summary = {'card': card, 'prompt_tokens': SPEC_PROMPT_LENGTHS,
+               'max_new_tokens': SPEC_NEW, **brief,
+               'parted_depth': parted(base['tokens'], fast['tokens']),
+               'parted_spec': parted(base['tokens'], spec['tokens']),
+               'parted_fused': parted(base['tokens'], fused['tokens']),
+               'dense_vs_paged_near_ties': ties,
+               'dense_launches': launches,
+               'wall_s': time.perf_counter() - t0}
+    print('dense cache in process (Llama-3-8B, random weights, 8 slots, '
+          'bf16, ' + card + '): ' + json.dumps(summary), flush=True)
+    for key in ('parted_depth', 'parted_spec', 'parted_fused'):
+        if summary[key]:
+            fail(f'dense: {key}: {summary[key]} (must be bitwise)')
+    if spec['spec_accepted_tokens'] < 1 or fused['fused_steps'] < 1:
+        fail('dense: the oracle run accepted no draft or the fused run '
+             'fused no step: the check is vacuous')
+    for t in ties:
+        if t['margin'] > NEAR_TIE * abs(t['top_logit']):
+            fail(f'dense parted from paged away from a near-tie: {t}')
+    for name, r in (('depth 1', fast), ('spec', spec), ('fused', fused)):
+        c = r['step_programs']
+        if not (r['cuda_graphs'] and r['paged'] is False
+                and c['decode'] == 1 and c.get('verify', 1) == 1
+                and 1 <= c['prefill'] <= 3 and c.get('mixed', 0) <= 3):
+            fail(f'dense {name}: step programs {c}, graphs '
+                 f'{r["cuda_graphs"]}, paged {r["paged"]}')
+    if any(launches.get(k, 0) <= 0 for k in DENSE_KERNELS):
+        fail(f'a paged kernel was not launched on the dense path (a '
+             f'fallback?): {launches}')
+    del params
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def dense_replica(torch, quant, card: str):
+    """5g(b)-(d): the replica at DENSE_REPLICA with ``--spec-k 4`` and no
+    ``--paged`` (a dense tier of 16 x 2048 and a long one of 2 x 8192 over
+    one int8 copy of the weights). (c): ``coldstart.compiled`` must come
+    after both tiers' warm-up requests finished, and at ready each tier
+    must hold every greedy step program (a chunk graph per DENSE_BUCKETS
+    entry, decode, verify). (b): phase 5's burst
+    (``serve_and_check``, ``/metrics`` must say ``paged: false``), then a
+    DENSE_LONG_PROMPT-token prompt, twice, which must route to the long
+    tier (its request id's residue and the tier's decode tokens) and give
+    the tokens of an in-process engine of the long tier's shape on the
+    same int8 weights. (d): prints the burst's time between tokens and
+    tokens/s, the long prompt's warm TTFT and each tier's KV bytes beside
+    the card. Returns the replica's kernel launches."""
+    import random
+    from skypilot_tpu_torch.infer import server as server_lib
+    rnd = random.Random(7)
+    vocab = server_lib.MODELS['8b']().vocab_size
+    long_prompt = [rnd.randrange(vocab) for _ in range(DENSE_LONG_PROMPT)]
+    new = 32
+    with served([*DENSE_REPLICA, '--spec-k', str(VERIFY_R - 1)],
+                'chip_smoke_server_dense_pool.log') as base:
+        _, raw = http_json(base + '/debug/stepline')
+        events = json.loads(raw)['events']
+        done = {e['request_id']: e['t'] for e in events
+                if e['event'] == 'done'}
+        compiled = [e['t'] for e in events
+                    if e['event'] == 'coldstart.compiled']
+        # Warm-up ids: tier 0 counts 1, 3, ..., tier 1 counts 2, 4, ...
+        if not (compiled and 1 in done and 2 in done
+                and max(done[1], done[2]) <= compiled[0]):
+            fail(f'coldstart.compiled came before both tiers were warm: '
+                 f'done {done}, compiled {compiled}')
+        # Every tier captured each greedy program before it turned ready:
+        # a chunk graph per bucket, decode and verify.
+        _, raw = http_json(base + '/metrics')
+        warmed = [t['step_programs'] for t in json.loads(raw)['tiers']]
+        if any(c != {'prefill': len(DENSE_BUCKETS), 'decode': 1,
+                     'verify': 1} for c in warmed):
+            fail(f'a tier turned ready before every step program was '
+                 f'captured: {warmed}')
+        launches, summary = serve_and_check(
+            base, vocab, card, ('qdot_int8',) + DENSE_KERNELS,
+            'dense two-tier pool, int8 weights, spec_k 4')
+        _, raw = http_json(base + '/metrics')
+        before = json.loads(raw)
+        answers = []
+        for _ in range(2):
+            status, raw = http_json(base + '/generate', {
+                'tokens': long_prompt, 'max_new_tokens': new})
+            answers.append(json.loads(raw))
+        _, raw = http_json(base + '/metrics')
+        m = json.loads(raw)
+    tiers = m['tiers']
+    long_tokens = tiers[1]['decode_tokens'] - before['tiers'][1][
+        'decode_tokens']
+    qparams = server_lib.random_params(
+        server_lib.MODELS['8b'](), 0, torch.device('cuda'), quantize=True)
+    eng = server_lib.build_engine('8b', 2, LONG_SEQ, PAGE, None, 'cuda',
+                                  seed=1, spec_k=VERIFY_R - 1,
+                                  params=qparams)
+    [want] = eng.generate([long_prompt], new)
+    del eng, qparams
+    torch.cuda.empty_cache()
+    out = {'card': card, 'flags': DENSE_REPLICA + ['--spec-k', '4'],
+           'paged': m['paged'],
+           'itl_p50_ms': summary['decode_burst']['itl_p50_ms'],
+           'tokens_per_sec': summary['decode_burst']['tokens_per_sec'],
+           'ttft_warm_p50_s': summary['ttft_warm_p50_s'],
+           'long_prompt_tokens': DENSE_LONG_PROMPT,
+           'long_ttft_s': [a['ttft_s'] for a in answers],
+           'long_ttft_warm_s': answers[1]['ttft_s'],
+           'long_request_ids': [a['request_id'] for a in answers],
+           'long_tier_decode_tokens': long_tokens,
+           'kv_cache_bytes': {f'{t["n_slots"]}x{t["max_seq_len"]}':
+                              t['kv_cache_bytes'] for t in tiers},
+           'param_bytes': m['param_bytes'],
+           'step_programs_at_ready': warmed,
+           'step_programs': [t['step_programs'] for t in tiers]}
+    print('dense two-tier replica (Llama-3-8B, int8 weights, random, '
+          + card + '): ' + json.dumps(out), flush=True)
+    if m['paged'] is not False or any(t['paged'] for t in tiers):
+        fail(f'the replica without --paged is not dense: {m["paged"]}')
+    if any((a['request_id'] - 1) % 2 != 1 for a in answers) \
+            or long_tokens != sum(len(a['tokens']) for a in answers):
+        fail(f'the long prompt did not route to the long tier: ids '
+             f'{out["long_request_ids"]}, long-tier tokens {long_tokens}')
+    for a in answers:
+        if a['tokens'] != want.output_tokens:
+            fail(f'the long tier\'s tokens differ from the in-process '
+                 f'engine\'s: {a["tokens"][:8]} vs {want.output_tokens[:8]}')
+    return launches
+
+
 def _kernel_kind(name: str) -> str:
     low = name.lower()
     if 'paged_prefill_kernel' in low:
@@ -2293,9 +2657,11 @@ LAUNCH_APIS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
 
 
 def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
-                   graphs: bool, depth: int, quantize: bool = False) -> None:
-    """An in-process 8B engine (``kv_dtype`` pages, pipeline ``depth``,
-    the step's CUDA graph on or off) with all 8 slots at PROFILE_PROMPT
+                   graphs: bool, depth: int, quantize: bool = False,
+                   paged: bool = True, slots: int = 8) -> None:
+    """An in-process 8B engine (``kv_dtype`` pages, or with ``paged``
+    False the dense cache; pipeline ``depth``,
+    the step's CUDA graph on or off) with all ``slots`` slots at PROFILE_PROMPT
     tokens of context, stepping decode steps or (``verify``, spec_k
     VERIFY_R - 1 with :class:`RepeatDrafter`) verify steps: the
     host-clock time of a step over PROFILE_STEPS steps (and, for eager
@@ -2313,8 +2679,8 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
     from torch.profiler import ProfilerActivity, profile
     from skypilot_tpu_torch.infer import model as model_lib
     from skypilot_tpu_torch.infer import server as server_lib
-    eng = server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None, 'cuda',
-                                  kv_dtype=kv_dtype,
+    eng = server_lib.build_engine('8b', slots, MAX_SEQ, PAGE, None, 'cuda',
+                                  paged=paged, kv_dtype=kv_dtype,
                                   spec_k=VERIFY_R - 1 if verify else 0,
                                   pipeline_depth=depth, cuda_graphs=graphs,
                                   quantize=quantize)
@@ -2337,7 +2703,7 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
     step_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
     narrow_ms = None
     if kv_dtype == 'bfloat16' and not verify and not graphs \
-            and not quantize:
+            and not quantize and paged:
         rows, model_lib.STEP_ROWS = model_lib.STEP_ROWS, 1
         try:
             eng.step()
@@ -2383,15 +2749,16 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
     kinds = {}
     for name, (ms, _) in kernels.items():
         kinds[_kernel_kind(name)] = kinds.get(_kernel_kind(name), 0) + ms
-    paged = [(ms, c) for name, (ms, c) in kernels.items()
-             if _kernel_kind(name) == 'paged_decode_attention']
+    attn = [(ms, c) for name, (ms, c) in kernels.items()
+            if _kernel_kind(name) == 'paged_decode_attention']
     qdot = [(ms, c) for name, (ms, c) in kernels.items()
             if _kernel_kind(name) == 'qdot_int8']
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:15]
     step = 'verify' if verify else 'decode'
     print(f'{step} step profile (Llama-3-8B, '
-          f'{"int8 weights, " if quantize else ""}{kv_dtype} pages, 8 slots '
+          f'{"int8 weights, " if quantize else ""}{kv_dtype} '
+          f'{"pages" if paged else "dense cache"}, {slots} slots '
           f'at {PROFILE_PROMPT} tokens'
           + (f', spec_k {VERIFY_R - 1}' if verify else '')
           + f', depth {depth}, CUDA graphs {"on" if graphs else "off"}, '
@@ -2408,9 +2775,9 @@ def profile_decode(torch, pa, card: str, kv_dtype: str, verify: bool,
               'device_busy_share': busy * n / window_ms,
               'device_busy_share_unprofiled': busy / step_ms,
               'kernel_launches_per_step': sum(c for _, c in kernels.values()),
-              f'paged_{step}_kernel_ms_per_step': sum(ms for ms, _ in paged),
+              f'paged_{step}_kernel_ms_per_step': sum(ms for ms, _ in attn),
               f'paged_{step}_kernel_launches_per_step':
-                  sum(c for _, c in paged),
+                  sum(c for _, c in attn),
               'paged_kernel_wrapper_count_per_step': wrapper / n,
               'qdot_int8_ms_per_step': sum(ms for ms, _ in qdot),
               'qdot_int8_launches_per_step': sum(c for _, c in qdot),
@@ -2450,7 +2817,7 @@ def profile_chunks(torch, pa, card: str, mixed: bool, graphs: bool) -> None:
     gen.manual_seed(0)
     eng = engine_lib.InferenceEngine(
         cfg, llama.init_params(cfg, gen, 'cuda'), engine_lib.EngineConfig(
-            n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE,
+            n_slots=8, max_seq_len=MAX_SEQ, paged=True, page_size=PAGE,
             pipeline_depth=1 if graphs else 0, cuda_graphs=graphs,
             fused_prefill=mixed, prefill_chunks_per_step=1),
         seed=0, device='cuda')
@@ -2539,7 +2906,7 @@ def profile_recorder(torch, card: str) -> None:
     import random
     from skypilot_tpu_torch.infer import server as server_lib
     engines = {on: server_lib.build_engine('8b', 8, MAX_SEQ, PAGE, None,
-                                           'cuda', stepline=on)
+                                           'cuda', paged=True, stepline=on)
                for on in (True, False)}
     rnd = random.Random(2)
     for eng in engines.values():
@@ -2949,8 +3316,8 @@ def serve_checkpoint_int8(torch, quant, card: str, ckpt: str):
     prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
                for n in (17, 64, 100, 300, 5, 129, 256, 700)]
     new = 32
-    with served(['--model', '350m', '--checkpoint', ckpt, '--quantize',
-                 '--slots', '8', '--max-seq-len', str(MAX_SEQ)],
+    with served(['--model', '350m', '--paged', '--checkpoint', ckpt,
+                 '--quantize', '--slots', '8', '--max-seq-len', str(MAX_SEQ)],
                 'chip_smoke_server_350m_ckpt.log') as base:
         served_out, _ = burst(base, prompts, new, cfg.vocab_size)
         _, raw = http_json(base + '/metrics')
@@ -2960,7 +3327,8 @@ def serve_checkpoint_int8(torch, quant, card: str, ckpt: str):
     del restored
     eng = engine_lib.InferenceEngine(
         cfg, qparams, engine_lib.EngineConfig(
-            n_slots=8, max_seq_len=MAX_SEQ, page_size=PAGE, quantize=True),
+            n_slots=8, max_seq_len=MAX_SEQ, paged=True, page_size=PAGE,
+            quantize=True),
         seed=0, device='cuda')
     local = [r.output_tokens for r in eng.generate(prompts, new)]
     del eng, qparams
@@ -3082,9 +3450,21 @@ def main() -> int:
                     or 'Compiling entry' in line or 'arning' in line:
                 print(f'  {name}: {line.strip()}', flush=True)
     check_sass(_build)
+    # A CUDA graph keeps the split kernels' workspace pointers: size the
+    # workspaces for the widest launch any engine or check in this
+    # process makes (8 slots of 32 pages; the dense cases' 16 slots of 32
+    # pages and 3 of 128; a 256-token chunk over the long tier's 128-page
+    # row) before anything is captured.
+    pa.reserve_split_scratch('cuda', 8, HKV, HD, MAX_SEQ // PAGE)
+    for rows, lengths in DENSE_DECODE_CASES + DENSE_VERIFY_CASES:
+        pa.reserve_split_scratch('cuda', len(lengths), HKV, HD, rows // PAGE)
+    pa.reserve_prefill_scratch('cuda', HKV, PREFILL_C * GROUP, HD,
+                               LONG_SEQ // PAGE)
 
     # Phase 3: kernels vs their plain versions.
     checked = check_kernels(torch, pa)
+    dense_checked = check_dense_prefill(torch, pa)
+    check_dense_attention(torch, pa)
     checked.update(check_spec_int8_kernels(torch, pa))
     checked.update(check_qdot_kernel(torch, quant))
     checked.update(check_training_kernels(torch, att, ce))
@@ -3105,6 +3485,13 @@ def main() -> int:
     timed.update(time_spec_int8_kernels(torch, pa, checked))
     timed.update(time_qdot_kernel(torch, quant))
     timed.update(time_training_kernels(torch, att, ce, checked))
+    # The dense cache's chunks: C 16 at offset 1792 (the 16-token bucket),
+    # and a 256-token chunk at offset 7936 over a 128-page row.
+    flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
+    dense_timed = {name: time_prefill(torch, pa, case, {}, off, tl, flush)
+                   for name, (_, case, off, tl) in dense_checked.items()}
+    print_timed(dense_timed)
+    del flush, dense_checked
     for key in checked:              # keep the errors, free the inputs
         checked[key] = (checked[key][0],)
     torch.cuda.empty_cache()
@@ -3113,12 +3500,12 @@ def main() -> int:
     launches, bf16 = run_server(
         card, ['--spec-k', str(VERIFY_R - 1)], 'chip_smoke_server.log',
         ('paged_decode_attention', 'paged_prefill_attention',
-         'paged_verify_attention'), 'bf16 pages, spec_k 4')
+         'paged_verify_attention'), '8 slots, bf16 pages, spec_k 4')
     int8_launches, int8 = run_server(
         card, ['--kv-dtype', 'int8', '--spec-k', str(VERIFY_R - 1)],
         'chip_smoke_server_int8.log',
         ('paged_decode_attention_int8', 'paged_prefill_attention_int8',
-         'paged_verify_attention_int8'), 'int8 pages, spec_k 4')
+         'paged_verify_attention_int8'), '8 slots, int8 pages, spec_k 4')
     launches = {k: launches[k] + int8_launches[k] for k in launches}
     print('bf16 vs int8 pages (' + card + '): ' + json.dumps({
         key: [bf16[key], int8[key]]
@@ -3144,7 +3531,8 @@ def main() -> int:
         card, ['--quantize', '--spec-k', str(VERIFY_R - 1)],
         'chip_smoke_server_int8_weights.log',
         ('qdot_int8', 'paged_decode_attention', 'paged_prefill_attention',
-         'paged_verify_attention'), 'int8 weights, bf16 pages, spec_k 4')
+         'paged_verify_attention'),
+        '8 slots, int8 weights, bf16 pages, spec_k 4')
     launches['qdot_int8'] = w8_launches['qdot_int8']
     print('bf16 vs int8 weights (' + card + '): ' + json.dumps({
         key: [bf16[key], w8[key]]
@@ -3154,6 +3542,13 @@ def main() -> int:
            'tokens_per_sec': [bf16['decode_burst']['tokens_per_sec'],
                               w8['decode_burst']['tokens_per_sec']]}),
           flush=True)
+
+    # Phase 5g: the dense cache in process, then the dense two-tier
+    # replica (the reference server's default flags).
+    _, dense_launches = dense_in_process(torch, pa, card)
+    pool_launches = dense_replica(torch, quant, card)
+    dense_launches = {k: dense_launches.get(k, 0) + pool_launches.get(k, 0)
+                      for k in set(dense_launches) | set(pool_launches)}
 
     # Phase 6: the training slice against its plain path.
     check_slice(torch, att, ce)
@@ -3181,6 +3576,14 @@ def main() -> int:
         for graphs, depth in ((False, 0), (True, 1)):
             profile_decode(torch, pa, card, 'bfloat16', False, graphs,
                            depth, quantize=True)
+        for graphs, depth in ((False, 0), (True, 1)):
+            profile_decode(torch, pa, card, 'bfloat16', False, graphs,
+                           depth, paged=False)
+        # The two-tier replica's short tier (5g(b): 16 dense slots, int8
+        # weights) beside 8 such slots, the default loop.
+        for slots in (8, 16):
+            profile_decode(torch, pa, card, 'bfloat16', False, True, 1,
+                           quantize=True, paged=False, slots=slots)
         for mixed in (True, False):
             for graphs in (False, True):
                 profile_chunks(torch, pa, card, mixed, graphs)
@@ -3220,6 +3623,9 @@ def main() -> int:
             'replaces': where, 'launches': launches[wrapper],
             # Phase 5e's cache-on runs, counted from 0 before each.
             'launches_prefix_cache': prefix_launches.get(wrapper, 0),
+            # Phase 5g's dense runs (counted from 0 before the first) and
+            # the dense replica's requests after its warm-up.
+            'launches_dense': dense_launches.get(wrapper, 0),
             'max_abs_err': checked[key][0], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
             'bound_by': r['bound'][1], 'library_ms': r['library_ms']})

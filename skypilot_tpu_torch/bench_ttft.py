@@ -39,6 +39,12 @@ and of its default concurrency sweep, for a torch replica).
   It reports the transfers, their bytes, ``kv_transfer_p99_s`` and the
   TTFT of each cohort.
 
+The servers' KV cache follows ``--paged``, as the reference bench's does:
+without it the concurrency sweep measures a dense replica (the
+reference server's default), with it a paged one; ``shared-prefix`` and
+``disagg`` imply it (the prefix cache needs pages), and the chunked
+sweep's in-process engines are always paged. The JSON records ``paged``.
+
 ``--quantize`` serves int8 weights in every sweep (the servers get
 ``--quantize``; the chunked sweep's engines int8 params drawn from the
 same seed), recorded in the JSON as ``quantize``.
@@ -112,7 +118,7 @@ def _chunked_build_engine(config, params, device, *, fused: bool, slots: int,
         config, params,
         engine_lib.EngineConfig(
             n_slots=slots, max_seq_len=max_seq_len,
-            prefill_buckets=(64, 128), prefill_chunk=128,
+            prefill_buckets=(64, 128), prefill_chunk=128, paged=True,
             page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype,
             fused_prefill=fused, prefix_cache=prefix_cache),
         device=device)
@@ -418,6 +424,7 @@ class _Servers:
                    args.model, '--slots', str(args.slots), '--max-seq-len',
                    str(args.max_seq_len), '--page-size', str(args.page_size),
                    '--device', str(device), '--seed', str(args.seed),
+                   *(['--paged'] if args.paged else []),
                    *(['--quantize'] if args.quantize else []), *flags]
             log = (open(f'{args.server_log}.{i}' if i else args.server_log,
                         'w') if args.server_log else subprocess.DEVNULL)
@@ -504,7 +511,7 @@ def run_concurrency_sweep(args, device: torch.device) -> dict:
             'decode_steps', 'decode_tokens', 'tokens_per_step',
             'prefill_tokens', 'fused_steps', 'decode_stall_steps',
             'step_programs', 'stepline_steps', 'integrity', 'param_bytes',
-            'kernel_launches')},
+            'kernel_launches', 'paged', 'kv_cache_bytes')},
         'path': 'client -> torch replica server (streamed; client-side '
                 'send -> first token line clock)',
     }
@@ -737,6 +744,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument('--slots', type=int, default=8)
     p.add_argument('--max-seq-len', type=int, default=2048)
+    p.add_argument('--paged', action='store_true',
+                   help='serve the paged KV cache (block tables over a '
+                        'page pool); default the dense cache. shared-prefix '
+                        'and disagg imply it')
     p.add_argument('--page-size', type=int, default=64)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--concurrency', type=int, nargs='+', default=None,
@@ -770,6 +781,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--output', default=None,
                    help='also write the JSON document here')
     args = p.parse_args(argv)
+    if args.sweep in ('shared-prefix', 'disagg'):
+        args.paged = True
     if args.concurrency is None:
         args.concurrency = ([args.slots - 1] if args.sweep == 'chunked'
                             else [1, 4, 8])
@@ -792,6 +805,7 @@ def sweep(argv: Optional[List[str]] = None) -> dict:
     result = run(args, device)
     result.update(device=str(device), card=card_line(device),
                   torch=torch.__version__, quantize=args.quantize,
+                  paged=args.paged or args.sweep == 'chunked',
                   wall_s=time.perf_counter() - t0)
     result['args'] = vars(args)
     return result

@@ -7,8 +7,9 @@ What the port keeps from the reference:
   wfq) with bounded admission (``AdmissionError``, carrying a
   queue-drain Retry-After), per-tenant accounting, cancel and
   wall-clock deadlines, queued or active;
-- chunked prefill with the page-aligned bucket ladder and the chunk-cap
-  checks, over a paged KV cache whose page 0 is the garbage sink;
+- chunked prefill with the chunk-cap checks, over a paged KV cache whose
+  page 0 is the garbage sink (with the page-aligned bucket ladder) or
+  over the dense per-slot cache;
 - one decode step over ALL slots with an ``active`` mask, as the
   reference does, so inactive slots write into the sink page or their own
   frontier and never advance their length;
@@ -88,8 +89,16 @@ adds no program: a page copy-on-write and a KV import write the pool
 tensors in place, eagerly on the step's stream, never rebinding them (the
 graphs keep their pointers).
 
-What it leaves out (ROADMAP queue 1): tensor parallelism and the engine
-pool.
+The dense flavor (``paged=False``, the reference's default) keeps every
+slot at ``max_seq_len`` rows (``cache.py``): no allocator, so no page
+pressure, preemption, prefix cache or int8 pages, and the reference's
+chunk buckets with no page ladder. Its step programs are the same CUDA
+graphs over the dense steps of ``model.py``, which run the paged kernels
+through the cache's identity block table. :class:`EnginePool` routes each
+request to the smallest of several dense engines (tiers) whose cache fits
+it, the reference's two-tier KV for long context.
+
+What it leaves out (ROADMAP queue 1): tensor parallelism.
 
 Device placement is explicit: the engine runs on ``device`` (default
 ``'cuda'``) and raises if CUDA was asked for and is missing.
@@ -98,14 +107,17 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import itertools
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.infer import cache as cache_lib
 from skypilot_tpu_torch.infer import drafter as drafter_lib
 from skypilot_tpu_torch.infer import kv_wire
 from skypilot_tpu_torch.infer import model as model_lib
@@ -155,6 +167,13 @@ class EngineConfig:
     pipeline_depth: int = 1
     prefill_chunk: int = 256
     prefill_chunks_per_step: int = 4
+    # Paged KV cache (paged_cache.py): slots share a pool of fixed-size
+    # pages, device memory follows the tokens in flight, and a dry pool
+    # preempts. Off (the reference's default): the dense cache
+    # (cache.py), max_seq_len rows per slot, whose page view the same
+    # attention kernels read through an identity block table.
+    paged: bool = False
+    # The paged cache's page (the dense cache picks its view's page).
     page_size: int = 64
     # Total pool pages (page 0 is the sink). None -> dense-equivalent
     # capacity, n_slots * max_seq_len / page_size + 1. A smaller pool
@@ -374,52 +393,81 @@ class InferenceEngine:
             raise ValueError(
                 f'cache max_seq_len {ecfg.max_seq_len} exceeds model '
                 f'max_seq_len {config.max_seq_len}')
-        # Chunk buckets: the configured ladder clamped to the chunk cap,
-        # then made page-granular (power-of-two multiples of the page
-        # below the cap), exactly as the reference builds it.
+        # Chunk buckets: the configured ladder clamped to the chunk cap
+        # (non-final chunks always take the cap, so cap | max_seq_len
+        # keeps every chunk inside the cache), then, on the paged cache,
+        # made page-granular (power-of-two multiples of the page below
+        # the cap), exactly as the reference builds them.
         cap = min(ecfg.prefill_chunk, ecfg.max_seq_len)
-        buckets = sorted({min(b, cap) for b in ecfg.prefill_buckets}
-                         | {cap})
-        self._chunk_cap = buckets[-1]
+        self._buckets = sorted({min(b, cap) for b in ecfg.prefill_buckets}
+                               | {cap})
+        self._chunk_cap = self._buckets[-1]
         if ecfg.max_seq_len % self._chunk_cap:
             raise ValueError(
                 f'max_seq_len {ecfg.max_seq_len} must be a multiple of '
                 f'the chunk size {self._chunk_cap}')
-        page = ecfg.page_size
-        if self._chunk_cap % page:
-            raise ValueError(f'prefill chunk {self._chunk_cap} must be a '
-                             f'multiple of page_size {page}')
-        if ecfg.kv_dtype not in ('bfloat16', 'int8'):
-            raise ValueError(f"kv_dtype must be 'bfloat16' or 'int8', got "
-                             f'{ecfg.kv_dtype!r}')
         on_cuda = self.device.type == 'cuda'
+        self.allocator: Optional[paged_cache_lib.PageAllocator] = None
+        if ecfg.paged:
+            page = ecfg.page_size
+            if self._chunk_cap % page:
+                raise ValueError(f'prefill chunk {self._chunk_cap} must be '
+                                 f'a multiple of page_size {page}')
+            if ecfg.kv_dtype not in ('bfloat16', 'int8'):
+                raise ValueError(f"kv_dtype must be 'bfloat16' or 'int8', "
+                                 f'got {ecfg.kv_dtype!r}')
+            ladder = set()
+            b = page
+            while b < self._chunk_cap:
+                ladder.add(b)
+                b *= 2
+            self._buckets = sorted({b for b in self._buckets if b % page == 0}
+                                   | ladder | {self._chunk_cap})
+            max_pages_per_slot = ecfg.max_seq_len // page
+            n_pages = ecfg.n_pages
+            if n_pages is None:
+                n_pages = ecfg.n_slots * max_pages_per_slot + 1
+            min_pages = self._chunk_cap // page + 1
+            if n_pages < min_pages:
+                raise ValueError(
+                    f'n_pages={n_pages} cannot hold one prefill chunk '
+                    f'(needs >= {min_pages} incl. the sink page)')
+            self.allocator = paged_cache_lib.PageAllocator(
+                n_pages, page, ecfg.n_slots, max_pages_per_slot)
+            self.cache = paged_cache_lib.init_paged_cache(
+                config.n_layers, ecfg.n_slots, n_pages, page,
+                config.n_kv_heads, config.head_dim,
+                dtype=(torch.int8 if ecfg.kv_dtype == 'int8'
+                       else llama.torch_dtype(ecfg.cache_dtype)),
+                device=self.device)
+        else:
+            if ecfg.kv_dtype != 'bfloat16':
+                raise ValueError(
+                    'kv_dtype=int8 requires the paged KV cache '
+                    '(EngineConfig.paged=True): quantization is at page '
+                    'granularity')
+            if ecfg.prefix_cache:
+                raise ValueError(
+                    'prefix_cache requires the paged KV cache '
+                    '(EngineConfig.paged=True): sharing is at page '
+                    'granularity')
+            # No allocator: a slot owns max_seq_len rows for good, so
+            # there is no page pressure, preemption or cache-full ladder.
+            # The kernels read the cache through a page view whose page
+            # divides every chunk offset.
+            page = cache_lib.dense_page(ecfg.max_seq_len, self._chunk_cap)
+            max_pages_per_slot = ecfg.max_seq_len // page
+            self.cache = cache_lib.init_cache(
+                config.n_layers, ecfg.n_slots, ecfg.max_seq_len,
+                config.n_kv_heads, config.head_dim,
+                dtype=llama.torch_dtype(ecfg.cache_dtype),
+                device=self.device, page=page)
+        # The page the attention kernels read: the pool's, or the dense
+        # cache's view.
+        self._page = page
         if on_cuda:
             paged_attn.check_cuda_shape(
                 config.head_dim, config.n_heads // config.n_kv_heads, page)
-        ladder = set()
-        b = page
-        while b < self._chunk_cap:
-            ladder.add(b)
-            b *= 2
-        self._buckets = sorted({b for b in buckets if b % page == 0}
-                               | ladder | {self._chunk_cap})
-        max_pages_per_slot = ecfg.max_seq_len // page
-        n_pages = ecfg.n_pages
-        if n_pages is None:
-            n_pages = ecfg.n_slots * max_pages_per_slot + 1
-        min_pages = self._chunk_cap // page + 1
-        if n_pages < min_pages:
-            raise ValueError(
-                f'n_pages={n_pages} cannot hold one prefill chunk '
-                f'(needs >= {min_pages} incl. the sink page)')
-        self.allocator = paged_cache_lib.PageAllocator(
-            n_pages, page, ecfg.n_slots, max_pages_per_slot)
-        self.cache = paged_cache_lib.init_paged_cache(
-            config.n_layers, ecfg.n_slots, n_pages, page,
-            config.n_kv_heads, config.head_dim,
-            dtype=(torch.int8 if ecfg.kv_dtype == 'int8'
-                   else llama.torch_dtype(ecfg.cache_dtype)),
-            device=self.device)
         if ecfg.quantize and not quant_lib.is_quantized(params):
             params = quant_lib.quantize_params(params)
         self.params = params
@@ -454,7 +502,8 @@ class InferenceEngine:
         self._kv_transfer_failures = 0
         self._kv_transfer_window: collections.deque = collections.deque(
             maxlen=512)
-        self._kv_index_pub: tuple = (0, 0, page, (), frozenset())
+        self._kv_index_pub: tuple = (0, 0, page if ecfg.paged else 0, (),
+                                     frozenset())
         # slot -> tokens already prefilled; a slot decodes only once its
         # prompt (plus, after a preemption, its output) is fully cached.
         self._prefilling: Dict[int, int] = {}
@@ -468,14 +517,21 @@ class InferenceEngine:
         slots = ecfg.n_slots
         dev = self.device
         self._last = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        self._table = torch.zeros((slots, max_pages_per_slot),
-                                  dtype=torch.int32, device=dev)
+        # The block table the decode and verify steps read (the dense
+        # cache carries its own identity table).
+        self._table = (torch.zeros((slots, max_pages_per_slot),
+                                   dtype=torch.int32, device=dev)
+                       if ecfg.paged else self.cache.tables)
         self._active = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._temps_dev = torch.zeros((slots,), dtype=torch.float32,
                                       device=dev)
         self._draft_lens = torch.zeros((slots,), dtype=torch.int32,
                                        device=dev)
         self._drafts: Dict[int, torch.Tensor] = {}   # R -> [slots, R-1]
+        # The dense slots' identity rows, staged as a paged chunk stages
+        # its table row.
+        self._dense_rows = (None if ecfg.paged
+                            else self.cache.tables.cpu().numpy())
         # A chunk's inputs, packed in one int32 buffer so that one copy
         # stages them: [0] slot, [1] offset, [2] true_len, [3] the
         # temperature's fp32 bits, then the table row (max pages), then
@@ -581,7 +637,7 @@ class InferenceEngine:
             paged_attn.check_cuda_shape(
                 self.config.head_dim,
                 self.config.n_heads // self.config.n_kv_heads,
-                self.ecfg.page_size, r_queries=k + 1)
+                self._page, r_queries=k + 1)
         with self._lock:
             self._spec_k = k
 
@@ -651,18 +707,19 @@ class InferenceEngine:
             raise ValueError(
                 f'prompt+resume ({total} tokens) exceeds cache capacity '
                 f'({self.ecfg.max_seq_len - 1})')
-        # Peak prefill allocation is bucket-padded (the final chunk
-        # writes its whole padded bucket), plus one decode page.
-        off = (total // self._chunk_cap) * self._chunk_cap
-        rem = total - off
-        peak = self.allocator.pages_needed(
-            off + (self._bucket(rem) if rem else 0)) + 1
-        if peak > self.allocator.n_pages - 1:
-            raise ValueError(
-                f'prompt ({total} tokens; {peak} pages incl. padding + '
-                f'first decode page) exceeds the page pool '
-                f'({self.allocator.n_pages - 1} usable pages x '
-                f'{self.allocator.page_size})')
+        if self.allocator is not None:
+            # Peak prefill allocation is bucket-padded (the final chunk
+            # writes its whole padded bucket), plus one decode page.
+            off = (total // self._chunk_cap) * self._chunk_cap
+            rem = total - off
+            peak = self.allocator.pages_needed(
+                off + (self._bucket(rem) if rem else 0)) + 1
+            if peak > self.allocator.n_pages - 1:
+                raise ValueError(
+                    f'prompt ({total} tokens; {peak} pages incl. padding + '
+                    f'first decode page) exceeds the page pool '
+                    f'({self.allocator.n_pages - 1} usable pages x '
+                    f'{self.allocator.page_size})')
         if max_new_tokens is None:
             max_new_tokens = self.ecfg.max_new_tokens
         if max_new_tokens < 1:
@@ -730,8 +787,14 @@ class InferenceEngine:
         return self.prefix is not None
 
     def kv_page_size(self) -> int:
-        """KV page size in tokens (the server's export cap needs it)."""
-        return self.allocator.page_size
+        """KV page size in tokens (the server's export cap needs it); 0
+        on the dense cache."""
+        return self.allocator.page_size if self.allocator is not None else 0
+
+    def kv_transfer_window(self) -> List[float]:
+        """Locked snapshot of the recent KV transfer wall times."""
+        with self._lock:
+            return list(self._kv_transfer_window)
 
     def kv_index_snapshot(self, since_gen: int = -1
                           ) -> Optional[Dict[str, Any]]:
@@ -974,34 +1037,38 @@ class InferenceEngine:
         while off + bucket > self.ecfg.max_seq_len:
             bucket = max(b for b in self._buckets if b < bucket)
         tl = min(remaining, bucket)
-        ok = self._extend_pages(slot, off + bucket)
-        if not ok:
-            # Dry by stale accounting: in-flight steps may be about to
-            # free pages. Catch up before deferring, so page decisions
-            # are the same at every depth.
-            self._drain_inflight()
+        if self.allocator is None:
+            table_row = self._dense_rows[slot]
+        else:
             ok = self._extend_pages(slot, off + bucket)
-        if ok:
-            # The chunk writes its whole padded bucket: every page of that
-            # range must be private before the dispatch.
-            ok = self._unshare_write_range(slot, off, off + bucket)
-        if not ok:
-            if just_attached:
-                # Roll the attach back before deferring (see above); the
-                # retry re-runs the match, so its stats are uncounted.
-                self.allocator.free(slot)
-                self._attached_slots.discard(slot)
-                self._matched.discard(slot)
-                self._prefilling[slot] = 0
-                req.cached_tokens = prev_cached
-                self.prefix.hits -= 1
-                self.prefix.tokens_saved -= just_attached
-            return None
+            if not ok:
+                # Dry by stale accounting: in-flight steps may be about
+                # to free pages. Catch up before deferring, so page
+                # decisions are the same at every depth.
+                self._drain_inflight()
+                ok = self._extend_pages(slot, off + bucket)
+            if ok:
+                # The chunk writes its whole padded bucket: every page of
+                # that range must be private before the dispatch.
+                ok = self._unshare_write_range(slot, off, off + bucket)
+            if not ok:
+                if just_attached:
+                    # Roll the attach back before deferring (see above);
+                    # the retry re-runs the match, so its stats are
+                    # uncounted.
+                    self.allocator.free(slot)
+                    self._attached_slots.discard(slot)
+                    self._matched.discard(slot)
+                    self._prefilling[slot] = 0
+                    req.cached_tokens = prev_cached
+                    self.prefix.hits -= 1
+                    self.prefix.tokens_saved -= just_attached
+                return None
+            table_row = self.allocator.table()[slot].copy()
         padded = np.zeros((bucket,), np.int32)
         padded[:tl] = source[off:off + tl]
         return _ChunkPlan(slot=slot, req=req, off=off, bucket=bucket, tl=tl,
-                          total=n, padded=padded,
-                          table_row=self.allocator.table()[slot].copy())
+                          total=n, padded=padded, table_row=table_row)
 
     def _note_first_dispatch(self, req: Request) -> None:
         """The queue-wait boundary: the request's first chunk is about
@@ -1021,7 +1088,7 @@ class InferenceEngine:
         """Copy the plan's slot, offset, true length, temperature, table
         row and tokens into the chunk programs' input buffer (one copy,
         no host sync)."""
-        maxp = self.allocator.max_pages_per_slot
+        maxp = self._table.shape[1]
         staged = np.empty((4 + maxp + plan.bucket,), np.int32)
         staged[:3] = (plan.slot, plan.off, plan.tl)
         staged[3:4] = np.array([plan.req.temperature],
@@ -1033,7 +1100,7 @@ class InferenceEngine:
     def _chunk_inputs(self, bucket: int):
         """Views of the staged chunk: (slot, offset, true_len as 0-d
         int32 tensors; temperature [1] fp32; table row; tokens)."""
-        maxp = self.allocator.max_pages_per_slot
+        maxp = self._table.shape[1]
         c = self._chunk_in
         return (c[0], c[1], c[2], c[3:4].view(torch.float32), c[4:4 + maxp],
                 c[4 + maxp:4 + maxp + bucket])
@@ -1105,6 +1172,10 @@ class InferenceEngine:
         self._slots[slot] = None
         self._matched.discard(slot)
         self._attached_slots.discard(slot)
+        if self.allocator is None:
+            self._slot_len[slot] = 0
+            self.cache = cache_lib.free_slot(self.cache, slot)
+            return
         if self.prefix is None or not self.allocator.pages_of(slot):
             self.allocator.free(slot)
         else:
@@ -1450,7 +1521,7 @@ class InferenceEngine:
                 self._decode_time += time.perf_counter() - t0
         decoding = [s for s, r in enumerate(self._slots)
                     if r is not None and s not in self._prefilling]
-        if decoding:
+        if self.allocator is not None and decoding:
             decoding = self._ensure_decode_pages(decoding)
         if plan is not None and (
                 self._slots[plan.slot] is not plan.req
@@ -1492,7 +1563,8 @@ class InferenceEngine:
         """Copy the block table, the active mask and the temperatures
         into their static device buffers where they changed. Returns
         whether any decoding slot samples (it selects the program)."""
-        if self._table_version != self.allocator.version:
+        if (self.allocator is not None
+                and self._table_version != self.allocator.version):
             self._host_to_device(self.allocator.table(), self._table)
             self._table_version = self.allocator.version
         key = tuple(decoding)
@@ -1534,6 +1606,13 @@ class InferenceEngine:
                 # each replay must advance it.
                 graph.register_generator_state(self._generator)
             before = _captured_launches()
+            # A CUDA graph destroyed while this one captures (an engine
+            # dropped earlier, freed by the cyclic garbage collector)
+            # invalidates the capture: collect now, and hold the
+            # collector off until the capture ends.
+            collecting = gc.isenabled()
+            gc.collect()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, stream=stream):
                     out = body()
@@ -1543,6 +1622,9 @@ class InferenceEngine:
                     f'({"bucket" if key[0] in ("prefill", "mixed") else "R"}'
                     f'={key[1]}, sampled={key[2]}) failed; no eager '
                     f'fallback') from e
+            finally:
+                if collecting:
+                    gc.enable()
             prog.graph, prog.out = graph, out
             now = _captured_launches()
             prog.launches = {k: now[k] - before[k] for k in before
@@ -1764,7 +1846,8 @@ class InferenceEngine:
                                            req.output_tokens,
                                            req.draft_memo),
                 budget, memo=req.draft_memo)
-            if prop and not self.allocator.extend(s, base + len(prop) + 1):
+            if prop and self.allocator is not None and not \
+                    self.allocator.extend(s, base + len(prop) + 1):
                 covered = (self.allocator.pages_of(s)
                            * self.allocator.page_size)
                 prop = prop[:max(0, covered - base - 1)]
@@ -1914,9 +1997,10 @@ class InferenceEngine:
             if req.done:
                 continue
             touched.append(req)
-            # Pages extended past the new frontier (the next token's
-            # write page is kept) return to the pool now.
-            self.allocator.shrink(slot, int(self._slot_len[slot]) + 1)
+            if self.allocator is not None:
+                # Pages extended past the new frontier (the next token's
+                # write page is kept) return to the pool now.
+                self.allocator.shrink(slot, int(self._slot_len[slot]) + 1)
 
     def _sdc_hit(self, slot: int, req: Request) -> None:  # holds: _lock
         """Non-finite logits for a live slot: its token is dropped, the
@@ -1934,6 +2018,17 @@ class InferenceEngine:
         """The one-way corruption verdict (read lock-free: a bool, one
         stale step tolerated)."""
         return self._integrity_suspect
+
+    def output_digest(self) -> int:
+        """A stable CRC over each active slot's (request id, output
+        tokens), slot-ordered (zlib.crc32, never the salted builtin
+        hash), as the reference's."""
+        with self._lock:
+            parts = [f'{slot}:{req.request_id}:'
+                     f'{",".join(map(str, req.output_tokens))}'
+                     for slot, req in enumerate(self._slots)
+                     if req is not None]
+        return zlib.crc32(';'.join(parts).encode())
 
     def _drain_inflight(self) -> None:
         """Consume every in-flight step (host state catches up with the
@@ -1953,6 +2048,63 @@ class InferenceEngine:
             if self.idle():
                 return
             self.step()
+
+    @property
+    def graphs_on(self) -> bool:
+        """Whether the step programs run as CUDA graphs."""
+        return self._graphs_on
+
+    def warm_programs(self) -> List[tuple]:
+        """Run every greedy step program twice on an idle engine, so that
+        on the card each is built, then captured, and a live request only
+        replays graphs: the chunk program of each bucket, decode, verify
+        at spec_k + 1 queries (speculation on) and the mixed program of
+        each bucket (fused on). No slot is active and the chunk is slot
+        0's at offset 0, so every K/V write lands where no live request
+        reads (the dense cache: slot 0's first rows and each slot's
+        frontier row, which a request's prefill overwrites first; the
+        paged cache: the sink page); the cache lengths and last tokens
+        return to 0 after. Returns the keys run."""
+        if not self.idle():
+            raise RuntimeError('warm_programs needs an idle engine')
+        self._refresh_dispatch_state([])
+        maxp = self._table.shape[1]
+        row = (self._dense_rows[0] if self.allocator is None
+               else np.zeros((maxp,), np.int32))   # the sink page
+
+        def stage(bucket: int) -> None:
+            staged = np.zeros((4 + maxp + bucket,), np.int32)
+            staged[2] = bucket
+            staged[4:4 + maxp] = row
+            self._host_to_device(staged, self._chunk_in[:staged.shape[0]])
+
+        programs: List[Tuple[tuple, Callable[[], torch.Tensor]]] = []
+        for b in self._buckets:
+            programs.append((('prefill', b, False),
+                             lambda b=b: self._chunk_body(b, False)))
+        programs.append((('decode', 1, False),
+                         lambda: self._decode_body(False)))
+        r = self._spec_k + 1
+        if r > 1:
+            if r not in self._drafts:
+                self._drafts[r] = torch.zeros((self.ecfg.n_slots, r - 1),
+                                              dtype=torch.int32,
+                                              device=self.device)
+            self._draft_lens.zero_()
+            programs.append((('verify', r, False),
+                             lambda: self._verify_body(r, False)))
+        if self._fused:
+            for b in self._buckets:
+                programs.append((('mixed', b, False),
+                                 lambda b=b: self._mixed_body(b, False)))
+        for key, body in programs:
+            for _ in range(2):
+                if key[0] in ('prefill', 'mixed'):
+                    stage(key[1])
+                self._run_program(key, body)
+        self.cache.lengths.zero_()
+        self._last.zero_()
+        return [key for key, _ in programs]
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: Optional[int] = None,
@@ -2050,7 +2202,8 @@ class InferenceEngine:
                 prefilling=len(self._prefilling),
                 spec_drafted=self._spec_drafted - pre_drafted,
                 spec_accepted=self._spec_accepted - pre_accepted,
-                pages_free=self.allocator.free_pages,
+                pages_free=(self.allocator.free_pages
+                            if self.allocator is not None else -1),
                 prefix_evictions=(self.prefix.evictions
                                   if self.prefix is not None else 0),
                 preemptions=self._preemptions, queue_depth=depth,
@@ -2080,6 +2233,17 @@ class InferenceEngine:
         return out
 
     # ---- metrics ---------------------------------------------------------
+    def ttft_window(self) -> List[float]:
+        """Locked snapshot of the recent-TTFT window (what a pool merges
+        from HTTP threads, never the live deque)."""
+        with self._lock:
+            return list(self._ttfts)
+
+    def queue_wait_window(self) -> List[float]:
+        """Locked snapshot of the recent queue-wait window."""
+        with self._lock:
+            return list(self._queue_waits)
+
     def compiled_counts(self) -> Dict[str, int]:
         """Step programs per kind, as the reference reports its compiled
         programs: on the card the CUDA graphs captured or about to be,
@@ -2131,7 +2295,8 @@ class InferenceEngine:
                      cancelled=self._cancelled,
                      preemptions=self._preemptions,
                      in_flight=sum(self._inflight_tok),
-                     pages_free=self.allocator.free_pages,
+                     pages_free=(self.allocator.free_pages
+                                 if self.allocator is not None else 0),
                      kv_transfers=self._kv_transfers,
                      kv_bytes=self._kv_transfer_bytes,
                      kv_failures=self._kv_transfer_failures,
@@ -2203,13 +2368,17 @@ class InferenceEngine:
                 if kvw else None),
             'cuda_graphs': self._graphs_on,
             'step_programs': self.compiled_counts(),
-            'paged': True,
-            'page_size': self.allocator.page_size,
-            'pages_total': self.allocator.n_pages,
-            'pages_free': c['pages_free'],
-            'preemptions': c['preemptions'],
-            'kv_dtype': self.ecfg.kv_dtype,
-            'kv_page_bytes': self._kv_page_bytes(),
+            **({'paged': True,
+                'page_size': self.allocator.page_size,
+                'pages_total': self.allocator.n_pages,
+                'pages_free': c['pages_free'],
+                'preemptions': c['preemptions'],
+                'kv_dtype': self.ecfg.kv_dtype,
+                'kv_page_bytes': self._kv_page_bytes()}
+               if self.allocator is not None else {'paged': False}),
+            # Device bytes of the KV cache (the page pool, scales included,
+            # or the dense slots).
+            'kv_cache_bytes': self._kv_cache_bytes(),
             'device': str(self.device),
             # Device bytes of the weights (int8 + scales with quantize).
             'param_bytes': self._param_bytes,
@@ -2221,6 +2390,14 @@ class InferenceEngine:
             **prefix_stats,
         }
 
+    def _kv_cache_bytes(self) -> int:
+        c = self.cache
+        if self.allocator is None:
+            return c.nbytes()
+        return sum(t.numel() * t.element_size()
+                   for t in (c.k_pages, c.v_pages, c.k_scales, c.v_scales)
+                   if t is not None)
+
     def _kv_page_bytes(self) -> int:
         """Device bytes one physical page costs across every layer: K
         plus V values at their dtype, plus the fp32 row scales on int8
@@ -2231,3 +2408,270 @@ class InferenceEngine:
         if self.cache.k_scales is not None:
             out += rows * self.cache.k_scales.element_size()
         return out
+
+
+class EnginePool:
+    """Length-routed pool of engines: two-tier KV for long context (the
+    reference's ``EnginePool``).
+
+    The dense per-slot cache prices every slot at its engine's longest
+    sequence; a pool routes each request to the smallest engine (tier)
+    whose cache fits its prompt, so the KV bytes are sum(slots_i * seq_i)
+    (16 x 2048 + 2 x 8192) rather than every slot paying the longest
+    length. The tiers share one params object: the weights are on the
+    device once. Each tier keeps its own cache, step programs, scratch
+    and host ring, and the pool steps them in turn on one stream.
+
+    The surface is the one the server calls. Routing is a pure function of
+    the submission order, and each tier counts request ids in its own
+    residue class, so ids never collide across tiers."""
+
+    def __init__(self, engines: List[InferenceEngine]) -> None:
+        if not engines:
+            raise ValueError('empty engine pool')
+        self.engines = sorted(engines, key=lambda e: e.ecfg.max_seq_len)
+        for i, eng in enumerate(self.engines):
+            eng._ids = itertools.count(i + 1, len(self.engines))
+
+    def submit(self, prompt_tokens: Sequence[int],
+               max_new_tokens: Optional[int] = None,
+               temperature: float = 0.0, spec: bool = True,
+               deadline: Optional[float] = None,
+               tenant: str = sched_lib.DEFAULT_TENANT,
+               resume_tokens: Optional[Sequence[int]] = None) -> Request:
+        """Submit to the first tier whose cache holds prompt + resume
+        (ValueError when none does)."""
+        n = len(prompt_tokens) + len(resume_tokens or ())
+        for eng in self.engines:
+            if n <= eng.ecfg.max_seq_len - 1:
+                return eng.submit(prompt_tokens, max_new_tokens, temperature,
+                                  spec=spec, deadline=deadline, tenant=tenant,
+                                  resume_tokens=resume_tokens)
+        raise ValueError(
+            f'prompt ({n} tokens) exceeds every pool tier (largest: '
+            f'{self.engines[-1].ecfg.max_seq_len - 1})')
+
+    def tier_of(self, req: Request) -> int:
+        """The index of the tier serving ``req`` (its id's residue)."""
+        return (req.request_id - 1) % len(self.engines)
+
+    def cancel(self, req: Request) -> bool:
+        return self.engines[self.tier_of(req)].cancel(req)
+
+    def step(self) -> int:
+        return sum(e.step() for e in self.engines)
+
+    # ---- KV prefix transfers: one advertised index per replica, the first
+    # tier with a prefix cache (dense tiers have none) ----------------------
+    def _kv_engine(self) -> InferenceEngine:
+        for e in self.engines:
+            if e.prefix is not None:
+                return e
+        raise ValueError('no engine in the pool has a prefix cache')
+
+    def kv_index_armed(self) -> bool:
+        return any(e.prefix is not None for e in self.engines)
+
+    def kv_page_size(self) -> int:
+        return (self._kv_engine().kv_page_size()
+                if self.kv_index_armed() else 0)
+
+    def kv_index_snapshot(self, since_gen: int = -1):
+        if not self.kv_index_armed():
+            return None
+        return self._kv_engine().kv_index_snapshot(since_gen)
+
+    def request_kv_export(self, tokens: Sequence[int]) -> _KVJob:
+        return self._kv_engine().request_kv_export(tokens)
+
+    def request_kv_import(self, blob: bytes, fetch_s: float = 0.0) -> _KVJob:
+        return self._kv_engine().request_kv_import(blob, fetch_s=fetch_s)
+
+    def note_kv_transfer_failure(self) -> None:
+        self._kv_engine().note_kv_transfer_failure()
+
+    def kv_transfer_window(self) -> List[float]:
+        return sorted(x for e in self.engines for x in e.kv_transfer_window())
+
+    # ---- knobs --------------------------------------------------------------
+    def set_pipeline_depth(self, depth: int) -> None:
+        for e in self.engines:
+            e.set_pipeline_depth(depth)
+
+    def set_wallclock_cancel(self, enabled: bool) -> None:
+        for e in self.engines:
+            e.set_wallclock_cancel(enabled)
+
+    def set_spec_k(self, k: int) -> None:
+        for e in self.engines:
+            e.set_spec_k(k)
+
+    def set_scheduler(self, name: str, tenant_weights=None) -> None:
+        for e in self.engines:
+            e.set_scheduler(name, tenant_weights)
+
+    def set_tenant_weights(self, weights) -> None:
+        for e in self.engines:
+            e.set_tenant_weights(weights)
+
+    # ---- flight recorder and integrity --------------------------------------
+    def note_lifecycle_event(self, event: str, t: Optional[float] = None,
+                             **detail: Any) -> None:
+        """Lifecycle milestones land on tier 0 (the merged snapshot
+        interleaves them with every tier's requests)."""
+        self.engines[0].note_lifecycle_event(event, t, **detail)
+
+    def stepline_snapshot(self) -> Dict[str, Any]:
+        """The tiers' recorder snapshots merged on the shared wall clock."""
+        tiers = [e.stepline_snapshot() for e in self.engines]
+        return {
+            'enabled': any(t.get('enabled') for t in tiers),
+            'dumps': sum(t.get('dumps', 0) for t in tiers),
+            'steps_total': sum(t.get('steps_total', 0) for t in tiers),
+            'steps': sorted((r for t in tiers for r in t.get('steps', [])),
+                            key=lambda r: r['t']),
+            'events': sorted((ev for t in tiers
+                              for ev in t.get('events', [])),
+                             key=lambda ev: ev['t']),
+            'tiers': len(tiers),
+        }
+
+    def stepline_summary(self) -> Dict[str, Any]:
+        on = [t for t in (e.stepline_summary() for e in self.engines)
+              if t.get('enabled')]
+        if not on:
+            return {'enabled': False}
+        if len(on) == 1:
+            return on[0]
+        return {'enabled': True, 'tiers': on}
+
+    def integrity_suspect(self) -> bool:
+        return any(e.integrity_suspect() for e in self.engines)
+
+    def output_digest(self) -> int:
+        return zlib.crc32(','.join(
+            str(e.output_digest()) for e in self.engines).encode())
+
+    # ---- driving --------------------------------------------------------------
+    def idle(self) -> bool:
+        return all(e.idle() for e in self.engines)
+
+    def run_until_idle(self, max_steps: int = 1_000_000) -> None:
+        for _ in range(max_steps):
+            if self.idle():
+                return
+            self.step()
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: Optional[int] = None,
+                 temperature: float = 0.0) -> List[Request]:
+        reqs = [self.submit(p, max_new_tokens, temperature) for p in prompts]
+        self.run_until_idle()
+        return reqs
+
+    def metrics(self) -> Dict[str, Any]:
+        """The tiers' metrics merged as the reference merges them: rates
+        over the summed decode time (the tiers share the device), windows
+        and per-tenant stats merged from the raw snapshots, counters
+        summed, each tier's own metrics under ``tiers``."""
+        tiers = [e.metrics() for e in self.engines]
+        total_time = sum(e._decode_time for e in self.engines)
+        total_tokens = sum(t['decode_tokens'] for t in tiers)
+        total_steps = sum(t['decode_steps'] for t in tiers)
+        total_prefill = sum(t['prefill_tokens'] for t in tiers)
+        ttfts = sorted(x for e in self.engines for x in e.ttft_window())
+        waits = sorted(x for e in self.engines for x in e.queue_wait_window())
+        kvw = self.kv_transfer_window()
+        prefixed = [e.prefix for e in self.engines if e.prefix is not None]
+        prefix_agg = {}
+        if prefixed:
+            hits = sum(p.hits for p in prefixed)
+            total = hits + sum(p.misses for p in prefixed)
+            prefix_agg = {
+                'prefix_hit_rate': round(hits / total, 4) if total else 0.0,
+                'prefix_tokens_saved': sum(p.tokens_saved for p in prefixed),
+                'prefix_cached_pages': sum(p.cached_pages for p in prefixed),
+                'prefix_evictions': sum(p.evictions for p in prefixed),
+                'prefix_hits': hits,
+                'prefix_misses': total - hits,
+                'prefix_indexed_pages': sum(p.indexed_pages
+                                            for p in prefixed),
+            }
+        spec_tiers = [t for t in tiers if 'spec_steps' in t]
+        spec_agg = {}
+        if spec_tiers:
+            drafted = sum(t['spec_drafted_tokens'] for t in spec_tiers)
+            accepted = sum(t['spec_accepted_tokens'] for t in spec_tiers)
+            emitted = sum(t['spec_emitted_tokens'] for t in spec_tiers)
+            lanes = sum(t['spec_slot_steps'] for t in spec_tiers)
+            spec_agg = {
+                'spec_k': max(t['spec_k'] for t in spec_tiers),
+                'spec_steps': sum(t['spec_steps'] for t in spec_tiers),
+                'spec_slot_steps': lanes,
+                'spec_drafted_tokens': drafted,
+                'spec_accepted_tokens': accepted,
+                'spec_emitted_tokens': emitted,
+                'spec_accept_rate': (round(accepted / drafted, 4)
+                                     if drafted else 0.0),
+                'accepted_len_mean': (round(emitted / lanes, 4)
+                                      if lanes else None),
+            }
+
+        def pct(window, q):
+            return window[min(len(window) - 1, int(len(window) * q))]
+
+        return {
+            **prefix_agg,
+            **spec_agg,
+            'kv_transfers_total': sum(t['kv_transfers_total'] for t in tiers),
+            'kv_transfer_bytes': sum(t['kv_transfer_bytes'] for t in tiers),
+            'kv_transfer_failures': sum(t['kv_transfer_failures']
+                                        for t in tiers),
+            'kv_transfer_p99_s': round(pct(kvw, 0.99), 6) if kvw else None,
+            'decode_steps': total_steps,
+            'decode_tokens': total_tokens,
+            'decode_tokens_per_sec': (total_tokens / total_time
+                                      if total_time else 0.0),
+            'tokens_per_step': (round(total_tokens / total_steps, 4)
+                                if total_steps else None),
+            'prefill_tokens': total_prefill,
+            'prefill_tokens_per_step': (round(total_prefill / total_steps, 4)
+                                        if total_steps else None),
+            'fused_steps': sum(t['fused_steps'] for t in tiers),
+            'decode_stall_steps': sum(t['decode_stall_steps'] for t in tiers),
+            'ttft_p50_s': ttfts[len(ttfts) // 2] if ttfts else None,
+            'queue_wait_p50_ms': (round(waits[len(waits) // 2] * 1e3, 3)
+                                  if waits else None),
+            'queue_wait_p99_ms': (round(pct(waits, 0.99) * 1e3, 3)
+                                  if waits else None),
+            'scheduler': tiers[0]['scheduler'],
+            'num_waiting': sum(t['num_waiting'] for t in tiers),
+            'queued_tokens': sum(t['queued_tokens'] for t in tiers),
+            'tenants': sched_lib.aggregate_stats(
+                [e.sched_snapshot() for e in self.engines], total_time),
+            'num_active': sum(t['num_active'] for t in tiers),
+            'requests_abandoned': sum(t['requests_abandoned']
+                                      for t in tiers),
+            'requests_expired': sum(t['requests_expired'] for t in tiers),
+            'requests_cancelled': sum(t['requests_cancelled']
+                                      for t in tiers),
+            'pipeline_depth': max(t['pipeline_depth'] for t in tiers),
+            'tokens_in_flight': sum(t['tokens_in_flight'] for t in tiers),
+            'stepline_steps': sum(t.get('stepline_steps', 0) for t in tiers),
+            'stepline_dumps': sum(t.get('stepline_dumps', 0) for t in tiers),
+            # One suspect tier poisons the pool: the tiers share a card.
+            'sdc_events_total': sum(t.get('sdc_events_total', 0)
+                                    for t in tiers),
+            'integrity': ('suspect' if any(t.get('integrity') == 'suspect'
+                                           for t in tiers) else 'ok'),
+            'tiers': [{'max_seq_len': e.ecfg.max_seq_len,
+                       'n_slots': e.ecfg.n_slots, **t}
+                      for e, t in zip(self.engines, tiers)],
+            # The port's own keys, as a single engine reports them.
+            'paged': any(t['paged'] for t in tiers),
+            'cuda_graphs': any(t['cuda_graphs'] for t in tiers),
+            'device': tiers[0]['device'],
+            'param_bytes': tiers[0]['param_bytes'],
+            'kv_cache_bytes': sum(t['kv_cache_bytes'] for t in tiers),
+            'kernel_launches': tiers[0]['kernel_launches'],
+        }

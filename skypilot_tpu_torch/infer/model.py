@@ -1,6 +1,6 @@
-"""Paged prefill, decode, speculative verify and the fused mixed step
-over ``models/llama.py`` parameters (counterpart of the paged half of
-``skypilot_tpu/infer/model.py``).
+"""Prefill, decode, speculative verify and the fused mixed step over
+``models/llama.py`` parameters, on the paged cache and on the dense one
+(counterpart of ``skypilot_tpu/infer/model.py``).
 
 - ``paged_prefill_chunk``: one prompt chunk of one slot with cache
   context; its attention launches the paged prefill kernel. The slot,
@@ -15,6 +15,16 @@ over ``models/llama.py`` parameters (counterpart of the paged half of
   call, layer by layer (the chunk's layer, then the decode's), each
   half with exactly the products its standalone step runs.
 
+The dense steps (``prefill_chunk``, ``decode_step``, ``verify_step``,
+``mixed_step``, over ``cache.KVCache``) are the same functions over the
+dense cache's page view and its identity block table (``cache.py``): the
+reference computes their attention as fp32 einsums over the whole static
+cache with a length mask, the port launches the same paged kernels as
+the paged flavor, so that no step re-reads and casts a slot's whole
+``[S]`` rows on the card. Only the writes differ: the dense ones index the
+slot's own rows (``cache.append_token`` and friends), where the paged ones
+send out-of-range positions to the sink page.
+
 All keep the reference's write-then-attend order: a layer writes the new
 K/V into the slot's pages first, then attends (the new token sees
 itself). Decode and verify share one fixed-width dense block
@@ -27,10 +37,11 @@ engine) and passed in as ``rope``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from skypilot_tpu_torch.infer import cache as cache_lib
 from skypilot_tpu_torch.infer import paged_cache as paged_cache_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import norms
@@ -39,6 +50,7 @@ from skypilot_tpu_torch.ops import quant as quant_lib
 from skypilot_tpu_torch.ops import rope as rope_lib
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
+Cache = Union[paged_cache_lib.PagedKVCache, cache_lib.KVCache]
 
 
 def rope_tables(config: llama.LlamaConfig, device='cpu') -> Rope:
@@ -62,9 +74,13 @@ def _qkv(config: llama.LlamaConfig, x: torch.Tensor, layer, rope: Rope,
     return q, k, v
 
 
-def _layer_pages(pkv: paged_cache_lib.PagedKVCache, i: int) -> dict:
+def _layer_pages(pkv: Cache, i: int) -> dict:
     """Layer ``i``'s page tensors as keyword arguments of the cache
-    writes and the attention wrappers: its scale pages too on int8."""
+    writes and the attention wrappers: its scale pages too on int8; the
+    page view of the dense cache."""
+    if isinstance(pkv, cache_lib.KVCache):
+        k_pages, v_pages = cache_lib.page_view(pkv, i)
+        return {'k_pages': k_pages, 'v_pages': v_pages}
     kv = {'k_pages': pkv.k_pages[i], 'v_pages': pkv.v_pages[i]}
     if pkv.k_scales is not None:
         kv.update(k_scales=pkv.k_scales[i], v_scales=pkv.v_scales[i])
@@ -78,20 +94,55 @@ def _scales(kv: dict) -> dict:
 IntLike = paged_attn.IntLike
 
 
+def _write_chunk(pkv: Cache, i: int, kv: dict, k: torch.Tensor,
+                 v: torch.Tensor, slot: IntLike, table_row: torch.Tensor,
+                 offset: IntLike) -> None:
+    """Layer ``i``'s chunk K/V [C, hkv, hd] into the slot: its pages, or
+    its own rows of the dense cache."""
+    if isinstance(pkv, cache_lib.KVCache):
+        cache_lib.write_chunk(pkv.k[i], pkv.v[i], k, v, slot, offset)
+    else:
+        paged_attn.write_chunk_pages(k_new=k, v_new=v, table_row=table_row,
+                                     offset=offset, **kv)
+
+
+def _write_token(pkv: Cache, i: int, kv: dict, k: torch.Tensor,
+                 v: torch.Tensor, block_tables: torch.Tensor,
+                 positions: torch.Tensor) -> None:
+    """Layer ``i``'s one-token K/V [slots, hkv, hd] at ``positions``."""
+    if isinstance(pkv, cache_lib.KVCache):
+        cache_lib.append_token(pkv.k[i], pkv.v[i], k, v, positions)
+    else:
+        paged_attn.append_token_pages(k_new=k, v_new=v,
+                                      block_tables=block_tables,
+                                      lengths=positions, **kv)
+
+
+def _write_run(pkv: Cache, i: int, kv: dict, k: torch.Tensor,
+               v: torch.Tensor, block_tables: torch.Tensor,
+               lengths: torch.Tensor) -> None:
+    """Layer ``i``'s run K/V [slots, R, hkv, hd] at lengths + 0..R-1."""
+    if isinstance(pkv, cache_lib.KVCache):
+        cache_lib.append_run(pkv.k[i], pkv.v[i], k, v, lengths)
+    else:
+        paged_attn.append_run_pages(k_new=k, v_new=v,
+                                    block_tables=block_tables,
+                                    lengths=lengths, **kv)
+
+
 def _chunk_layer(config: llama.LlamaConfig, x: torch.Tensor, i: int,
-                 params: llama.Params, pkv: paged_cache_lib.PagedKVCache,
+                 params: llama.Params, pkv: Cache, slot: IntLike,
                  table_row: torch.Tensor, positions: torch.Tensor,
                  offset: IntLike, true_len: IntLike, rope: Rope
                  ) -> torch.Tensor:
     """Layer ``i`` of a prefill chunk, x: [1, C, d]: write the chunk's
-    K/V into its pages, then attend over the prefix plus the chunk."""
+    K/V into the slot, then attend over the prefix plus the chunk."""
     C = x.shape[1]
     hq, hkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
     layer = llama.layer_params(params, i)
     q, k, v = _qkv(config, x, layer, rope, positions[None])
     kv = _layer_pages(pkv, i)
-    paged_attn.write_chunk_pages(k_new=k[0], v_new=v[0],
-                                 table_row=table_row, offset=offset, **kv)
+    _write_chunk(pkv, i, kv, k[0], v[0], slot, table_row, offset)
     att = paged_attn.paged_prefill_attention(
         q[0].reshape(C, hkv, hq // hkv, hd), kv['k_pages'], kv['v_pages'],
         table_row, offset, true_len, **_scales(kv))
@@ -112,7 +163,7 @@ def _chunk_logits(config: llama.LlamaConfig, params: llama.Params,
     return quant_lib.qdot(last, params['lm_head']).float()
 
 
-def _set_length(pkv: paged_cache_lib.PagedKVCache, slot: IntLike,
+def _set_length(pkv: Cache, slot: IntLike,
                 value: IntLike) -> None:
     """lengths[slot] = value, on the device when either is a tensor."""
     if isinstance(slot, torch.Tensor) or isinstance(value, torch.Tensor):
@@ -151,8 +202,8 @@ def paged_prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
     positions = offset + torch.arange(C, dtype=torch.int32,
                                       device=tokens.device)
     for i in range(config.n_layers):
-        x = _chunk_layer(config, x, i, params, pkv, table_row, positions,
-                         offset, true_len, rope)
+        x = _chunk_layer(config, x, i, params, pkv, slot, table_row,
+                         positions, offset, true_len, rope)
     logits = _chunk_logits(config, params, x, true_len)
     _set_length(pkv, slot, offset + true_len)
     return pkv, logits
@@ -180,15 +231,15 @@ class _Step:
     rows compute garbage that is never read."""
 
     def __init__(self, config: llama.LlamaConfig, params: llama.Params,
-                 pkv: paged_cache_lib.PagedKVCache, tokens: torch.Tensor,
+                 pkv: Cache, tokens: torch.Tensor,
                  rope: Rope, attend) -> None:
         slots, self.R = tokens.shape
         width = max(STEP_ROWS, self.R)
         lengths = pkv.lengths
         # Rows past the run (and a run near the cache end) may run past
         # the rotary tables: clamp them as JAX's gather does; their K/V
-        # land in the sink page or beyond the frontier and their logits
-        # are not read.
+        # land in the sink page (dense: the slot's last row, keeping its
+        # value) or beyond the frontier and their logits are not read.
         self.positions = (lengths[:, None] + torch.arange(
             width, dtype=lengths.dtype, device=lengths.device)[None, :]
         ).clamp(max=rope[0].shape[0] - 1)
@@ -218,7 +269,7 @@ class _Step:
 
 
 def _step(config: llama.LlamaConfig, params: llama.Params,
-          pkv: paged_cache_lib.PagedKVCache, tokens: torch.Tensor,
+          pkv: Cache, tokens: torch.Tensor,
           rope: Rope, attend) -> torch.Tensor:
     """A whole :class:`_Step`: logits [slots, R, vocab] fp32."""
     step = _Step(config, params, pkv, tokens, rope, attend)
@@ -227,8 +278,7 @@ def _step(config: llama.LlamaConfig, params: llama.Params,
     return step.logits()
 
 
-def _decode_attend(config: llama.LlamaConfig,
-                   pkv: paged_cache_lib.PagedKVCache,
+def _decode_attend(config: llama.LlamaConfig, pkv: Cache,
                    block_tables: torch.Tensor, positions: torch.Tensor):
     """A decode step's ``attend``: append each slot's token K/V at
     ``positions``, then one decode launch over lengths positions + 1."""
@@ -238,9 +288,7 @@ def _decode_attend(config: llama.LlamaConfig,
 
     def attend(i, q, k, v):
         kv = _layer_pages(pkv, i)
-        paged_attn.append_token_pages(k_new=k[:, 0], v_new=v[:, 0],
-                                      block_tables=block_tables,
-                                      lengths=positions, **kv)
+        _write_token(pkv, i, kv, k[:, 0], v[:, 0], block_tables, positions)
         att = paged_attn.paged_decode_attention(
             q[:, 0].reshape(slots, hkv, group, hd).contiguous(),
             kv['k_pages'], kv['v_pages'], block_tables, positions + 1,
@@ -249,7 +297,7 @@ def _decode_attend(config: llama.LlamaConfig,
     return attend
 
 
-def _bump(pkv: paged_cache_lib.PagedKVCache,
+def _bump(pkv: Cache,
           active: Optional[torch.Tensor]) -> None:
     if active is None:
         pkv.lengths += 1
@@ -304,8 +352,8 @@ def paged_mixed_step(config: llama.LlamaConfig, params: llama.Params,
                  _decode_attend(config, pkv, block_tables,
                                 pkv.lengths.clone()))
     for i in range(config.n_layers):
-        xc = _chunk_layer(config, xc, i, params, pkv, table_row, cpos,
-                          offset, true_len, rope)
+        xc = _chunk_layer(config, xc, i, params, pkv, slot, table_row,
+                          cpos, offset, true_len, rope)
         step.layer(i)
     chunk_logits = _chunk_logits(config, params, xc, true_len)
     dec_logits = step.logits()[:, 0]
@@ -334,9 +382,7 @@ def paged_verify_step(config: llama.LlamaConfig, params: llama.Params,
 
     def attend(i, q, k, v):
         kv = _layer_pages(pkv, i)
-        paged_attn.append_run_pages(k_new=k, v_new=v,
-                                    block_tables=block_tables,
-                                    lengths=lengths, **kv)
+        _write_run(pkv, i, kv, k, v, block_tables, lengths)
         att = paged_attn.paged_verify_attention(
             q.reshape(slots, R, hkv, group, hd).contiguous(),
             kv['k_pages'], kv['v_pages'], block_tables, lengths,
@@ -344,3 +390,58 @@ def paged_verify_step(config: llama.LlamaConfig, params: llama.Params,
         return att.reshape(slots, R, -1)
 
     return _step(config, params, pkv, tokens, rope, attend), pkv
+
+
+# ---------------------------------------------------------------------------
+# The dense cache: the same steps over its page view and identity table
+# ---------------------------------------------------------------------------
+def prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
+                  kv: cache_lib.KVCache, slot: IntLike, tokens: torch.Tensor,
+                  offset: IntLike, true_len: IntLike, rope: Rope
+                  ) -> Tuple[cache_lib.KVCache, torch.Tensor]:
+    """The reference's dense ``prefill_chunk``: one chunk of a prompt
+    written into ``slot`` at rows offset..offset+C and attended causally
+    over the slot's prefix plus itself, through the paged prefill kernel
+    over the slot's identity row. Arguments and result as in
+    :func:`paged_prefill_chunk` (offset a multiple of the cache's page)."""
+    return paged_prefill_chunk(config, params, kv, slot,
+                               cache_lib.table_row(kv, slot), tokens, offset,
+                               true_len, rope)
+
+
+def decode_step(config: llama.LlamaConfig, params: llama.Params,
+                kv: cache_lib.KVCache, tokens: torch.Tensor, rope: Rope,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, cache_lib.KVCache]:
+    """The reference's dense ``decode_step``: one token for every slot,
+    its attention one decode launch over the identity table. Inactive
+    slots write their garbage row at their own frontier and do not
+    advance. Returns (logits [slots, vocab] fp32, cache)."""
+    return paged_decode_step(config, params, kv, kv.tables, tokens, rope,
+                             active)
+
+
+def verify_step(config: llama.LlamaConfig, params: llama.Params,
+                kv: cache_lib.KVCache, tokens: torch.Tensor, rope: Rope
+                ) -> Tuple[torch.Tensor, cache_lib.KVCache]:
+    """The reference's dense ``verify_step``: R tokens for every slot, the
+    run written with ``cache.append_run`` (positions past the cache end
+    keep their value) and attended in one verify launch. ``lengths`` is
+    not advanced. Returns (logits [slots, R, vocab] fp32, cache)."""
+    return paged_verify_step(config, params, kv, kv.tables, tokens, rope)
+
+
+def mixed_step(config: llama.LlamaConfig, params: llama.Params,
+               kv: cache_lib.KVCache, slot: IntLike,
+               chunk_tokens: torch.Tensor, offset: IntLike,
+               true_len: IntLike, decode_tokens: torch.Tensor, rope: Rope,
+               active: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, cache_lib.KVCache]:
+    """The reference's dense ``mixed_step``: one chunk of ``slot`` and one
+    decode step of every slot in one call, layer by layer, as
+    :func:`paged_mixed_step`. Returns (chunk logits [vocab], decode logits
+    [slots, vocab], both fp32; cache)."""
+    return paged_mixed_step(config, params, kv, slot,
+                            cache_lib.table_row(kv, slot), chunk_tokens,
+                            offset, true_len, kv.tables, decode_tokens, rope,
+                            active)

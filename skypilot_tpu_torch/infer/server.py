@@ -67,14 +67,24 @@ int8 form of the random draw); ``--tokenizer`` names a ``tokenizer.json``
 (the optional ``tokenizers`` package) or a sentencepiece ``.model`` for
 text prompts. The replica stamps its cold-start timeline into the recorder:
 ``coldstart.weights_loaded`` (``load_s``) once the weights exist,
-``coldstart.compiled`` (``warm_s``, ``total_s``) once warm. Run:
-``python -m skypilot_tpu_torch.infer.server --port 8000 --model 8b``
-(add ``--device cpu`` to run on the CPU, ``--spec-k 4`` to decode
-speculatively, ``--kv-dtype int8`` for int8 KV pages, ``--scheduler wfq
+``coldstart.compiled`` (``warm_s``, ``total_s``) once every tier is warm.
+
+The KV cache is dense by default, as the reference's: ``max_seq_len``
+rows per slot. ``--paged`` selects the paged cache (a shared page pool,
+preemption under pressure; ``--prefix-cache`` and ``--kv-dtype int8``
+need it). ``--long-slots N --long-seq-len L`` add a second dense tier of
+N slots at L positions over the same weights (``engine.EnginePool``):
+prompts that do not fit the first tier route there. The reference's usage
+errors exit at once (``--paged`` with ``--long-slots``, ``--prefix-cache``
+or ``--kv-dtype int8`` without ``--paged``, a long tier no longer than the
+first). Run: ``python -m skypilot_tpu_torch.infer.server --port 8000
+--model 8b`` (add ``--device cpu`` to run on the CPU, ``--spec-k 4`` to
+decode speculatively, ``--paged --kv-dtype int8`` for int8 KV pages,
+``--scheduler wfq
 --tenant-weights gold=4,free=1`` for weighted fair queueing,
 ``--max-queue-requests N`` to shed load past N waiting requests,
-``--fused-prefill`` for fused mixed steps, ``--prefix-cache`` for the
-shared-prefix KV cache and the KV transfer routes, ``--role prefill``
+``--fused-prefill`` for fused mixed steps, ``--paged --prefix-cache`` for
+the shared-prefix KV cache and the KV transfer routes, ``--role prefill``
 or ``decode`` for a disaggregated pair).
 """
 from __future__ import annotations
@@ -289,10 +299,21 @@ class InferenceServer:
     def _loop(self) -> None:
         try:
             t0 = time.time()
-            # Four tokens: the decode step runs at least twice, so its
-            # program is warmed and (on the card) captured before ready.
-            warm = self.engine.submit([1], max_new_tokens=4)
-            while not warm.done:
+            # On the card every tier first captures each greedy step
+            # program (every chunk bucket, decode, verify, mixed), so no
+            # live request pays a capture.
+            tiers = getattr(self.engine, 'engines', [self.engine])
+            for eng in tiers:
+                if eng.graphs_on:
+                    eng.warm_programs()
+            # Then the reference's warm-up requests, four tokens each. A
+            # pool warms every tier: a prompt one past the previous
+            # tier's cap routes to the next.
+            warm = [self.engine.submit([1], max_new_tokens=4)]
+            for prev in tiers[:-1]:
+                warm.append(self.engine.submit([1] * prev.ecfg.max_seq_len,
+                                               max_new_tokens=4))
+            while not all(w.done for w in warm):
                 self.engine.step()
             logger.info('engine warm in %.1fs', time.time() - t0)
             # Cold-start timeline: weights_loaded was stamped by main();
@@ -732,6 +753,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
 
 def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
                  n_pages: Optional[int], device: str, seed: int = 0,
+                 paged: bool = False,
                  kv_dtype: str = 'bfloat16', spec_k: int = 0,
                  spec_ngram: int = 3, pipeline_depth: int = 1,
                  scheduler: str = 'fcfs', tenant_weights=None,
@@ -744,9 +766,9 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
                  prefix_cache: bool = False, quantize: bool = False,
                  params: Optional[llama.Params] = None
                  ) -> engine_lib.InferenceEngine:
-    """A paged engine for ``model`` on ``device`` over ``params``, or,
-    when None, random weights drawn from ``seed`` (their int8 form with
-    ``quantize``)."""
+    """An engine for ``model`` on ``device`` (the dense cache, or the
+    paged one with ``paged``) over ``params``, or, when None, random
+    weights drawn from ``seed`` (their int8 form with ``quantize``)."""
     dev = engine_lib.resolve_device(device)
     config = MODELS[model]()
     if params is None:
@@ -755,7 +777,8 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
         config, params,
         engine_lib.EngineConfig(
             n_slots=slots, max_seq_len=min(max_seq_len, config.max_seq_len),
-            page_size=page_size, n_pages=n_pages, kv_dtype=kv_dtype,
+            paged=paged, page_size=page_size, n_pages=n_pages,
+            kv_dtype=kv_dtype,
             spec_k=spec_k, spec_ngram=spec_ngram,
             pipeline_depth=pipeline_depth, scheduler=scheduler,
             tenant_weights=tenant_weights,
@@ -824,6 +847,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument('--model', default='tiny', choices=sorted(MODELS))
     parser.add_argument('--slots', type=int, default=8)
     parser.add_argument('--max-seq-len', type=int, default=1024)
+    parser.add_argument('--long-slots', type=int, default=0,
+                        help='add a second dense tier with this many slots '
+                             'at --long-seq-len over the same weights: '
+                             'prompts past --max-seq-len route there, so '
+                             'the KV bytes are slots x max_seq_len + '
+                             'long_slots x long_seq_len instead of every '
+                             'slot paying the longest length')
+    parser.add_argument('--long-seq-len', type=int, default=8192)
     parser.add_argument('--page-size', type=int, default=64)
     parser.add_argument('--n-pages', type=int, default=None,
                         help='KV pool pages incl. the sink page (default: '
@@ -910,8 +941,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="'cuda' (default; raises without a card) or "
                              "'cpu'")
     parser.add_argument('--paged', action='store_true',
-                        help='accepted for the reference server\'s '
-                             'command line; the KV cache is always paged')
+                        help='paged KV cache (block tables over a shared '
+                             'page pool, preemption under pressure): device '
+                             'memory follows the tokens in flight; default '
+                             'the dense per-slot cache, as the reference\'s')
     parser.add_argument('--seed', type=int, default=0,
                         help='seed of the random weights and of sampling')
     parser.add_argument('--checkpoint', default=None,
@@ -928,29 +961,65 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help='tokenizer.json (needs the optional tokenizers '
                              'package) or sentencepiece .model for '
                              '/generate text; default: bytes')
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    check_usage(args)
+    return args
+
+
+def check_usage(args: argparse.Namespace) -> None:
+    """The reference's usage errors, each a SystemExit raised at once,
+    before any weight is drawn or loaded."""
+    if args.paged and args.long_slots > 0:
+        raise SystemExit('--paged already serves mixed lengths from one '
+                         'pool; drop --long-slots')
+    if args.prefix_cache and not args.paged:
+        raise SystemExit('--prefix-cache requires --paged (sharing is at '
+                         'page granularity)')
+    if args.kv_dtype != 'bfloat16' and not args.paged:
+        raise SystemExit('--kv-dtype int8 requires --paged (quantization '
+                         'is at page granularity)')
+    if args.long_slots > 0:
+        model_cap = MODELS[args.model]().max_seq_len
+        short_cap = min(args.max_seq_len, model_cap)
+        long_cap = min(args.long_seq_len, model_cap)
+        if long_cap <= short_cap:
+            raise SystemExit(
+                f'--long-seq-len ({args.long_seq_len}, clamped to '
+                f'{long_cap} by the model) must exceed --max-seq-len '
+                f'({short_cap}); equal or inverted tiers would break '
+                f'routing')
 
 
 def engine_from_args(args: argparse.Namespace,
-                     params: Optional[llama.Params] = None
-                     ) -> engine_lib.InferenceEngine:
-    return build_engine(args.model, args.slots, args.max_seq_len,
-                        args.page_size, args.n_pages, args.device, args.seed,
-                        kv_dtype=args.kv_dtype, spec_k=args.spec_k,
-                        spec_ngram=args.spec_ngram,
-                        pipeline_depth=args.pipeline_depth,
-                        scheduler=args.scheduler,
-                        tenant_weights=parse_tenant_weights(
-                            args.tenant_weights),
-                        max_queue_requests=args.max_queue_requests,
-                        max_queue_tokens=args.max_queue_tokens,
-                        fused_prefill=args.fused_prefill,
-                        stepline=not args.no_stepline,
-                        stepline_cap=args.stepline_cap,
-                        ttft_slo_s=args.ttft_slo_s,
-                        sdc_sentinel=not args.no_sdc_sentinel,
-                        prefix_cache=args.prefix_cache,
-                        quantize=args.quantize, params=params)
+                     params: Optional[llama.Params] = None):
+    """The engine ``main`` serves: one engine, or with ``--long-slots`` an
+    :class:`engine_lib.EnginePool` of it and a long dense tier built on
+    the same params object (the weights are on the device once;
+    ``quantize=False`` there, since they already are int8 with
+    ``--quantize``)."""
+    common = dict(spec_k=args.spec_k, spec_ngram=args.spec_ngram,
+                  pipeline_depth=args.pipeline_depth,
+                  scheduler=args.scheduler,
+                  tenant_weights=parse_tenant_weights(args.tenant_weights),
+                  max_queue_requests=args.max_queue_requests,
+                  max_queue_tokens=args.max_queue_tokens,
+                  fused_prefill=args.fused_prefill,
+                  stepline=not args.no_stepline,
+                  stepline_cap=args.stepline_cap, ttft_slo_s=args.ttft_slo_s,
+                  sdc_sentinel=not args.no_sdc_sentinel)
+    engine = build_engine(args.model, args.slots, args.max_seq_len,
+                          args.page_size, args.n_pages, args.device,
+                          args.seed, paged=args.paged,
+                          kv_dtype=args.kv_dtype,
+                          prefix_cache=args.prefix_cache,
+                          quantize=args.quantize, params=params, **common)
+    if args.long_slots <= 0:
+        return engine
+    long_engine = build_engine(args.model, args.long_slots,
+                               args.long_seq_len, args.page_size, None,
+                               args.device, seed=1, params=engine.params,
+                               **common)
+    return engine_lib.EnginePool([engine, long_engine])
 
 
 def server_from_args(args: argparse.Namespace,

@@ -34,7 +34,7 @@ def params():
 
 def _engine(params, **kw):
     base = dict(n_slots=2, max_seq_len=64, prefill_buckets=(8, 16),
-                prefill_chunk=16, page_size=8)
+                prefill_chunk=16, paged=True, page_size=8)
     base.update(kw)
     return tengine.InferenceEngine(CFG, params, tengine.EngineConfig(**base),
                                    device='cpu')
@@ -182,7 +182,7 @@ def _serve(engine):
 
 def test_server_flags_configure_the_control_loop():
     args = tserver.parse_args([
-        '--port', '0', '--device', 'cpu', '--pipeline-depth', '0',
+        '--port', '0', '--device', 'cpu', '--paged', '--pipeline-depth', '0',
         '--scheduler', 'wfq', '--tenant-weights', 'gold=4,free=1',
         '--max-queue-requests', '3', '--max-queue-tokens', '500'])
     eng = tserver.engine_from_args(args)

@@ -4,6 +4,7 @@ prints one well-formed JSON document
 with the keys ``PERF.md`` reads, and without ``--device`` it refuses to
 run where there is no CUDA (it never falls back to the CPU quietly)."""
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -15,9 +16,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _run(*args, timeout=300):
+    # One intra-op thread for the sweep and the servers it starts: beside
+    # a loaded test run, a pool of spinning OpenMP threads per process
+    # slows these tiny runs tenfold (the chunked sweep past its timeout).
     return subprocess.run(
         [sys.executable, '-m', 'skypilot_tpu_torch.bench_ttft', *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, 'OMP_NUM_THREADS': '1'})
 
 
 def _doc(out):
@@ -59,12 +64,12 @@ def test_chunked_sweep_prints_one_json_document():
     assert axis['prefix_evictions_bf16'] > 0
 
 
-def test_concurrency_sweep_prints_one_json_document(tmp_path):
+def _concurrency_sweep(tmp_path, *flags):
     doc = _doc(_run('--sweep', 'concurrency', '--model', 'tiny',
                     '--device', 'cpu', '--slots', '2', '--max-seq-len',
                     '256', '--page-size', '16', '--concurrency', '1', '2',
                     '--requests-per-level', '3', '--new-tokens', '4',
-                    '--output', str(tmp_path / 'sweep.json')))
+                    '--output', str(tmp_path / 'sweep.json'), *flags))
     assert doc['sweep_mode'] == 'concurrency'
     assert [lv['concurrency'] for lv in doc['sweep']] == [1, 2]
     for lv in doc['sweep']:
@@ -74,6 +79,19 @@ def test_concurrency_sweep_prints_one_json_document(tmp_path):
     assert doc['cold_first_request_s'] > 0
     assert doc['server_metrics']['integrity'] == 'ok'
     assert json.loads((tmp_path / 'sweep.json').read_text()) == doc
+    return doc
+
+
+def test_concurrency_sweep_prints_one_json_document(tmp_path):
+    doc = _concurrency_sweep(tmp_path, '--paged')
+    assert doc['paged'] is doc['server_metrics']['paged'] is True
+
+
+def test_concurrency_sweep_serves_dense_without_paged(tmp_path):
+    """The sweep's server takes --paged from the bench, as the reference
+    bench's does: without it the replica is dense."""
+    doc = _concurrency_sweep(tmp_path)
+    assert doc['paged'] is doc['server_metrics']['paged'] is False
 
 
 def test_quantize_reaches_the_server_and_the_json():
@@ -85,7 +103,7 @@ def test_quantize_reaches_the_server_and_the_json():
                     'cpu', '--slots', '2', '--max-seq-len', '128',
                     '--page-size', '16', '--concurrency', '1',
                     '--requests-per-level', '2', '--new-tokens', '2',
-                    '--quantize'))
+                    '--paged', '--quantize'))
     assert doc['quantize'] is True and doc['args']['quantize'] is True
     plain = quant.param_bytes(llama.init_params(
         llama.LlamaConfig.tiny(), torch.Generator().manual_seed(0)))

@@ -149,7 +149,8 @@ def test_replica_serves_a_train_run_checkpoint(tmp_path, quantize):
     ckpt.CheckpointManager(str(tmp_path / 'run')).save(2, state)
     ckpt.CheckpointManager(str(tmp_path / 'bare')).save(0, state.params)
     flags = ['--port', '0', '--model', 'tiny', '--slots', '2',
-             '--max-seq-len', '128', '--page-size', '16', '--device', 'cpu']
+             '--max-seq-len', '128', '--page-size', '16', '--device', 'cpu',
+             '--paged']
     want = (quant.quantize_params(state.params) if quantize
             else state.params)
     for name in ('run', 'bare'):
@@ -160,7 +161,7 @@ def test_replica_serves_a_train_run_checkpoint(tmp_path, quantize):
         for a, b in zip(_qleaves(got), _qleaves(want)):
             assert a.dtype == b.dtype and torch.equal(a, b)
     srv = tserver.server_from_args(args)
-    ref = tserver.build_engine('tiny', 2, 128, 16, None, 'cpu',
+    ref = tserver.build_engine('tiny', 2, 128, 16, None, 'cpu', paged=True,
                                quantize=quantize, params=want)
     prompt = [7, 3, 99, 12, 5]
     [a] = srv.engine.generate([prompt], max_new_tokens=6)

@@ -92,8 +92,8 @@ def test_coldstart_events_match_the_jax_server(monkeypatch, tmp_path):
         # The port's main path on the weights the reference serves.
         monkeypatch.setattr(tserver, 'load_params',
                             lambda args, config: tparams)
-        args = tserver.parse_args(['--port', '0', '--device', 'cpu']
-                                  + FLAGS)
+        args = tserver.parse_args(['--port', '0', '--device', 'cpu',
+                                   '--paged'] + FLAGS)
         tsrv = tserver.server_from_args(args, boot_t0)
         torch_url = f'http://127.0.0.1:{tsrv.start("127.0.0.1", 0)}'
         _wait_ok(torch_url)

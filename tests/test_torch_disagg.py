@@ -67,7 +67,8 @@ def params():
 def _port(params, kv_dtype='int8', **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), params[2],
-        tengine.EngineConfig(**{**KW, 'kv_dtype': kv_dtype, **kw}),
+        tengine.EngineConfig(**{**KW, 'paged': True, 'kv_dtype': kv_dtype,
+                                **kw}),
         device='cpu')
 
 

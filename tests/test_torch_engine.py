@@ -37,7 +37,8 @@ def params():
 def _port(tparams, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**ENGINE_KW, 'pipeline_depth': 0, **kw}),
+        tengine.EngineConfig(**{**ENGINE_KW, 'paged': True,
+                                'pipeline_depth': 0, **kw}),
         device='cpu')
 
 
@@ -103,4 +104,5 @@ def test_cuda_is_required_when_asked_for(params, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         tengine.InferenceEngine(tllama.LlamaConfig.tiny(), tparams,
-                                tengine.EngineConfig(**ENGINE_KW))
+                                tengine.EngineConfig(paged=True,
+                                                     **ENGINE_KW))

@@ -85,7 +85,7 @@ def _outputs(reqs):
 def _port(tparams, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**KW, **kw}), device='cpu')
+        tengine.EngineConfig(**{**KW, 'paged': True, **kw}), device='cpu')
 
 
 @pytest.fixture(scope='module')

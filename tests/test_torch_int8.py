@@ -207,7 +207,8 @@ def params():
 def _port(tparams, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**ENGINE_KW, **kw}), device='cpu')
+        tengine.EngineConfig(**{**ENGINE_KW, 'paged': True, **kw}),
+        device='cpu')
 
 
 @pytest.fixture(scope='module')

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``skypilot_tpu_torch``
-(the observability copies, the serving sweep and the prefix cache's
-copies of ``prefix_hash``, ``kv_wire`` and ``prefix_cache`` included) and
+(the observability copies, the serving sweep, the dense cache and the
+prefix cache's copies of ``prefix_hash``, ``kv_wire`` and ``prefix_cache``
+included) and
 ``chip_smoke.py``, which drives it on the card, loads neither JAX nor any
 module of the JAX package. Checked in a fresh interpreter, since
 this test process has both loaded."""
@@ -24,7 +25,7 @@ bad = sorted(m for m in sys.modules
              or m == 'skypilot_tpu' or m.startswith('skypilot_tpu.'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 37, names
+assert len(names) >= 38, names
 assert {'skypilot_tpu_torch.infer.sched.' + m
         for m in ('base', 'deadline', 'wfq')} <= set(names), names
 assert ({'skypilot_tpu_torch.observability.' + m
@@ -32,7 +33,8 @@ assert ({'skypilot_tpu_torch.observability.' + m
         | {'skypilot_tpu_torch.bench_ttft'}) <= set(names), names
 assert {'skypilot_tpu_torch.utils.prefix_hash',
         'skypilot_tpu_torch.infer.kv_wire',
-        'skypilot_tpu_torch.infer.prefix_cache'} <= set(names), names
+        'skypilot_tpu_torch.infer.prefix_cache',
+        'skypilot_tpu_torch.infer.cache'} <= set(names), names
 assert {'skypilot_tpu_torch.ops.quant',
         'skypilot_tpu_torch.train.checkpoint'} <= set(names), names
 '''

@@ -73,7 +73,7 @@ def test_lb_streams_identical_from_torch_and_jax_replicas():
     tparams = tllama.params_from_jax(jax.tree.map(np.asarray, jparams))
     tsrv = tserver.InferenceServer(tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**ENGINE_KW), device='cpu'))
+        tengine.EngineConfig(paged=True, **ENGINE_KW), device='cpu'))
     jsrv = jserver.InferenceServer(jengine.InferenceEngine(
         cfg, jparams, jengine.EngineConfig(paged=True, **ENGINE_KW)))
     torch_url = f'http://127.0.0.1:{tsrv.start("127.0.0.1", 0)}'
@@ -145,8 +145,8 @@ def _kv_replica(tparams, role):
     srv = tserver.InferenceServer(
         tengine.InferenceEngine(
             tllama.LlamaConfig.tiny(), tparams, tengine.EngineConfig(
-                **{**ENGINE_KW, 'n_slots': 3}, n_pages=13, kv_dtype='int8',
-                prefix_cache=True),
+                **{**ENGINE_KW, 'n_slots': 3}, paged=True, n_pages=13,
+                kv_dtype='int8', prefix_cache=True),
             device='cpu'), role=role)
     return srv, f'http://127.0.0.1:{srv.start("127.0.0.1", 0)}'
 

@@ -68,7 +68,7 @@ def params():
 def _port(tparams, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**KW, **kw}), device='cpu')
+        tengine.EngineConfig(**{**KW, 'paged': True, **kw}), device='cpu')
 
 
 @pytest.fixture(scope='module')

@@ -232,7 +232,7 @@ def params():
 def _port(tparams, guard=True, **kw):
     eng = tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**KW, **kw}), device='cpu')
+        tengine.EngineConfig(**{**KW, 'paged': True, **kw}), device='cpu')
     if guard and eng.prefix is not None:
         eng.guard = TreeGuard(eng)
     return eng

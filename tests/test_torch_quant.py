@@ -231,7 +231,8 @@ def test_quantized_engine_generates(params):
     eng = tengine.InferenceEngine(
         tcfg, tparams, tengine.EngineConfig(
             n_slots=2, max_seq_len=64, prefill_buckets=(16,),
-            prefill_chunk=16, page_size=16, quantize=True), device='cpu')
+            prefill_chunk=16, paged=True, page_size=16, quantize=True),
+        device='cpu')
     assert tquant.is_quantized(eng.params)
     assert tquant.param_bytes(eng.params) < tquant.param_bytes(tparams) / 2
     prompt = [5, 17, 101, 7]
@@ -239,7 +240,7 @@ def test_quantized_engine_generates(params):
     plain = tengine.InferenceEngine(
         tcfg, tparams, tengine.EngineConfig(
             n_slots=2, max_seq_len=64, prefill_buckets=(16,),
-            prefill_chunk=16, page_size=16), device='cpu')
+            prefill_chunk=16, paged=True, page_size=16), device='cpu')
     [oracle] = plain.generate([prompt], max_new_tokens=4)
     assert req.output_tokens[0] == oracle.output_tokens[0]
     assert all(0 <= t < tcfg.vocab_size for t in req.output_tokens)
@@ -308,7 +309,8 @@ class OracleDrafter:
 def _port(carried, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), carried,
-        tengine.EngineConfig(**{**KW, 'quantize': True, **kw}),
+        tengine.EngineConfig(**{**KW, 'paged': True, 'quantize': True,
+                                **kw}),
         device='cpu')
 
 

@@ -65,7 +65,8 @@ def _post(url, body):
 
 
 def _engine():
-    return tserver.build_engine('tiny', 2, 128, 16, None, 'cpu', seed=0)
+    return tserver.build_engine('tiny', 2, 128, 16, None, 'cpu', seed=0,
+                                paged=True)
 
 
 def _serve(engine):
@@ -91,8 +92,8 @@ def served():
 def served_int8_spec():
     args = tserver.parse_args(
         ['--port', '0', '--model', 'tiny', '--slots', '2', '--max-seq-len',
-         '128', '--page-size', '16', '--device', 'cpu', '--kv-dtype', 'int8',
-         '--spec-k', '4'])
+         '128', '--page-size', '16', '--device', 'cpu', '--paged',
+         '--kv-dtype', 'int8', '--spec-k', '4'])
     engine = tserver.engine_from_args(args)
     # Random weights rarely repeat themselves, so the prompt-lookup
     # drafter would seldom propose: a test-side drafter that always
@@ -204,7 +205,7 @@ def _kv_server(role, **kw):
     args = tserver.parse_args(
         ['--port', '0', '--model', 'tiny', '--slots', '3', '--max-seq-len',
          '128', '--page-size', '16', '--n-pages', '13', '--device', 'cpu',
-         '--kv-dtype', 'int8', '--prefix-cache', '--role', role,
+         '--paged', '--kv-dtype', 'int8', '--prefix-cache', '--role', role,
          '--kv-pull-timeout-s', '5'])
     srv = tserver.InferenceServer(
         tserver.engine_from_args(args), role=args.role,
@@ -397,6 +398,11 @@ def test_tokenizer_quantize_checkpoint_flags_parse():
     assert (args.model, args.quantize, args.slots, args.max_seq_len,
             args.tokenizer) == ('8b', True, 16, 2048,
                                 'examples/tokenizer_8k.json')
+    # The replica is dense unless --paged, as the reference's is.
+    assert [tserver.engine_from_args(tserver.parse_args(
+        ['--port', '0', '--model', 'tiny', '--device', 'cpu',
+         '--max-seq-len', '128', '--page-size', '16'] + flags)).metrics()[
+        'paged'] for flags in ([], ['--paged'])] == [False, True]
 
 
 def test_quantized_replica_serves_the_int8_engines_tokens(monkeypatch):
@@ -405,7 +411,8 @@ def test_quantized_replica_serves_the_int8_engines_tokens(monkeypatch):
     tokenizer over the model's vocabulary exits before any weight."""
     args = tserver.parse_args(
         ['--port', '0', '--model', 'tiny', '--slots', '2', '--max-seq-len',
-         '128', '--page-size', '16', '--device', 'cpu', '--quantize'])
+         '128', '--page-size', '16', '--device', 'cpu', '--paged',
+         '--quantize'])
     srv = tserver.server_from_args(args)
     assert tserver.quant_lib.is_quantized(srv.engine.params)
     port = srv.start('127.0.0.1', 0)
@@ -417,7 +424,7 @@ def test_quantized_replica_serves_the_int8_engines_tokens(monkeypatch):
             time.sleep(0.05)
         prompt = list(range(20, 57))
         want = tserver.build_engine('tiny', 2, 128, 16, None, 'cpu',
-                                    quantize=True).generate(
+                                    paged=True, quantize=True).generate(
                                         [prompt], max_new_tokens=9)
         status, raw = _post(base + '/generate',
                             {'tokens': prompt, 'max_new_tokens': 9})

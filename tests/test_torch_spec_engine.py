@@ -86,7 +86,8 @@ def params():
 def _port(tparams, **kw):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**ENGINE_KW, 'pipeline_depth': 0, **kw}),
+        tengine.EngineConfig(**{**ENGINE_KW, 'paged': True,
+                                'pipeline_depth': 0, **kw}),
         device='cpu')
 
 

@@ -65,7 +65,8 @@ def dump_store(tmp_path):
 def _port(tparams, kw=KW, **extra):
     return tengine.InferenceEngine(
         tllama.LlamaConfig.tiny(), tparams,
-        tengine.EngineConfig(**{**kw, **extra}), device='cpu')
+        tengine.EngineConfig(**{**kw, 'paged': True, **extra}),
+        device='cpu')
 
 
 def _run(eng, prompts=PROMPTS, new=NEW):
