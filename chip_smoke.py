@@ -49,9 +49,15 @@ Phases, in order; any failure exits non-zero:
    the edge of its vocabulary splits (``ce_split_edges``), at llama-350m's
    d 1024 x V 32768 and at Llama-3's head, d 4096 x V 128,256; the
    int8-weight product (``qdot_int8``, W8A16) at every weight shape of the
-   8B and 350m models and at an N off its tile, at 1, 17, 64, 128 and 256
-   rows, where every row must also be bitwise the same row of the
-   256-row product (also through a 1-D and a 3-D x).
+   8B and 350m models, at an N off its tile and at a tensor-parallel
+   rank's slice of every 8B weight at tp 2 and tp 8 (``QDOT_TP_SHAPES``:
+   tp 8's lm_head N 16,032 is off the 128-column block), at 1, 17, 64,
+   128 and 256 rows, where every row must also be bitwise the same row
+   of the 256-row product (also through a 1-D and a 3-D x); and the
+   decode, verify and prefill kernels at a tensor-parallel rank's KV
+   heads (4 at tp 2, 1 at tp 8; ``TP_HKV``) over 8 dense slots of 32
+   pages, every verify query bitwise decode and the device-scalar
+   prefill entry bitwise the host one; phase 4 times tp 2's shapes.
 4. Timing: each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls:
    ``scaled_dot_product_attention`` for attention, its backward through
@@ -163,6 +169,18 @@ Phases, in order; any failure exits non-zero:
    the long tier with an in-process long-tier engine's tokens; prints
    the time between tokens, tokens/s, the long prompt's warm TTFT and
    each tier's KV bytes beside the card.
+5h. Tensor parallelism: two spawned ranks share the card over ``gloo``
+   at tp 2 (``tp_rank``; a correctness run: gloo's collectives stage
+   through the host, so the engines run without CUDA graphs), 8B dense,
+   bf16 and then int8 weights, spec_k 4 with the oracle drafter, 5b's
+   first TP_PROMPTS prompts served through the lockstep driver. Their
+   tokens must equal the tp=1 engine's (except after a near-tie of its
+   top-2 logits, NEAR_TIE), both ranks must have launched decode,
+   prefill and verify (and ``qdot_int8`` with int8 weights: the
+   ``launches_tp2`` of the kernel line), and the lockstep loop compares
+   the ranks' output digests every tick. Prints each rank's time a tick and
+   a step, labelled gloo on one card. The NCCL path (one card a rank)
+   needs two cards and does not run here.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -340,18 +358,43 @@ SLICE_LOSS_ATOL, SLICE_GRAD_RTOL = 1e-2, 5e-2
 # orders: each rounding may land on the neighbouring bf16 value, so
 # within two bf16 steps (2^-6 of the value), plus 1e-3 of the largest
 # magnitude for sums that cancel.
+# Tensor parallelism: a rank's Megatron slices of the 8B weights at tp 2
+# (phase 5h runs them) and tp 8 (the shipped recipes' --tp 8), column
+# weights split along N, row weights along K. tp 8's lm_head N 16,032 is
+# not a multiple of the 128-column block, and K 512 and 1,792 change the
+# K-split count.
+QDOT_TP_SHAPES = {
+    'tp2 wq': (4096, 2048), 'tp2 wk/wv': (4096, 512),
+    'tp2 wo': (2048, 4096), 'tp2 w_gate/w_up': (4096, 7168),
+    'tp2 w_down': (7168, 4096), 'tp2 lm_head': (4096, 64_128),
+    'tp8 wq': (4096, 512), 'tp8 wk/wv': (4096, 128),
+    'tp8 wo': (512, 4096), 'tp8 w_gate/w_up': (4096, 1792),
+    'tp8 w_down': (1792, 4096), 'tp8 lm_head': (4096, 16_032)}
 QDOT_SHAPES = {
     'wq/wo': (4096, 4096), 'wk/wv': (4096, 1024),
     'w_gate/w_up': (4096, 14336), 'w_down': (14336, 4096),
     'lm_head': (4096, 128_256), 'n1040': (4096, 1040),
     '350m wq/wo': (1024, 1024), '350m wk/wv': (1024, 512),
     '350m w_gate/w_up': (1024, 4096), '350m w_down': (4096, 1024),
-    '350m lm_head': (1024, 32_768)}
+    '350m lm_head': (1024, 32_768), **QDOT_TP_SHAPES}
 QDOT_8B = ('wq/wo', 'wk/wv', 'w_gate/w_up', 'w_down', 'lm_head')
+QDOT_TP2 = tuple(n for n in QDOT_TP_SHAPES if n.startswith('tp2'))
 QDOT_MAIN = 'w_gate/w_up'
 QDOT_ROWS = (1, 17, 64, 128, 256)
 QDOT_TIMED_ROWS = (64, 256)
 QDOT_RTOL, QDOT_ATOL_FRAC = 2.0 ** -6, 1e-3
+# The attention kernels at a tensor-parallel rank's KV heads (group and
+# head_dim unchanged): tp 2 (phase 5h) and tp 8 (the grid's head axis 8x
+# smaller), over 8 dense slots of MAX_SEQ rows (32-page identity rows):
+# decode and verify at these lengths, prefill at (C, offset, true_len).
+TP_HKV = {2: HKV // 2, 8: HKV // 8}
+TP_DECODE_LENGTHS = [1, 17, 64, 65, 257, 1000, 1792, MAX_SEQ]
+TP_VERIFY_LENGTHS = [MAX_SEQ - 2, 1, 17, 64, 65, 257, 1000, 1792]
+TP_PREFILL_CASES = [(16, 0, 16), (64, 1792, 50), (256, 1792, 256)]
+# Phase 5h: two ranks share the one card over gloo (a correctness run:
+# their collectives stage through the host), 5b's first TP_PROMPTS
+# prompts x TP_NEW new tokens, spec_k 4 with the oracle drafter.
+TP_PROMPTS, TP_NEW = 4, 32
 TRAINING_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                     'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd')
 # --profile: decode steps with every slot at this context.
@@ -708,17 +751,18 @@ def check_kernels(torch, pa):
     return results
 
 
-def dense_prefill_case(torch, gen, rows, C):
-    """A prefill case over the dense cache's page view at the 8B shapes:
-    two slots of ``rows`` rows in pages of PAGE, the chunk in slot 1,
-    whose identity row lists pages rows / PAGE .. 2 rows / PAGE - 1."""
+def dense_prefill_case(torch, gen, rows, C, hkv=HKV):
+    """A prefill case over the dense cache's page view at the 8B shapes
+    (``hkv`` KV heads: a tensor-parallel rank's share): two slots of
+    ``rows`` rows in pages of PAGE, the chunk in slot 1, whose identity
+    row lists pages rows / PAGE .. 2 rows / PAGE - 1."""
     per = rows // PAGE
-    shape = (HKV, 2 * per, PAGE, HD)
+    shape = (hkv, 2 * per, PAGE, HD)
     k_pages = torch.randn(shape, generator=gen, device='cuda').to(
         torch.bfloat16)
     v_pages = torch.randn(shape, generator=gen, device='cuda').to(
         torch.bfloat16)
-    q = torch.randn((C, HKV, GROUP, HD), generator=gen, device='cuda').to(
+    q = torch.randn((C, hkv, GROUP, HD), generator=gen, device='cuda').to(
         torch.bfloat16)
     row = torch.arange(per, 2 * per, dtype=torch.int32, device='cuda')
     return q, k_pages, v_pages, row
@@ -756,18 +800,19 @@ def check_dense_prefill(torch, pa):
     return out
 
 
-def dense_attention_case(torch, gen, lengths, rows, R=0):
+def dense_attention_case(torch, gen, lengths, rows, R=0, hkv=HKV):
     """A decode (R 0) or verify (R queries a slot) case over the dense
-    cache's page view at the 8B shapes: a slot of ``rows`` rows in pages
-    of PAGE per length, its table the slot's identity row."""
+    cache's page view at the 8B shapes (``hkv`` KV heads): a slot of
+    ``rows`` rows in pages of PAGE per length, its table the slot's
+    identity row."""
     from skypilot_tpu_torch.infer import cache as cache_lib
     slots = len(lengths)
-    shape = (HKV, slots * rows // PAGE, PAGE, HD)
+    shape = (hkv, slots * rows // PAGE, PAGE, HD)
     k_pages = torch.randn(shape, generator=gen, device='cuda').to(
         torch.bfloat16)
     v_pages = torch.randn(shape, generator=gen, device='cuda').to(
         torch.bfloat16)
-    qshape = (slots,) + ((R,) if R else ()) + (HKV, GROUP, HD)
+    qshape = (slots,) + ((R,) if R else ()) + (hkv, GROUP, HD)
     q = torch.randn(qshape, generator=gen, device='cuda').to(torch.bfloat16)
     tables = cache_lib.identity_tables(slots, rows, PAGE, 'cuda')
     lengths = torch.tensor(lengths, dtype=torch.int32, device='cuda')
@@ -799,6 +844,109 @@ def check_dense_attention(torch, pa) -> None:
           f'decode {worst["paged_decode"]:.3e}, verify '
           f'{worst["paged_verify"]:.3e} (atol {ATOL}); every verify query '
           f'bitwise decode', flush=True)
+
+
+def check_tp_attention(torch, pa):
+    """Phase 3 at a tensor-parallel rank's KV heads (``TP_HKV``: 4 at tp
+    2, 1 at tp 8; group and head_dim as the 8B model's) over 8 dense
+    slots of 32-page identity rows: decode at TP_DECODE_LENGTHS, verify
+    (R VERIFY_R, every query bitwise decode) at TP_VERIFY_LENGTHS, and
+    the prefill kernel at TP_PREFILL_CASES, its device-scalar entry
+    bitwise the host-scalar one; each against its plain version at ATOL.
+    Returns tp 2's cases for phase 4 as {name: (max_abs_err, inputs[,
+    offset, true_len])}."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(7)
+    out, worst = {}, {}
+    for tp, hkv in TP_HKV.items():
+        dcase = dense_attention_case(torch, gen, TP_DECODE_LENGTHS, MAX_SEQ,
+                                     hkv=hkv)
+        vcase = dense_attention_case(torch, gen, TP_VERIFY_LENGTHS, MAX_SEQ,
+                                     VERIFY_R, hkv=hkv)
+        errs = {'paged_decode': decode_err(torch, pa, dcase),
+                'paged_verify': verify_err(torch, pa, vcase)}
+        pcases = {}
+        for C, off, tl in TP_PREFILL_CASES:
+            case = dense_prefill_case(torch, gen, MAX_SEQ, C, hkv=hkv)
+            err = prefill_err(torch, pa, case, off, tl)
+            errs['paged_prefill'] = max(errs.get('paged_prefill', 0.0), err)
+            pcases[C] = (err, case, off, tl)
+        for name, err in errs.items():
+            if err > ATOL:
+                fail(f'{name} disagrees with its plain version at tp {tp} '
+                     f'({hkv} KV heads): {err}')
+        worst[tp] = errs
+        if tp == 2:
+            out = {'paged_decode_tp2': (errs['paged_decode'], dcase),
+                   'paged_verify_tp2': (errs['paged_verify'], vcase),
+                   'paged_prefill_tp2': pcases[256]}
+    print(f'paged kernels vs plain at a tp rank\'s KV heads {TP_HKV} (group '
+          f'{GROUP}, 8 dense slots of {MAX_SEQ // PAGE} pages; decode at '
+          f'{TP_DECODE_LENGTHS}, verify R {VERIFY_R} at {TP_VERIFY_LENGTHS}, '
+          f'prefill (C, offset, true_len) {TP_PREFILL_CASES}): max_abs_err '
+          + json.dumps({f'tp{tp}': {k: f'{v:.3e}' for k, v in e.items()}
+                        for tp, e in worst.items()})
+          + f' (atol {ATOL}); every verify query bitwise decode, the '
+          f'device-scalar prefill entry bitwise the host one', flush=True)
+    return out
+
+
+def time_attention(torch, pa, case, flush):
+    """Phase 4, a decode (4-D q) or verify (5-D q) case at any KV-head
+    count: the kernel, its plain version, SDPA over the K/V gathered to
+    the longest needed row (a boolean mask, causal for verify) and the
+    bound (q in, fp32 out, each live K/V row once, the owned table
+    entries and the lengths)."""
+    q, kp, vp, tables, lengths = case
+    R = q.shape[1] if q.dim() == 5 else 0
+    slots, hkv, group = q.shape[0], q.shape[-3], q.shape[-2]
+    hq = hkv * group
+    fn = pa.paged_verify_attention if R else pa.paged_decode_attention
+    ref = (pa.paged_verify_attention_reference if R
+           else pa.paged_decode_attention_reference)
+    ms = time_ms(torch, lambda: fn(*case), 50, flush)
+    plain = time_ms(torch, lambda: ref(*case), 10, flush)
+    cov = tables.shape[1] * PAGE
+    lens = lengths.tolist()
+    need = [min(n + R, cov) for n in lens] if R else lens
+    S = -(-max(need) // PAGE) * PAGE
+    idx = tables[:, :S // PAGE].long()
+    kg, vg = (p[:, idx].permute(1, 0, 2, 3, 4).reshape(slots, hkv, S, HD)
+              for p in (kp, vp))
+    if R:
+        qs = q.permute(0, 2, 3, 1, 4).reshape(slots, hq, R, HD)
+        horizon = (lengths.long()[:, None]
+                   + torch.arange(R, device='cuda')[None, :] + 1)
+        mask = (torch.arange(S, device='cuda')[None, None, :]
+                < horizon[:, :, None])[:, None]
+        flops = 4 * hq * HD * sum(min(n + i + 1, cov) for n in lens
+                                  for i in range(R))
+    else:
+        qs = q.reshape(slots, hq, 1, HD)
+        mask = (torch.arange(S, device='cuda')[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+        flops = 4 * hq * HD * sum(lens)
+    lib = time_ms(torch, lambda: sdpa(torch, qs, kg, vg, mask), 50, flush)
+    n_bytes = (q.numel() * (2 + 4) + sum(need) * hkv * HD * 2 * 2
+               + sum(-(-n // PAGE) for n in need) * 4 + slots * 4)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib,
+                bound=bound(n_bytes, flops))
+
+
+def time_tp_attention(torch, pa, tp_checked):
+    """Phase 4 at tp 2's shapes (4 KV heads): decode, verify and the
+    256-token chunk at offset 1792 (its host- and device-scalar
+    entries)."""
+    flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
+    rows = {name: time_attention(torch, pa, tp_checked[name][1], flush)
+            for name in ('paged_decode_tp2', 'paged_verify_tp2')}
+    _, case, off, tl = tp_checked['paged_prefill_tp2']
+    rows['paged_prefill_tp2'] = time_prefill(torch, pa, case, {}, off, tl,
+                                             flush)
+    print(f'timing at tp 2\'s shapes ({TP_HKV[2]} KV heads; ' + card_line()
+          + '):', flush=True)
+    print_timed(rows)
+    return rows
 
 
 def check_spec_int8_kernels(torch, pa):
@@ -941,7 +1089,8 @@ def time_prefill(torch, pa, case, kw, off, tl, flush):
     engine's chunk graphs launch it), its plain version, and SDPA over
     the gathered (dequantized) K/V with a boolean causal mask."""
     q, kp, vp, row = case
-    C, hq = q.shape[0], HKV * GROUP
+    C, hkv = q.shape[0], q.shape[1]
+    hq = hkv * q.shape[2]
     ms = time_ms(torch, lambda: pa.paged_prefill_attention(
         *case, off, tl, **kw), 50, flush)
     scalars = device_scalars(torch, off, tl)
@@ -953,8 +1102,8 @@ def time_prefill(torch, pa, case, kw, off, tl, flush):
     kd, vd = dequantized(torch, kp, vp, kw)
     npg = -(-S // PAGE)
     idx = row[:npg].long()
-    kg = kd[:, idx].reshape(1, HKV, npg * PAGE, HD)[:, :, :S].contiguous()
-    vg = vd[:, idx].reshape(1, HKV, npg * PAGE, HD)[:, :, :S].contiguous()
+    kg = kd[:, idx].reshape(1, hkv, npg * PAGE, HD)[:, :, :S].contiguous()
+    vg = vd[:, idx].reshape(1, hkv, npg * PAGE, HD)[:, :, :S].contiguous()
     qs = q.reshape(C, hq, HD).permute(1, 0, 2)[None].contiguous()
     mask = (torch.arange(S, device='cuda')[None, :]
             <= off + torch.arange(C, device='cuda')[:, None])
@@ -963,7 +1112,7 @@ def time_prefill(torch, pa, case, kw, off, tl, flush):
     # count at true_len rows, K/V at every live position once, and the
     # table entries up to the last live page.
     row_bytes = HD * 2 if not kw else HD + 4
-    n_bytes = (tl * hq * HD * (2 + 4) + (off + tl) * HKV * row_bytes * 2
+    n_bytes = (tl * hq * HD * (2 + 4) + (off + tl) * hkv * row_bytes * 2
                + -(-(off + tl) // PAGE) * 4)
     flops = 4 * HD * hq * sum(off + c + 1 for c in range(tl))
     return dict(ms=ms, dev_ms=dev_ms, plain_ms=plain, library_ms=lib,
@@ -1179,7 +1328,7 @@ def time_qdot_kernel(torch, quant):
     flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
     table, main = [], None
     for name, (k, n) in QDOT_SHAPES.items():
-        if name not in QDOT_8B:
+        if name not in QDOT_8B + QDOT_TP2:
             continue
         x, w = qdot_case(torch, quant, gen, k, n)
         wb = w.q.to(torch.bfloat16) * w.scale[None, :]
@@ -2624,6 +2773,219 @@ def dense_replica(torch, quant, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5h: tensor parallelism, two ranks over gloo on the one card
+# ---------------------------------------------------------------------------
+TP_KERNELS = ('paged_decode_attention', 'paged_prefill_attention',
+              'paged_verify_attention')
+
+
+def tp_rank(rank: int, world: int, address: str, out_path: str, prompts,
+            oracles) -> None:
+    """One rank of phase 5h (a spawned process): joins the gloo group on
+    cuda:0, then per variant (bf16, then int8 weights) draws its slices
+    of seed 0's 8B weights, builds a dense tp engine (8 slots, spec_k 4,
+    the oracle drafter over ``oracles[variant]``, CUDA graphs off: gloo's
+    collectives stage through the host) and serves ``prompts`` through
+    the lockstep driver, its kernel counters set to 0 just before. Writes
+    its tokens (rank 0), launches, ticks and step times to
+    ``out_path``."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import multihost
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.ops import quant
+    from skypilot_tpu_torch.parallel import mesh
+    group = mesh.tp_group(rank, world, address, 'cuda:0', backend='gloo')
+    cfg = llama.LlamaConfig.llama3_8b()
+    result = {}
+    for variant in ('bf16', 'int8_weights'):
+        gen = torch.Generator(device='cuda:0')
+        gen.manual_seed(0)
+        if variant == 'bf16':
+            params = engine_lib.init_params_sharded(cfg, world, rank, 0,
+                                                    'cuda:0')
+        else:
+            params = quant.init_params_quantized(cfg, gen, 'cuda:0', world,
+                                                 rank)
+        eng = engine_lib.InferenceEngine(
+            cfg, params, engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ, spec_k=VERIFY_R - 1,
+                cuda_graphs=False),
+            seed=0, device='cuda:0', group=group)
+        eng._drafter = OracleDrafter(prompts, oracles[variant],
+                                     prompts[1::2], ORACLE_WRONG_AT,
+                                     cfg.vocab_size)
+        drv = multihost.MultihostEngineDriver(eng, group)
+        out = {}
+
+        def work():
+            reqs = [drv.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+            for r in reqs:
+                r.wait_done()
+            out['tokens'] = [r.output_tokens for r in reqs]
+            drv.stop()
+
+        torch.cuda.synchronize()
+        pa.reset_launches()
+        quant.reset_launches()
+        t0 = time.perf_counter()
+        if rank == 0:
+            t = threading.Thread(target=work)
+            t.start()
+            drv.run()
+            t.join()
+        else:
+            drv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = eng.metrics()
+        result[variant] = {
+            'tokens': out.get('tokens'), 'ticks': drv.ticks,
+            'wall_s': wall, 'ms_per_tick': wall * 1e3 / max(1, drv.ticks),
+            'ms_per_step': (eng._decode_time * 1e3
+                            / max(1, m['decode_steps'])),
+            'launches': {k: v for k, v in {**pa.launches,
+                                           **quant.launches}.items() if v},
+            **{k: m[k] for k in ('decode_steps', 'spec_steps',
+                                 'spec_accepted_tokens', 'cuda_graphs',
+                                 'pipeline_depth', 'kv_cache_bytes',
+                                 'param_bytes')}}
+        del drv, eng, params
+        torch.cuda.empty_cache()
+    pathlib.Path(out_path).write_text(json.dumps(result))
+    mesh.destroy(group)
+
+
+def tp_in_process(torch, quant, card: str):
+    """Phase 5h: the tp=1 dense engine (8 slots, depth 1, graphs) serves
+    5b's first TP_PROMPTS prompts x TP_NEW tokens on seed 0's 8B weights,
+    bf16 and int8; then two spawned ranks share the card over gloo at tp
+    2 (``tp_rank``) and serve them through the lockstep driver with spec_k
+    4 and the oracle drafter (its drafts the tp=1 tokens). Every tp 2
+    token list must equal the tp=1 one, except after a near-tie
+    (NEAR_TIE) of the tp=1 continuation's top-2 logits; both ranks must
+    have launched decode, prefill and verify (and qdot_int8 with int8
+    weights); the lockstep loop compared the ranks' output digests every
+    tick (a mismatch exits the rank with 42). Prints each rank's time a
+    tick and a step, labelled gloo on one card. Returns the launches, summed
+    over ranks and variants."""
+    import random
+    import torch.multiprocessing as mp
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import model as model_lib
+    from skypilot_tpu_torch.infer import paged_cache as pc_lib
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh
+    t0 = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b()
+    rnd = random.Random(4)
+    prompts = [[rnd.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in SPEC_PROMPT_LENGTHS][:TP_PROMPTS]
+    params, tp1 = {}, {}
+    for variant in ('bf16', 'int8_weights'):
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(0)
+        params[variant] = (llama.init_params(cfg, gen, 'cuda')
+                           if variant == 'bf16' else
+                           quant.init_params_quantized(cfg, gen, 'cuda'))
+        eng = engine_lib.InferenceEngine(
+            cfg, params[variant], engine_lib.EngineConfig(
+                n_slots=8, max_seq_len=MAX_SEQ), seed=0, device='cuda')
+        tp1[variant] = [r.output_tokens
+                        for r in eng.generate(prompts, TP_NEW)]
+        del eng
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f'rank{r}.json') for r in range(2)]
+        address = f'127.0.0.1:{mesh.free_port()}'
+        ctx = mp.get_context('spawn')
+        procs = [ctx.Process(target=tp_rank, args=(r, 2, address, outs[r],
+                                                   prompts, tp1))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 600
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            fail(f'phase 5h: rank exit codes {codes} (42: the lockstep '
+                 f'watchdog or a digest mismatch)')
+        ranks = [json.loads(pathlib.Path(o).read_text()) for o in outs]
+
+    def parted(a, b):
+        return [(i, next((j for j, (x, y) in enumerate(zip(p, q))
+                          if x != y), min(len(p), len(q))))
+                for i, (p, q) in enumerate(zip(a, b)) if p != q]
+
+    rope = model_lib.rope_tables(cfg, 'cuda')
+    checks, ties, launches = [], {}, {}
+    for variant in ('bf16', 'int8_weights'):
+        got = ranks[0][variant]['tokens']
+        ties[variant] = []
+        for i, j in parted(tp1[variant], got):
+            logits, cache, _ = prefill_logits(
+                torch, model_lib, pc_lib, cfg, params[variant], rope,
+                prompts[i] + tp1[variant][i][:j], torch.bfloat16)
+            del cache
+            top2 = torch.topk(logits.float(), 2).values.tolist()
+            t = {'request': i, 'step': j, 'margin': top2[0] - top2[1],
+                 'top_logit': top2[0]}
+            ties[variant].append(t)
+            if t['margin'] > NEAR_TIE * abs(t['top_logit']):
+                checks.append(f'{variant}: tp 2 parted from tp 1 away from '
+                              f'a near-tie: {t}')
+        want = TP_KERNELS + (('qdot_int8',) if variant == 'int8_weights'
+                             else ())
+        for r, res in enumerate(ranks):
+            run = res[variant]
+            missing = [k for k in want if run['launches'].get(k, 0) <= 0]
+            if missing:
+                checks.append(f'{variant} rank {r}: {missing} not launched '
+                              f'({run["launches"]})')
+            if run['cuda_graphs'] or run['pipeline_depth'] != 0:
+                checks.append(f'{variant} rank {r}: graphs '
+                              f'{run["cuda_graphs"]}, depth '
+                              f'{run["pipeline_depth"]}')
+            for k, n in run['launches'].items():
+                launches[k] = launches.get(k, 0) + n
+        if ranks[0][variant]['ticks'] != ranks[1][variant]['ticks']:
+            checks.append(f'{variant}: the ranks ran {ranks[0][variant]["ticks"]}'
+                          f' and {ranks[1][variant]["ticks"]} ticks')
+        if ranks[0][variant]['spec_accepted_tokens'] < 1:
+            checks.append(f'{variant}: no draft accepted: verify is vacuous')
+    summary = {'card': card, 'backend': 'gloo, two ranks on one card',
+               'prompt_tokens': SPEC_PROMPT_LENGTHS[:TP_PROMPTS],
+               'max_new_tokens': TP_NEW, 'near_ties': ties,
+               'ranks': [{v: {k: x for k, x in res[v].items()
+                              if k != 'tokens'} for v in res}
+                         for res in ranks],
+               'wall_s': time.perf_counter() - t0}
+    print('tp 2 in process (Llama-3-8B, dense, 8 slots, spec_k 4, gloo on '
+          'one card: a correctness run, not a speed one; ' + card + '): '
+          + json.dumps(summary), flush=True)
+    for variant in ('bf16', 'int8_weights'):
+        for r, res in enumerate(ranks):
+            run = res[variant]
+            print(f'  tp 2 {variant} rank {r} (gloo on one card): '
+                  f'{run["ms_per_tick"]:.2f} ms a tick, '
+                  f'{run["ms_per_step"]:.2f} ms a step, {run["ticks"]} ticks '
+                  f'with the digests compared', flush=True)
+    if checks:
+        for c in checks:
+            print('phase 5h: ' + c, flush=True)
+        fail(f'phase 5h: {len(checks)} checks failed (above)')
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _kernel_kind(name: str) -> str:
     low = name.lower()
     if 'paged_prefill_kernel' in low:
@@ -3465,6 +3827,7 @@ def main() -> int:
     checked = check_kernels(torch, pa)
     dense_checked = check_dense_prefill(torch, pa)
     check_dense_attention(torch, pa)
+    tp_checked = check_tp_attention(torch, pa)
     checked.update(check_spec_int8_kernels(torch, pa))
     checked.update(check_qdot_kernel(torch, quant))
     checked.update(check_training_kernels(torch, att, ce))
@@ -3491,7 +3854,8 @@ def main() -> int:
     dense_timed = {name: time_prefill(torch, pa, case, {}, off, tl, flush)
                    for name, (_, case, off, tl) in dense_checked.items()}
     print_timed(dense_timed)
-    del flush, dense_checked
+    time_tp_attention(torch, pa, tp_checked)
+    del flush, dense_checked, tp_checked
     for key in checked:              # keep the errors, free the inputs
         checked[key] = (checked[key][0],)
     torch.cuda.empty_cache()
@@ -3549,6 +3913,8 @@ def main() -> int:
     pool_launches = dense_replica(torch, quant, card)
     dense_launches = {k: dense_launches.get(k, 0) + pool_launches.get(k, 0)
                       for k in set(dense_launches) | set(pool_launches)}
+    # Phase 5h: tensor parallelism, two gloo ranks on the one card.
+    tp_launches = tp_in_process(torch, quant, card)
 
     # Phase 6: the training slice against its plain path.
     check_slice(torch, att, ce)
@@ -3626,6 +3992,9 @@ def main() -> int:
             # Phase 5g's dense runs (counted from 0 before the first) and
             # the dense replica's requests after its warm-up.
             'launches_dense': dense_launches.get(wrapper, 0),
+            # Phase 5h's two ranks at tp 2, both variants, summed (each
+            # rank's counters set to 0 just before it served).
+            'launches_tp2': tp_launches.get(wrapper, 0),
             'max_abs_err': checked[key][0], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
             'bound_by': r['bound'][1], 'library_ms': r['library_ms']})

@@ -425,7 +425,8 @@ class _Servers:
                    str(args.max_seq_len), '--page-size', str(args.page_size),
                    '--device', str(device), '--seed', str(args.seed),
                    *(['--paged'] if args.paged else []),
-                   *(['--quantize'] if args.quantize else []), *flags]
+                   *(['--quantize'] if args.quantize else []),
+                   *(['--tp', str(args.tp)] if args.tp > 1 else []), *flags]
             log = (open(f'{args.server_log}.{i}' if i else args.server_log,
                         'w') if args.server_log else subprocess.DEVNULL)
             self.logs.append(log)
@@ -507,6 +508,7 @@ def run_concurrency_sweep(args, device: torch.device) -> dict:
         'slots': args.slots,
         'new_tokens': args.new_tokens,
         'fused_prefill': args.fused_prefill,
+        'tp': args.tp,
         'server_metrics': {k: metrics.get(k) for k in (
             'decode_steps', 'decode_tokens', 'tokens_per_step',
             'prefill_tokens', 'fused_steps', 'decode_stall_steps',
@@ -775,6 +777,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help='int8 weights: the servers it boots get '
                         '--quantize, the chunked sweep\'s engines int8 '
                         'params')
+    p.add_argument('--tp', type=int, default=1,
+                   help='tensor-parallel ranks of each server it boots '
+                        '(one GPU a rank; the server sweeps)')
     p.add_argument('--boot-timeout', type=float, default=900.0)
     p.add_argument('--server-log', default=None,
                    help='file for the server subprocess output')

@@ -98,7 +98,21 @@ through the cache's identity block table. :class:`EnginePool` routes each
 request to the smallest of several dense engines (tiers) whose cache fits
 it, the reference's two-tier KV for long context.
 
-What it leaves out (ROADMAP queue 1): tensor parallelism.
+Tensor parallelism (dense cache only, as the reference's engine
+allows): the engine runs as one rank of the ``tp``-rank
+``torch.distributed`` group passed as ``group`` (a
+``parallel.mesh.TPGroup``; ``EngineConfig.tp``, the reference's field,
+may name its size), holding its Megatron slices of the weights (a
+whole tree passed in is sliced here, the reference's ``_shard_tp``;
+``init_params_sharded`` and ``quant.init_params_quantized`` draw a
+rank's slices directly) and ``n_kv_heads / tp`` KV heads of the cache; the steps call the collectives
+(``model.py``). Every rank runs the same host decisions on the same
+submissions (``multihost.py`` broadcasts them) and samples from the same
+full logits with the same generator, so the ranks' tokens agree, which
+``output_digest`` lets the lockstep loop check every tick. CUDA graphs
+capture the steps when the group can be captured (NCCL, or one rank); a
+``gloo`` group over a card stages its collectives through the host and
+needs ``cuda_graphs=False``, asked for explicitly.
 
 Device placement is explicit: the engine runs on ``device`` (default
 ``'cuda'``) and raises if CUDA was asked for and is missing.
@@ -129,6 +143,8 @@ from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import stepline as stepline_lib
 from skypilot_tpu_torch.ops import paged_attention as paged_attn
 from skypilot_tpu_torch.ops import quant as quant_lib
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 from skypilot_tpu_torch.utils import prefix_hash
 
 # The server catches admission refusals by this name, as the
@@ -241,6 +257,26 @@ class EngineConfig:
     # product then runs the W8A16 kernel on the card, streaming half the
     # weight bytes a step.
     quantize: bool = False
+    # Tensor-parallel ranks (dense cache only), the reference's field. The
+    # engine is one rank of the group passed to it as ``group`` and takes
+    # its size from there: left at 1, this reads as the group's size; set,
+    # it must equal it.
+    tp: int = 1
+
+
+def init_params_sharded(config: llama.LlamaConfig, tp: int, rank: int,
+                        seed: int = 0, device='cuda') -> llama.Params:
+    """Rank ``rank``'s slices of the random weights drawn from ``seed`` on
+    ``device`` (the reference's ``init_params_sharded``): each leaf is
+    drawn whole, its slice kept and the rest dropped before the next
+    leaf, so a rank holds 1/tp of the weights plus one leaf at a time.
+    The values are those of the unsharded draw on the same device."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return llama.init_params(
+        config, gen, dev,
+        keep=lambda path, leaf: sharding_lib.shard_leaf(path, leaf, rank, tp))
 
 
 @dataclasses.dataclass
@@ -382,10 +418,13 @@ class InferenceEngine:
 
     def __init__(self, config: llama.LlamaConfig, params: llama.Params,
                  engine_config: Optional[EngineConfig] = None,
-                 seed: int = 0, device='cuda') -> None:
+                 seed: int = 0, device='cuda',
+                 group: Optional[mesh_lib.TPGroup] = None) -> None:
         self.config = config
         self.ecfg = ecfg = engine_config or EngineConfig()
         self.device = resolve_device(device)
+        tp = group.world if group is not None else int(ecfg.tp)
+        self._group = self._check_tp(tp, group)
         if int(ecfg.pipeline_depth) < 0:
             raise ValueError(f'pipeline_depth must be >= 0, got '
                              f'{ecfg.pipeline_depth}')
@@ -407,6 +446,8 @@ class InferenceEngine:
                 f'max_seq_len {ecfg.max_seq_len} must be a multiple of '
                 f'the chunk size {self._chunk_cap}')
         on_cuda = self.device.type == 'cuda'
+        # This rank's KV heads.
+        hkv = config.n_kv_heads // tp
         self.allocator: Optional[paged_cache_lib.PageAllocator] = None
         if ecfg.paged:
             page = ecfg.page_size
@@ -459,7 +500,7 @@ class InferenceEngine:
             max_pages_per_slot = ecfg.max_seq_len // page
             self.cache = cache_lib.init_cache(
                 config.n_layers, ecfg.n_slots, ecfg.max_seq_len,
-                config.n_kv_heads, config.head_dim,
+                hkv, config.head_dim,
                 dtype=llama.torch_dtype(ecfg.cache_dtype),
                 device=self.device, page=page)
         # The page the attention kernels read: the pool's, or the dense
@@ -469,7 +510,14 @@ class InferenceEngine:
             paged_attn.check_cuda_shape(
                 config.head_dim, config.n_heads // config.n_kv_heads, page)
         if ecfg.quantize and not quant_lib.is_quantized(params):
+            if tp > 1 and not sharding_lib.is_whole(params, config):
+                raise ValueError(
+                    'quantize=True takes a whole bf16 tree at tp > 1 (a '
+                    'row-parallel weight\'s scale covers the whole '
+                    'contraction axis); quantize before sharding')
             params = quant_lib.quantize_params(params)
+        if tp > 1:
+            params = self._shard_tp(params)
         self.params = params
         self._param_bytes = quant_lib.param_bytes(params)
         self._rope = model_lib.rope_tables(config, self.device)
@@ -545,6 +593,11 @@ class InferenceEngine:
         self._temps_dirty = True
         # ---- step programs (CUDA graphs on the card) ------------------
         self._graphs_on = on_cuda and bool(ecfg.cuda_graphs)
+        if self._graphs_on and not self._group.capturable:
+            raise ValueError(
+                f'a {self._group.backend} group of {tp} ranks cannot be '
+                f'captured in CUDA graphs (its collectives stage through '
+                f'the host): pass cuda_graphs=False, or use nccl')
         self._programs: Dict[tuple, _StepProgram] = {}
         self._capture_stream = torch.cuda.Stream(dev) if on_cuda else None
         if on_cuda:
@@ -552,10 +605,9 @@ class InferenceEngine:
             # them for the widest verify step and the largest chunk
             # before any capture.
             paged_attn.reserve_split_scratch(
-                dev, slots, config.n_kv_heads, config.head_dim,
-                max_pages_per_slot)
+                dev, slots, hkv, config.head_dim, max_pages_per_slot)
             paged_attn.reserve_prefill_scratch(
-                dev, config.n_kv_heads,
+                dev, hkv,
                 self._chunk_cap * (config.n_heads // config.n_kv_heads),
                 config.head_dim, max_pages_per_slot)
         # ---- dispatch-ahead state -------------------------------------
@@ -626,6 +678,46 @@ class InferenceEngine:
         self._spec_emitted = 0
         self._spec_k = 0
         self.set_spec_k(ecfg.spec_k)
+
+    # ---- tensor parallelism ---------------------------------------------
+    def _check_tp(self, tp: int,
+                  group: Optional[mesh_lib.TPGroup]) -> mesh_lib.TPGroup:
+        """The reference's ``tp`` rules (dense cache only; ``tp`` divides
+        the heads, KV heads, ffn and vocabulary), then the group: one of
+        ``tp`` ranks (a single-rank group when ``tp`` is 1)."""
+        if tp < 1:
+            raise ValueError(f'tp must be >= 1, got {tp}')
+        if tp > 1 and self.ecfg.paged:
+            raise ValueError(
+                'paged KV is single-device for now; use the dense cache '
+                'for tp > 1')
+        sharding_lib.check_divisible(self.config, tp)
+        if group is None:
+            if tp > 1:
+                raise ValueError(
+                    f'tp={tp} needs the process group of its ranks '
+                    f'(parallel.mesh.tp_group) as group=')
+            return mesh_lib.single(self.device)
+        if self.ecfg.tp not in (1, tp):
+            raise ValueError(f'tp={self.ecfg.tp} but the group has {tp} '
+                             f'ranks')
+        return group
+
+    def _shard_tp(self, params: llama.Params) -> llama.Params:
+        """This rank's slices of the weights on the engine's device (the
+        reference's ``_shard_tp``): a whole tree is sliced by the Megatron
+        rules (``parallel/sharding.py``); a tree already sliced for this
+        rank (``init_params_sharded``, another tier's params) is kept."""
+        g = self._group
+        if sharding_lib.is_whole(params, self.config):
+            params = sharding_lib.shard_params(params, g.rank, g.world)
+
+        def place(leaf):
+            if isinstance(leaf, quant_lib.QuantArray):
+                return quant_lib.QuantArray(q=leaf.q.to(self.device),
+                                            scale=leaf.scale.to(self.device))
+            return leaf.to(self.device)
+        return sharding_lib.map_tree(lambda _, leaf: place(leaf), params)
 
     # ---- runtime knobs ---------------------------------------------------
     def set_spec_k(self, k: int) -> None:
@@ -1112,7 +1204,7 @@ class InferenceEngine:
         slot, off, tl, temp, row, tokens = self._chunk_inputs(bucket)
         self.cache, logits = model_lib.paged_prefill_chunk(
             self.config, self.params, self.cache, slot, row, tokens, off, tl,
-            self._rope)
+            self._rope, self._group)
         tok = sampling_lib.sample(logits[None], self._generator, temp,
                                   top_k=self.ecfg.top_k, sampled=sampled)
         self._last.index_put_((slot.long().reshape(1),), tok)
@@ -1649,7 +1741,7 @@ class InferenceEngine:
         new tokens become the next input."""
         logits, self.cache = model_lib.paged_decode_step(
             self.config, self.params, self.cache, self._table, self._last,
-            self._rope, self._active)
+            self._rope, self._active, self._group)
         toks = sampling_lib.sample(logits, self._generator, self._temps_dev,
                                    top_k=self.ecfg.top_k, sampled=sampled)
         toks_out = torch.where(self._active, toks, self._last)
@@ -1670,7 +1762,7 @@ class InferenceEngine:
         slot, off, tl, temp, row, tokens = self._chunk_inputs(bucket)
         chunk_logits, dec_logits, self.cache = model_lib.paged_mixed_step(
             self.config, self.params, self.cache, slot, row, tokens, off, tl,
-            self._table, self._last, self._rope, self._active)
+            self._table, self._last, self._rope, self._active, self._group)
         first = sampling_lib.sample(chunk_logits[None], self._generator,
                                     temp, top_k=self.ecfg.top_k,
                                     sampled=sampled)
@@ -1700,7 +1792,7 @@ class InferenceEngine:
         tokens = torch.cat([self._last[:, None], drafts], dim=1)
         logits, self.cache = model_lib.paged_verify_step(
             self.config, self.params, self.cache, self._table, tokens,
-            self._rope)
+            self._rope, self._group)
         emitted, accepted = sampling_lib.speculative_accept(
             logits, drafts, self._draft_lens, self._generator,
             self._temps_dev, top_k=self.ecfg.top_k, sampled=sampled)

@@ -34,6 +34,20 @@ layer's scale pages, the int8 flavor of each kernel. A Python loop over
 layers stands in for ``lax.scan``; the page tensors and ``lengths`` are
 updated in place. The rotary tables are computed once by the caller (the
 engine) and passed in as ``rope``.
+
+Tensor parallelism (``tp``, a ``parallel.mesh.TPGroup`` of more than one
+rank; dense cache only, as the reference's engine allows): each rank holds
+its Megatron slices of the weights (``parallel/sharding.py``) and
+``n_kv_heads / tp`` KV heads of the cache, computes QKV, RoPE and the
+attention over its ``n_heads / tp`` query heads (the group stays
+``n_heads / n_kv_heads``, so the kernels run as before at fewer heads),
+and the collectives go where Megatron's rules put them: the
+vocab-parallel embedding and the row-parallel ``wo`` and ``w_down``
+products are all-reduced, the column-parallel ``lm_head``'s logits are
+all-gathered along the vocabulary, so every rank samples from the same
+full logits. At world size 1 (``tp`` None or of one rank) no collective
+is called and every step runs exactly its single-card launches. The
+paged steps raise for ``tp > 1``.
 """
 from __future__ import annotations
 
@@ -48,6 +62,8 @@ from skypilot_tpu_torch.ops import norms
 from skypilot_tpu_torch.ops import paged_attention as paged_attn
 from skypilot_tpu_torch.ops import quant as quant_lib
 from skypilot_tpu_torch.ops import rope as rope_lib
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel.mesh import TPGroup
 
 Rope = Tuple[torch.Tensor, torch.Tensor]
 Cache = Union[paged_cache_lib.PagedKVCache, cache_lib.KVCache]
@@ -59,11 +75,66 @@ def rope_tables(config: llama.LlamaConfig, device='cpu') -> Rope:
                                      config.rope_theta, device=device)
 
 
+def _world(tp: Optional[TPGroup]) -> int:
+    return 1 if tp is None else tp.world
+
+
+def _heads(config: llama.LlamaConfig,
+           tp: Optional[TPGroup]) -> Tuple[int, int, int]:
+    """(query heads, KV heads, head_dim) of this rank."""
+    w = _world(tp)
+    return config.n_heads // w, config.n_kv_heads // w, config.head_dim
+
+
+def _embed(params: llama.Params, tokens: torch.Tensor,
+           tp: Optional[TPGroup]) -> torch.Tensor:
+    """The embedding rows of ``tokens``; with ``tp`` ranks the
+    vocab-parallel gather: a token outside this rank's rows gives zeros,
+    and the all-reduce sums the one rank's row with zeros (exact)."""
+    embed = params['embed']
+    if _world(tp) == 1:
+        return quant_lib.qembed(embed, tokens)
+    rows = embed.shape[0]
+    local = tokens.long() - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = quant_lib.qembed(embed, local.clamp(0, rows - 1))
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return collectives.all_reduce_sum(x, tp)
+
+
+def _row_reduce(tp: Optional[TPGroup]):
+    """The row-parallel products' all-reduce, None at world size 1."""
+    if _world(tp) == 1:
+        return None
+    return lambda t: collectives.all_reduce_sum(t, tp)
+
+
+def _out_proj(att: torch.Tensor, layer, tp: Optional[TPGroup]
+              ) -> torch.Tensor:
+    """``att @ wo``, all-reduced over the ranks' heads."""
+    return collectives.all_reduce_sum(quant_lib.qdot(att, layer['wo']), tp)
+
+
+def _lm_head(x: torch.Tensor, params: llama.Params,
+             tp: Optional[TPGroup]) -> torch.Tensor:
+    """Logits fp32 over the whole vocabulary: each rank's column slice,
+    all-gathered in rank order."""
+    return collectives.all_gather_last(
+        quant_lib.qdot(x, params['lm_head']), tp).float()
+
+
+def _check_paged(pkv: Cache, tp: Optional[TPGroup]) -> None:
+    if _world(tp) > 1 and isinstance(pkv, paged_cache_lib.PagedKVCache):
+        raise ValueError('paged KV is single-device for now; use the dense '
+                         'cache for tp > 1')
+
+
 def _qkv(config: llama.LlamaConfig, x: torch.Tensor, layer, rope: Rope,
-         positions: torch.Tensor):
-    """norm -> QKV -> RoPE. x: [b, s, d]; positions: [b, s]."""
+         positions: torch.Tensor, tp: Optional[TPGroup] = None):
+    """norm -> QKV -> RoPE over this rank's heads. x: [b, s, d];
+    positions: [b, s]."""
     b, s, _ = x.shape
-    hq, hkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    hq, hkv, hd = _heads(config, tp)
     h = norms.rms_norm(x, layer['attn_norm'], config.norm_eps)
     q = quant_lib.qdot(h, layer['wq']).reshape(b, s, hq, hd)
     k = quant_lib.qdot(h, layer['wk']).reshape(b, s, hkv, hd)
@@ -133,26 +204,27 @@ def _write_run(pkv: Cache, i: int, kv: dict, k: torch.Tensor,
 def _chunk_layer(config: llama.LlamaConfig, x: torch.Tensor, i: int,
                  params: llama.Params, pkv: Cache, slot: IntLike,
                  table_row: torch.Tensor, positions: torch.Tensor,
-                 offset: IntLike, true_len: IntLike, rope: Rope
-                 ) -> torch.Tensor:
+                 offset: IntLike, true_len: IntLike, rope: Rope,
+                 tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Layer ``i`` of a prefill chunk, x: [1, C, d]: write the chunk's
     K/V into the slot, then attend over the prefix plus the chunk."""
     C = x.shape[1]
-    hq, hkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    hq, hkv, hd = _heads(config, tp)
     layer = llama.layer_params(params, i)
-    q, k, v = _qkv(config, x, layer, rope, positions[None])
+    q, k, v = _qkv(config, x, layer, rope, positions[None], tp)
     kv = _layer_pages(pkv, i)
     _write_chunk(pkv, i, kv, k[0], v[0], slot, table_row, offset)
     att = paged_attn.paged_prefill_attention(
         q[0].reshape(C, hkv, hq // hkv, hd), kv['k_pages'], kv['v_pages'],
         table_row, offset, true_len, **_scales(kv))
     att = att.reshape(1, C, hq * hd).to(x.dtype)
-    x = x + quant_lib.qdot(att, layer['wo'])
-    return llama.mlp_block(config, x, layer)
+    x = x + _out_proj(att, layer, tp)
+    return llama.mlp_block(config, x, layer, _row_reduce(tp))
 
 
 def _chunk_logits(config: llama.LlamaConfig, params: llama.Params,
-                  x: torch.Tensor, true_len: IntLike) -> torch.Tensor:
+                  x: torch.Tensor, true_len: IntLike,
+                  tp: Optional[TPGroup] = None) -> torch.Tensor:
     """Logits [vocab] fp32 of the chunk's row true_len - 1 (a device
     true_len picks it on the device; the row is the same either way)."""
     x = norms.rms_norm(x, params['final_norm'], config.norm_eps)
@@ -160,7 +232,7 @@ def _chunk_logits(config: llama.LlamaConfig, params: llama.Params,
         last = x[0].index_select(0, (true_len.long() - 1).reshape(1))[0]
     else:
         last = x[0, true_len - 1]
-    return quant_lib.qdot(last, params['lm_head']).float()
+    return _lm_head(last, params, tp)
 
 
 def _set_length(pkv: Cache, slot: IntLike,
@@ -178,7 +250,8 @@ def _set_length(pkv: Cache, slot: IntLike,
 def paged_prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
                         pkv: paged_cache_lib.PagedKVCache, slot: IntLike,
                         table_row: torch.Tensor, tokens: torch.Tensor,
-                        offset: IntLike, true_len: IntLike, rope: Rope
+                        offset: IntLike, true_len: IntLike, rope: Rope,
+                        tp: Optional[TPGroup] = None
                         ) -> Tuple[paged_cache_lib.PagedKVCache,
                                    torch.Tensor]:
     """Process ONE chunk of a prompt over the paged cache.
@@ -197,14 +270,15 @@ def paged_prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
     The pad tail writes garbage at [offset+true_len, offset+C), beyond
     the slot's frontier: no mask reaches it, and the next chunk or
     decode write overwrites it before the frontier does."""
+    _check_paged(pkv, tp)
     C = tokens.shape[0]
-    x = quant_lib.qembed(params['embed'], tokens)[None]   # [1, C, d]
+    x = _embed(params, tokens, tp)[None]   # [1, C, d]
     positions = offset + torch.arange(C, dtype=torch.int32,
                                       device=tokens.device)
     for i in range(config.n_layers):
         x = _chunk_layer(config, x, i, params, pkv, slot, table_row,
-                         positions, offset, true_len, rope)
-    logits = _chunk_logits(config, params, x, true_len)
+                         positions, offset, true_len, rope, tp)
+    logits = _chunk_logits(config, params, x, true_len, tp)
     _set_length(pkv, slot, offset + true_len)
     return pkv, logits
 
@@ -232,7 +306,7 @@ class _Step:
 
     def __init__(self, config: llama.LlamaConfig, params: llama.Params,
                  pkv: Cache, tokens: torch.Tensor,
-                 rope: Rope, attend) -> None:
+                 rope: Rope, attend, tp: Optional[TPGroup] = None) -> None:
         slots, self.R = tokens.shape
         width = max(STEP_ROWS, self.R)
         lengths = pkv.lengths
@@ -246,45 +320,46 @@ class _Step:
         block = torch.zeros((slots, width), dtype=tokens.dtype,
                             device=tokens.device)
         block[:, :self.R] = tokens
-        self.x = quant_lib.qembed(params['embed'], block)  # [slots, width, d]
+        self.x = _embed(params, block, tp)  # [slots, width, d]
         self.config, self.params, self.rope = config, params, rope
-        self.attend = attend
+        self.attend, self.tp = attend, tp
 
     def layer(self, i: int) -> None:
-        config, x, R = self.config, self.x, self.R
+        config, x, R, tp = self.config, self.x, self.R, self.tp
         layer = llama.layer_params(self.params, i)
-        q, k, v = _qkv(config, x, layer, self.rope, self.positions)
-        att = torch.zeros((x.shape[0], x.shape[1],
-                           config.n_heads * config.head_dim),
+        q, k, v = _qkv(config, x, layer, self.rope, self.positions, tp)
+        hq, _, hd = _heads(config, tp)
+        att = torch.zeros((x.shape[0], x.shape[1], hq * hd),
                           dtype=x.dtype, device=x.device)
         att[:, :R] = self.attend(i, q[:, :R], k[:, :R], v[:, :R])
-        x = x + quant_lib.qdot(att, layer['wo'])
-        self.x = llama.mlp_block(config, x, layer)
+        x = x + _out_proj(att, layer, tp)
+        self.x = llama.mlp_block(config, x, layer, _row_reduce(tp))
 
     def logits(self) -> torch.Tensor:
         """[slots, R, vocab] fp32."""
         x = norms.rms_norm(self.x, self.params['final_norm'],
                            self.config.norm_eps)
-        return quant_lib.qdot(x, self.params['lm_head']).float()[:, :self.R]
+        return _lm_head(x, self.params, self.tp)[:, :self.R]
 
 
 def _step(config: llama.LlamaConfig, params: llama.Params,
           pkv: Cache, tokens: torch.Tensor,
-          rope: Rope, attend) -> torch.Tensor:
+          rope: Rope, attend, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """A whole :class:`_Step`: logits [slots, R, vocab] fp32."""
-    step = _Step(config, params, pkv, tokens, rope, attend)
+    step = _Step(config, params, pkv, tokens, rope, attend, tp)
     for i in range(config.n_layers):
         step.layer(i)
     return step.logits()
 
 
 def _decode_attend(config: llama.LlamaConfig, pkv: Cache,
-                   block_tables: torch.Tensor, positions: torch.Tensor):
+                   block_tables: torch.Tensor, positions: torch.Tensor,
+                   tp: Optional[TPGroup] = None):
     """A decode step's ``attend``: append each slot's token K/V at
     ``positions``, then one decode launch over lengths positions + 1."""
     slots = positions.shape[0]
-    hkv, hd = config.n_kv_heads, config.head_dim
-    group = config.n_heads // hkv
+    _, hkv, hd = _heads(config, tp)
+    group = config.n_heads // config.n_kv_heads
 
     def attend(i, q, k, v):
         kv = _layer_pages(pkv, i)
@@ -308,7 +383,8 @@ def _bump(pkv: Cache,
 def paged_decode_step(config: llama.LlamaConfig, params: llama.Params,
                       pkv: paged_cache_lib.PagedKVCache,
                       block_tables: torch.Tensor, tokens: torch.Tensor,
-                      rope: Rope, active: Optional[torch.Tensor] = None
+                      rope: Rope, active: Optional[torch.Tensor] = None,
+                      tp: Optional[TPGroup] = None
                       ) -> Tuple[torch.Tensor,
                                  paged_cache_lib.PagedKVCache]:
     """One token for every slot over the paged cache. tokens: [slots];
@@ -317,8 +393,11 @@ def paged_decode_step(config: llama.LlamaConfig, params: llama.Params,
     lands in their own frontier or the sink page; ``lengths`` advances
     only on ``active`` slots (all when None). Returns (logits
     [slots, vocab] fp32, cache)."""
-    attend = _decode_attend(config, pkv, block_tables, pkv.lengths.clone())
-    logits = _step(config, params, pkv, tokens[:, None], rope, attend)[:, 0]
+    _check_paged(pkv, tp)
+    attend = _decode_attend(config, pkv, block_tables, pkv.lengths.clone(),
+                            tp)
+    logits = _step(config, params, pkv, tokens[:, None], rope, attend,
+                   tp)[:, 0]
     _bump(pkv, active)
     return logits, pkv
 
@@ -329,7 +408,8 @@ def paged_mixed_step(config: llama.LlamaConfig, params: llama.Params,
                      offset: IntLike, true_len: IntLike,
                      block_tables: torch.Tensor,
                      decode_tokens: torch.Tensor, rope: Rope,
-                     active: Optional[torch.Tensor] = None
+                     active: Optional[torch.Tensor] = None,
+                     tp: Optional[TPGroup] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                 paged_cache_lib.PagedKVCache]:
     """One prefill chunk of ``slot`` and one decode step of every slot
@@ -343,19 +423,20 @@ def paged_mixed_step(config: llama.LlamaConfig, params: llama.Params,
     decode rows' bits), so every value equals the standalone chunk's
     followed by the standalone decode step's. Returns (chunk logits
     [vocab], decode logits [slots, vocab], both fp32; cache)."""
+    _check_paged(pkv, tp)
     C = chunk_tokens.shape[0]
-    xc = quant_lib.qembed(params['embed'], chunk_tokens)[None]
+    xc = _embed(params, chunk_tokens, tp)[None]
     cpos = offset + torch.arange(C, dtype=torch.int32,
                                  device=chunk_tokens.device)
     _set_length(pkv, slot, offset + true_len)
     step = _Step(config, params, pkv, decode_tokens[:, None], rope,
                  _decode_attend(config, pkv, block_tables,
-                                pkv.lengths.clone()))
+                                pkv.lengths.clone(), tp), tp)
     for i in range(config.n_layers):
         xc = _chunk_layer(config, xc, i, params, pkv, slot, table_row,
-                          cpos, offset, true_len, rope)
+                          cpos, offset, true_len, rope, tp)
         step.layer(i)
-    chunk_logits = _chunk_logits(config, params, xc, true_len)
+    chunk_logits = _chunk_logits(config, params, xc, true_len, tp)
     dec_logits = step.logits()[:, 0]
     _bump(pkv, active)
     return chunk_logits, dec_logits, pkv
@@ -364,8 +445,8 @@ def paged_mixed_step(config: llama.LlamaConfig, params: llama.Params,
 def paged_verify_step(config: llama.LlamaConfig, params: llama.Params,
                       pkv: paged_cache_lib.PagedKVCache,
                       block_tables: torch.Tensor, tokens: torch.Tensor,
-                      rope: Rope) -> Tuple[torch.Tensor,
-                                           paged_cache_lib.PagedKVCache]:
+                      rope: Rope, tp: Optional[TPGroup] = None
+                      ) -> Tuple[torch.Tensor, paged_cache_lib.PagedKVCache]:
     """Speculative verify over the paged cache: R = spec_k + 1 tokens for
     every slot. tokens: [slots, R], column 0 the slot's last token,
     columns 1..R-1 the (padded) drafts. Each layer writes the run's K/V
@@ -375,9 +456,10 @@ def paged_verify_step(config: llama.LlamaConfig, params: llama.Params,
     launch, each owned page read once for all R queries. ``lengths`` is
     NOT advanced: only the engine knows how many tokens it accepts.
     Returns (logits [slots, R, vocab] fp32, cache)."""
+    _check_paged(pkv, tp)
     slots, R = tokens.shape
-    hkv, hd = config.n_kv_heads, config.head_dim
-    group = config.n_heads // hkv
+    _, hkv, hd = _heads(config, tp)
+    group = config.n_heads // config.n_kv_heads
     lengths = pkv.lengths.clone()
 
     def attend(i, q, k, v):
@@ -389,7 +471,7 @@ def paged_verify_step(config: llama.LlamaConfig, params: llama.Params,
             **_scales(kv))
         return att.reshape(slots, R, -1)
 
-    return _step(config, params, pkv, tokens, rope, attend), pkv
+    return _step(config, params, pkv, tokens, rope, attend, tp), pkv
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +479,8 @@ def paged_verify_step(config: llama.LlamaConfig, params: llama.Params,
 # ---------------------------------------------------------------------------
 def prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
                   kv: cache_lib.KVCache, slot: IntLike, tokens: torch.Tensor,
-                  offset: IntLike, true_len: IntLike, rope: Rope
+                  offset: IntLike, true_len: IntLike, rope: Rope,
+                  tp: Optional[TPGroup] = None
                   ) -> Tuple[cache_lib.KVCache, torch.Tensor]:
     """The reference's dense ``prefill_chunk``: one chunk of a prompt
     written into ``slot`` at rows offset..offset+C and attended causally
@@ -406,36 +489,39 @@ def prefill_chunk(config: llama.LlamaConfig, params: llama.Params,
     :func:`paged_prefill_chunk` (offset a multiple of the cache's page)."""
     return paged_prefill_chunk(config, params, kv, slot,
                                cache_lib.table_row(kv, slot), tokens, offset,
-                               true_len, rope)
+                               true_len, rope, tp)
 
 
 def decode_step(config: llama.LlamaConfig, params: llama.Params,
                 kv: cache_lib.KVCache, tokens: torch.Tensor, rope: Rope,
-                active: Optional[torch.Tensor] = None
+                active: Optional[torch.Tensor] = None,
+                tp: Optional[TPGroup] = None
                 ) -> Tuple[torch.Tensor, cache_lib.KVCache]:
     """The reference's dense ``decode_step``: one token for every slot,
     its attention one decode launch over the identity table. Inactive
     slots write their garbage row at their own frontier and do not
     advance. Returns (logits [slots, vocab] fp32, cache)."""
     return paged_decode_step(config, params, kv, kv.tables, tokens, rope,
-                             active)
+                             active, tp)
 
 
 def verify_step(config: llama.LlamaConfig, params: llama.Params,
-                kv: cache_lib.KVCache, tokens: torch.Tensor, rope: Rope
+                kv: cache_lib.KVCache, tokens: torch.Tensor, rope: Rope,
+                tp: Optional[TPGroup] = None
                 ) -> Tuple[torch.Tensor, cache_lib.KVCache]:
     """The reference's dense ``verify_step``: R tokens for every slot, the
     run written with ``cache.append_run`` (positions past the cache end
     keep their value) and attended in one verify launch. ``lengths`` is
     not advanced. Returns (logits [slots, R, vocab] fp32, cache)."""
-    return paged_verify_step(config, params, kv, kv.tables, tokens, rope)
+    return paged_verify_step(config, params, kv, kv.tables, tokens, rope, tp)
 
 
 def mixed_step(config: llama.LlamaConfig, params: llama.Params,
                kv: cache_lib.KVCache, slot: IntLike,
                chunk_tokens: torch.Tensor, offset: IntLike,
                true_len: IntLike, decode_tokens: torch.Tensor, rope: Rope,
-               active: Optional[torch.Tensor] = None
+               active: Optional[torch.Tensor] = None,
+               tp: Optional[TPGroup] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, cache_lib.KVCache]:
     """The reference's dense ``mixed_step``: one chunk of ``slot`` and one
     decode step of every slot in one call, layer by layer, as
@@ -444,4 +530,4 @@ def mixed_step(config: llama.LlamaConfig, params: llama.Params,
     return paged_mixed_step(config, params, kv, slot,
                             cache_lib.table_row(kv, slot), chunk_tokens,
                             offset, true_len, kv.tables, decode_tokens, rope,
-                            active)
+                            active, tp)

@@ -86,6 +86,20 @@ decode speculatively, ``--paged --kv-dtype int8`` for int8 KV pages,
 ``--fused-prefill`` for fused mixed steps, ``--paged --prefix-cache`` for
 the shared-prefix KV cache and the KV transfer routes, ``--role prefill``
 or ``decode`` for a disaggregated pair).
+
+``--tp N`` serves the model tensor-parallel over N ranks, one process a
+GPU (dense cache only): this process is rank 0 and serves HTTP, and it
+starts the host's other N - 1 ranks itself (``torch.multiprocessing``,
+``spawn``), which run the lockstep loop of ``multihost.py``; submissions
+reach every rank through its broadcast, and the warm-up runs through it
+too, so every rank has captured the same step programs before ``/health``
+turns ready. Each rank draws or restores the weights leaf by leaf and
+keeps its slice (with ``--quantize`` each leaf is quantized whole
+first). On a multi-host replica (the agent's ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) every host runs this command,
+``--tp`` defaults to every GPU of the replica, and host ``h`` runs global
+ranks ``h * per_host ..``; ranks meet at the coordinator address. SIGTERM
+or SIGINT on rank 0 stops the loop on every rank, and each exits 0.
 """
 from __future__ import annotations
 
@@ -93,6 +107,8 @@ import argparse
 import http.server
 import json
 import logging
+import signal
+import sys
 import threading
 import time
 import urllib.error
@@ -103,9 +119,12 @@ from typing import List, Optional
 import torch
 
 from skypilot_tpu_torch.infer import engine as engine_lib
+from skypilot_tpu_torch.infer import multihost
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import prometheus as prom_lib
 from skypilot_tpu_torch.ops import quant as quant_lib
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 
 logger = logging.getLogger(__name__)
 
@@ -260,9 +279,14 @@ class InferenceServer:
                  tokenizer: Optional[Tokenizer] = None,
                  boot_t0: Optional[float] = None,
                  role: str = 'mixed', kv_pull_timeout_s: float = 10.0,
-                 kv_export_max_pages: int = 64) -> None:
+                 kv_export_max_pages: int = 64,
+                 driver: Optional[multihost.MultihostEngineDriver] = None
+                 ) -> None:
         self.engine = engine
         self.tokenizer = tokenizer or Tokenizer()
+        # A tensor-parallel replica: submissions go through the lockstep
+        # driver's broadcast, and its loop is the engine loop.
+        self.driver = driver
         # When the process started (main's first line): the cold-start
         # timeline's total_s counts from it.
         self.boot_t0 = boot_t0 if boot_t0 is not None else time.time()
@@ -297,32 +321,22 @@ class InferenceServer:
 
     # ---- engine loop -----------------------------------------------------
     def _loop(self) -> None:
-        try:
-            t0 = time.time()
-            # On the card every tier first captures each greedy step
-            # program (every chunk bucket, decode, verify, mixed), so no
-            # live request pays a capture.
-            tiers = getattr(self.engine, 'engines', [self.engine])
-            for eng in tiers:
-                if eng.graphs_on:
-                    eng.warm_programs()
-            # Then the reference's warm-up requests, four tokens each. A
-            # pool warms every tier: a prompt one past the previous
-            # tier's cap routes to the next.
-            warm = [self.engine.submit([1], max_new_tokens=4)]
-            for prev in tiers[:-1]:
-                warm.append(self.engine.submit([1] * prev.ecfg.max_seq_len,
-                                               max_new_tokens=4))
+        if self.driver is not None:
+            # The warm-up blocks on ticks, so it runs beside the loop.
+            threading.Thread(
+                target=self._warm_up, daemon=True, name='warm',
+                args=(self.driver.warm, self.driver.submit,
+                      lambda warm: [w.wait_done() for w in warm])).start()
+            self.driver.run()
+            return
+
+        def finish(warm):
             while not all(w.done for w in warm):
                 self.engine.step()
-            logger.info('engine warm in %.1fs', time.time() - t0)
-            # Cold-start timeline: weights_loaded was stamped by main();
-            # this is the edge at which the replica becomes serviceable.
-            self.engine.note_lifecycle_event(
-                'coldstart.compiled',
-                warm_s=round(time.time() - t0, 3),
-                total_s=round(time.time() - self.boot_t0, 3))
-            self.ready = True
+        if not self._warm_up(lambda: multihost.warm_programs(self.engine),
+                             self.engine.submit, finish):
+            return
+        try:
             while not self._stop.is_set():
                 if self.engine.step() == 0:
                     # Idle: wait for a submit to wake us (the timeout is
@@ -333,6 +347,39 @@ class InferenceServer:
             logger.exception('engine loop died')
             self.dead = f'{type(e).__name__}: {e}'
             self.ready = False
+
+    def _warm_up(self, capture, submit, finish) -> bool:
+        """Warm the replica, then mark it ready; False when the warm-up
+        died. ``capture()`` first captures every tier's step programs on
+        the card, so no live request pays a capture (on every rank,
+        through the lockstep loop, with ``--tp``). Then the reference's
+        warm-up requests, four tokens each, go through ``submit`` and
+        ``finish(requests)`` runs them out: a pool warms every tier, since
+        a prompt one past the previous tier's cap routes to the next."""
+        try:
+            t0 = time.time()
+            capture()
+            tiers = getattr(self.engine, 'engines', [self.engine])
+            warm = [submit([1], max_new_tokens=4)]
+            for prev in tiers[:-1]:
+                warm.append(submit([1] * prev.ecfg.max_seq_len,
+                                   max_new_tokens=4))
+            finish(warm)
+            logger.info('engine warm on %d rank(s) in %.1fs',
+                        1 if self.driver is None else self.driver.world,
+                        time.time() - t0)
+            # Cold-start timeline: weights_loaded was stamped by main();
+            # this is the edge at which the replica becomes serviceable.
+            self.engine.note_lifecycle_event(
+                'coldstart.compiled',
+                warm_s=round(time.time() - t0, 3),
+                total_s=round(time.time() - self.boot_t0, 3))
+            self.ready = True
+            return True
+        except Exception as e:  # noqa: BLE001 -- a dead warm-up must unready
+            logger.exception('engine warm-up died')
+            self.dead = f'{type(e).__name__}: {e}'
+            return False
 
     # ---- lifecycle -------------------------------------------------------
     def start(self, host: str, port: int) -> int:
@@ -354,6 +401,8 @@ class InferenceServer:
     def shutdown(self) -> None:
         self._stop.set()
         self._woken.set()
+        if self.driver is not None:
+            self.driver.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -516,7 +565,8 @@ class InferenceServer:
                               {'Retry-After': '1'})
         deadline = None
         hdr = headers.get(DEADLINE_HEADER)
-        if hdr:
+        if hdr and self.driver is None:
+            # Lockstep replicas ignore it: rank clocks differ.
             try:
                 budget_s = float(hdr)
             except ValueError:
@@ -554,17 +604,24 @@ class InferenceServer:
             # The sentinel may have tripped while the body was read.
             return None, corrupt
         donor = headers.get(KV_DONOR_HEADER)
-        if donor and self.engine.kv_index_armed():
+        if donor and self.driver is None and self.engine.kv_index_armed():
             # The load balancer saw a longer cached prefix on the donor:
             # pull those pages first, so the prefill below starts at the
             # transferred boundary.
             self.pull_kv(donor, tokens)
         try:
-            req = self.engine.submit(
-                tokens, max_new_tokens=body.get('max_new_tokens'),
-                temperature=float(body.get('temperature', 0.0)),
-                spec=bool(body.get('spec', True)), deadline=deadline,
-                tenant=tenant, resume_tokens=resume)
+            if self.driver is not None:
+                # Blocks until the next tick admitted it on every rank.
+                req = self.driver.submit(
+                    tokens, body.get('max_new_tokens'),
+                    float(body.get('temperature', 0.0)), resume,
+                    spec=bool(body.get('spec', True)), tenant=tenant)
+            else:
+                req = self.engine.submit(
+                    tokens, max_new_tokens=body.get('max_new_tokens'),
+                    temperature=float(body.get('temperature', 0.0)),
+                    spec=bool(body.get('spec', True)), deadline=deadline,
+                    tenant=tenant, resume_tokens=resume)
         except engine_lib.AdmissionError as e:
             # Bounded admission: shed instead of queueing unboundedly
             # (the LB tries another replica first).
@@ -577,6 +634,12 @@ class InferenceServer:
             return None, (400, {'error': str(e)}, {})
         self._woken.set()
         return req, None
+
+    def cancel(self, req) -> None:
+        """The client went away: free its slot now. Lockstep replicas
+        skip it (request state must stay the same on every rank)."""
+        if self.driver is None:
+            self.engine.cancel(req)
 
     @staticmethod
     def _accepted_len_mean(req) -> Optional[float]:
@@ -701,7 +764,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             except (BrokenPipeError, ConnectionResetError):
                 # The client went away mid-stream: free the slot now
                 # instead of generating to nobody.
-                self.srv.engine.cancel(req)
+                self.srv.cancel(req)
             return
         while not req.wait_done(timeout=1.0):
             if self.srv.dead:
@@ -764,15 +827,18 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
                  ttft_slo_s: Optional[float] = None,
                  sdc_sentinel: bool = True,
                  prefix_cache: bool = False, quantize: bool = False,
-                 params: Optional[llama.Params] = None
+                 params: Optional[llama.Params] = None,
+                 group: Optional[mesh_lib.TPGroup] = None
                  ) -> engine_lib.InferenceEngine:
     """An engine for ``model`` on ``device`` (the dense cache, or the
     paged one with ``paged``) over ``params``, or, when None, random
-    weights drawn from ``seed`` (their int8 form with ``quantize``)."""
+    weights drawn from ``seed`` (their int8 form with ``quantize``).
+    ``group``: the tensor-parallel group this engine is a rank of (its
+    ``params`` then this rank's slices or the whole tree)."""
     dev = engine_lib.resolve_device(device)
     config = MODELS[model]()
     if params is None:
-        params = random_params(config, seed, dev, quantize)
+        params = random_params(config, seed, dev, quantize, group)
     return engine_lib.InferenceEngine(
         config, params,
         engine_lib.EngineConfig(
@@ -788,26 +854,23 @@ def build_engine(model: str, slots: int, max_seq_len: int, page_size: int,
             stepline_cap=stepline_cap, ttft_slo_s=ttft_slo_s,
             sdc_sentinel=sdc_sentinel, prefix_cache=prefix_cache,
             quantize=quantize),
-        seed=seed, device=dev)
+        seed=seed, device=dev, group=group)
 
 
 def random_params(config: llama.LlamaConfig, seed: int, device,
-                  quantize: bool = False) -> llama.Params:
+                  quantize: bool = False,
+                  group: Optional[mesh_lib.TPGroup] = None) -> llama.Params:
     """Random weights drawn from ``seed`` on ``device``; with
-    ``quantize`` the int8 form of the same draw (its bf16 tree is
-    dropped once quantized)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    params = llama.init_params(config, gen, device)
+    ``quantize`` the int8 form of the same draw. Each leaf is drawn whole,
+    quantized whole with ``quantize``, and only the slice of ``group``'s
+    rank kept before the next is drawn: the values of the single-rank
+    draw on the same device, and the whole bf16 tree never exists."""
+    tp, rank = (1, 0) if group is None else (group.world, group.rank)
     if quantize:
-        return quant_lib.quantize_params(params)
-    return params
-
-
-def _map_leaves(fn, tree):
-    if isinstance(tree, dict):
-        return {key: _map_leaves(fn, value) for key, value in tree.items()}
-    return fn(tree)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return quant_lib.init_params_quantized(config, gen, device, tp, rank)
+    return engine_lib.init_params_sharded(config, tp, rank, seed, device)
 
 
 def load_params(args: argparse.Namespace,
@@ -820,24 +883,38 @@ def load_params(args: argparse.Namespace,
     saves) are both accepted, and its shapes must be ``--model``'s.
     Without one: random weights from ``--seed``, their int8 form with
     ``--quantize``."""
-    dev = engine_lib.resolve_device(args.device)
+    return load_rank_params(args, config, mesh_lib.single(
+        engine_lib.resolve_device(args.device)))
+
+
+def _restore(args: argparse.Namespace, config: llama.LlamaConfig):
+    """The params of ``--checkpoint``'s latest checkpoint in host RAM,
+    checked against ``config``'s shapes."""
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+    mgr = ckpt_lib.CheckpointManager(args.checkpoint)
+    restored = mgr.restore_to_host()
+    params = restored.get('params', restored) if isinstance(
+        restored, dict) else restored.params
+    ckpt_lib.check_like(params, llama.init_params(config, None, 'meta'))
+    return params
+
+
+def load_rank_params(args: argparse.Namespace, config: llama.LlamaConfig,
+                     group: mesh_lib.TPGroup) -> llama.Params:
+    """:func:`load_params` for one rank of ``group`` on its device: each
+    leaf restored (or drawn) whole, quantized whole with ``--quantize``,
+    and only this rank's slice kept."""
+    dev, tp = group.device, group.world
     if args.checkpoint:
-        from skypilot_tpu_torch.train import checkpoint as ckpt_lib
-        mgr = ckpt_lib.CheckpointManager(args.checkpoint)
-        restored = mgr.restore_to_host()
-        params = restored.get('params', restored) if isinstance(
-            restored, dict) else restored.params
-        ckpt_lib.check_like(params, llama.init_params(config, None, 'meta'))
-        if args.quantize:
-            return quant_lib.quantize_params(params, dev)
-        return _map_leaves(lambda leaf: leaf.to(dev), params)
-    if args.quantize:
-        logger.warning('no --checkpoint: serving random int8 weights '
-                       '(%s, tp=%d)', args.model, 1)
-    else:
-        logger.warning('no --checkpoint: serving random weights (%s)',
-                       args.model)
-    return random_params(config, args.seed, dev, args.quantize)
+        def keep(path, leaf):
+            leaf = leaf.to(dev)
+            if args.quantize:
+                leaf = quant_lib.quantize_leaf(path[-1], leaf)
+            return sharding_lib.shard_leaf(path, leaf, group.rank, tp)
+        return sharding_lib.map_tree(keep, _restore(args, config))
+    logger.warning('no --checkpoint: serving random %sweights (%s, tp=%d)',
+                   'int8 ' if args.quantize else '', args.model, tp)
+    return random_params(config, args.seed, dev, args.quantize, group)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -957,6 +1034,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              '(ops/quant.py): every dense product streams '
                              'int8 weights through the W8A16 kernel, half '
                              'the weight bytes of bf16')
+    parser.add_argument('--tp', type=int, default=1,
+                        help='tensor-parallel ranks, one process a GPU '
+                             '(dense cache only): this process serves '
+                             'HTTP as rank 0 and starts the others; on a '
+                             'multi-host replica it defaults to every GPU '
+                             'of the replica')
     parser.add_argument('--tokenizer', default=None,
                         help='tokenizer.json (needs the optional tokenizers '
                              'package) or sentencepiece .model for '
@@ -978,6 +1061,11 @@ def check_usage(args: argparse.Namespace) -> None:
     if args.kv_dtype != 'bfloat16' and not args.paged:
         raise SystemExit('--kv-dtype int8 requires --paged (quantization '
                          'is at page granularity)')
+    if args.tp < 1:
+        raise SystemExit(f'--tp must be >= 1, got {args.tp}')
+    if args.tp > 1 and args.paged:
+        raise SystemExit('paged KV is single-device for now; use the dense '
+                         'cache for tp > 1 (drop --paged)')
     if args.long_slots > 0:
         model_cap = MODELS[args.model]().max_seq_len
         short_cap = min(args.max_seq_len, model_cap)
@@ -991,7 +1079,8 @@ def check_usage(args: argparse.Namespace) -> None:
 
 
 def engine_from_args(args: argparse.Namespace,
-                     params: Optional[llama.Params] = None):
+                     params: Optional[llama.Params] = None,
+                     group: Optional[mesh_lib.TPGroup] = None):
     """The engine ``main`` serves: one engine, or with ``--long-slots`` an
     :class:`engine_lib.EnginePool` of it and a long dense tier built on
     the same params object (the weights are on the device once;
@@ -1006,9 +1095,10 @@ def engine_from_args(args: argparse.Namespace,
                   fused_prefill=args.fused_prefill,
                   stepline=not args.no_stepline,
                   stepline_cap=args.stepline_cap, ttft_slo_s=args.ttft_slo_s,
-                  sdc_sentinel=not args.no_sdc_sentinel)
+                  sdc_sentinel=not args.no_sdc_sentinel, group=group)
+    device = group.device if group is not None else args.device
     engine = build_engine(args.model, args.slots, args.max_seq_len,
-                          args.page_size, args.n_pages, args.device,
+                          args.page_size, args.n_pages, device,
                           args.seed, paged=args.paged,
                           kv_dtype=args.kv_dtype,
                           prefix_cache=args.prefix_cache,
@@ -1017,41 +1107,137 @@ def engine_from_args(args: argparse.Namespace,
         return engine
     long_engine = build_engine(args.model, args.long_slots,
                                args.long_seq_len, args.page_size, None,
-                               args.device, seed=1, params=engine.params,
+                               device, seed=1, params=engine.params,
                                **common)
     return engine_lib.EnginePool([engine, long_engine])
 
 
 def server_from_args(args: argparse.Namespace,
-                     boot_t0: Optional[float] = None) -> 'InferenceServer':
+                     boot_t0: Optional[float] = None,
+                     group: Optional[mesh_lib.TPGroup] = None
+                     ) -> 'InferenceServer':
     """What ``main`` serves, not yet started: the tokenizer, the weights
     (then the cold-start stamp ``coldstart.weights_loaded``), the engine
     and the server. ``boot_t0``: when the process started (default
-    now)."""
+    now). ``group``: rank 0 of a tensor-parallel replica (the server then
+    submits through a lockstep driver over it)."""
     boot_t0 = time.time() if boot_t0 is None else boot_t0
     config = MODELS[args.model]()
     tokenizer = Tokenizer(args.tokenizer, vocab_limit=config.vocab_size)
-    params = load_params(args, config)
+    params = (load_params(args, config) if group is None
+              else load_rank_params(args, config, group))
     # Cold-start timeline stamp #1: t_weights covers the checkpoint
     # restore (and quantization) or the random init; the KV pool's
     # allocation rides in the gap before the compile stamp.
     t_weights = time.time()
-    engine = engine_from_args(args, params)
+    engine = engine_from_args(args, params, group)
     engine.note_lifecycle_event('coldstart.weights_loaded',
                                 load_s=round(t_weights - boot_t0, 3))
+    driver = (multihost.MultihostEngineDriver(engine, group)
+              if group is not None and group.world > 1 else None)
     return InferenceServer(engine, tokenizer, boot_t0=boot_t0,
                            role=args.role,
                            kv_pull_timeout_s=args.kv_pull_timeout_s,
-                           kv_export_max_pages=args.kv_export_max_pages)
+                           kv_export_max_pages=args.kv_export_max_pages,
+                           driver=driver)
+
+
+def _device_type(args: argparse.Namespace) -> str:
+    return torch.device(args.device).type
+
+
+def tp_layout(args: argparse.Namespace, n_hosts: int) -> int:
+    """The ranks this host runs for ``--tp``: the reference's layout
+    rules, after a check of the host's GPU count that fails at once with
+    a SystemExit naming both counts."""
+    if _device_type(args) == 'cuda':
+        have = torch.cuda.device_count()
+        per = -(-args.tp // n_hosts)
+        if per > have:
+            raise SystemExit(f'--tp {args.tp} needs {per} GPUs on this host '
+                             f'but it has {have}')
+    else:
+        have = args.tp
+    try:
+        return mesh_lib.check_layout(args.tp, n_hosts, have)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+
+
+def _rank_main(args: argparse.Namespace, local_index: int, address: str,
+               boot_t0: float) -> None:
+    """One rank of a tensor-parallel replica: join the group, load this
+    rank's weights, build its engine; global rank 0 serves HTTP through
+    the lockstep driver, every other rank runs its loop."""
+    group = multihost.maybe_initialize_distributed(
+        args.tp, local_index, _device_type(args), address)
+    if group.rank == 0:
+        server = server_from_args(args, boot_t0, group)
+        logger.info('rank 0 of %d: weights and KV cache ready in %.1fs',
+                    group.world, time.time() - boot_t0)
+        # SIGTERM stops the loop on every rank (the stop rides the
+        # broadcast) instead of killing rank 0 under the others.
+        signal.signal(signal.SIGTERM, lambda *_: server._stop.set())
+        try:
+            server.run(args.host, args.port)
+        except KeyboardInterrupt:
+            pass
+    else:
+        config = MODELS[args.model]()
+        engine = engine_from_args(
+            args, load_rank_params(args, config, group), group)
+        logger.info('rank %d/%d: entering the lockstep loop', group.rank,
+                    group.world)
+        multihost.MultihostEngineDriver(engine, group).run()
+    mesh_lib.destroy(group)
+
+
+def _follower(args: argparse.Namespace, local_index: int, address: str,
+              boot_t0: float) -> None:
+    """A spawned local rank. It ignores the terminal's SIGINT: rank 0's
+    stop reaches it through the loop."""
+    logging.basicConfig(level=logging.INFO)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    _rank_main(args, local_index, address, boot_t0)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     boot_t0 = time.time()
-    server = server_from_args(args, boot_t0)
-    logger.info('weights and KV pool ready in %.1fs', time.time() - boot_t0)
-    server.run(args.host, args.port)
+    n_hosts, host_id, coordinator = multihost.host_env()
+    if n_hosts > 1 and args.tp == 1:
+        # A multi-host replica exists to shard the model: every GPU of
+        # the replica (one rank a host on the CPU).
+        local = (torch.cuda.device_count() if _device_type(args) == 'cuda'
+                 else 1)
+        args.tp = n_hosts * local
+        logger.info('multi-host replica: defaulting --tp to %d', args.tp)
+        check_usage(args)
+    if args.tp == 1:
+        server = server_from_args(args, boot_t0)
+        logger.info('weights and KV pool ready in %.1fs',
+                    time.time() - boot_t0)
+        server.run(args.host, args.port)
+        return
+    per = tp_layout(args, n_hosts)
+    address = coordinator or f'127.0.0.1:{mesh_lib.free_port()}'
+    import torch.multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    followers = [ctx.Process(target=_follower,
+                             args=(args, i, address, boot_t0),
+                             name=f'tp-rank-{host_id * per + i}')
+                 for i in range(1, per)]
+    for proc in followers:
+        proc.start()
+    _rank_main(args, 0, address, boot_t0)
+    codes = []
+    for proc in followers:
+        proc.join()
+        codes.append(proc.exitcode)
+        logger.info('%s exited %s', proc.name, proc.exitcode)
+    if any(codes):
+        sys.exit(1)
 
 
 if __name__ == '__main__':

@@ -124,7 +124,7 @@ class LlamaConfig:
 
 def init_params(config: LlamaConfig,
                 generator: Optional[torch.Generator],
-                device='cpu') -> Params:
+                device='cpu', keep=None) -> Params:
     """Scaled-normal init, layers stacked on axis 0, with the
     reference's shapes and scales. The numbers come from ``generator``
     (on ``device``), so they are not the reference's ``jax.random``
@@ -135,40 +135,58 @@ def init_params(config: LlamaConfig,
     large (an 8B model's stacked fp32 draw would not fit beside it).
     On the ``'meta'`` device nothing is drawn (``generator`` may be
     None): the tree's shapes and dtypes alone, what a checkpoint restore
-    checks against."""
+    checks against. ``keep(path, leaf)``, when given, maps each leaf as
+    soon as it is drawn, before the next one is (a tensor-parallel rank
+    keeps its slice, so the whole tree never exists at once); the draws
+    are the same with or without it."""
     dtype = torch_dtype(config.dtype)
     d, hd = config.dim, config.head_dim
     L = config.n_layers
 
-    def normal(shape, scale, stacked=False):
+    def kept(path, leaf):
+        return leaf if keep is None else keep(path, leaf)
+
+    def normal(path, shape, scale, stacked=False):
         out = torch.empty(shape, dtype=dtype, device=device)
         if out.is_meta:
-            return out
+            return kept(path, out)
         for i in range(shape[0] if stacked else 1):
             part = out[i] if stacked else out
             part.copy_(torch.randn(part.shape, generator=generator,
                                    dtype=torch.float32, device=device)
                        * scale)
-        return out
+        return kept(path, out)
+
+    def ones(path, shape):
+        return kept(path, torch.ones(shape, dtype=dtype, device=device))
 
     scale = d ** -0.5
     out_scale = scale / (2 * L) ** 0.5   # GPT-2-style residual scaling
+
+    def layer(name):
+        return ('layers', name)
+
     layers = {
-        'attn_norm': torch.ones((L, d), dtype=dtype, device=device),
-        'wq': normal((L, d, config.n_heads * hd), scale, True),
-        'wk': normal((L, d, config.n_kv_heads * hd), scale, True),
-        'wv': normal((L, d, config.n_kv_heads * hd), scale, True),
-        'wo': normal((L, config.n_heads * hd, d), out_scale, True),
-        'mlp_norm': torch.ones((L, d), dtype=dtype, device=device),
-        'w_gate': normal((L, d, config.ffn_dim), scale, True),
-        'w_up': normal((L, d, config.ffn_dim), scale, True),
-        'w_down': normal((L, config.ffn_dim, d), out_scale, True),
+        'attn_norm': ones(layer('attn_norm'), (L, d)),
+        'wq': normal(layer('wq'), (L, d, config.n_heads * hd), scale, True),
+        'wk': normal(layer('wk'), (L, d, config.n_kv_heads * hd), scale,
+                     True),
+        'wv': normal(layer('wv'), (L, d, config.n_kv_heads * hd), scale,
+                     True),
+        'wo': normal(layer('wo'), (L, config.n_heads * hd, d), out_scale,
+                     True),
+        'mlp_norm': ones(layer('mlp_norm'), (L, d)),
+        'w_gate': normal(layer('w_gate'), (L, d, config.ffn_dim), scale,
+                         True),
+        'w_up': normal(layer('w_up'), (L, d, config.ffn_dim), scale, True),
+        'w_down': normal(layer('w_down'), (L, config.ffn_dim, d), out_scale,
+                         True),
     }
     return {
-        'embed': normal((config.vocab_size, d), 1.0),
+        'embed': normal(('embed',), (config.vocab_size, d), 1.0),
         'layers': layers,
-        'final_norm': torch.ones((d,), dtype=dtype, device=device),
-        'lm_head': normal((d, config.vocab_size), scale),
+        'final_norm': ones(('final_norm',), (d,)),
+        'lm_head': normal(('lm_head',), (d, config.vocab_size), scale),
     }
 
 
@@ -206,12 +224,15 @@ def layer_params(params: Params, i: int) -> Params:
 
 
 def mlp_block(config: LlamaConfig, x: torch.Tensor,
-              layer: Params) -> torch.Tensor:
-    """norm -> SwiGLU -> residual."""
+              layer: Params, reduce=None) -> torch.Tensor:
+    """norm -> SwiGLU -> residual. ``reduce`` (a tensor-parallel rank's
+    all-reduce) sums the row-parallel ``w_down`` product's partials
+    before the residual add."""
     h = norms.rms_norm(x, layer['mlp_norm'], config.norm_eps)
     gate = F.silu(quant_lib.qdot(h, layer['w_gate']))
-    return x + quant_lib.qdot(gate * quant_lib.qdot(h, layer['w_up']),
-                              layer['w_down'])
+    down = quant_lib.qdot(gate * quant_lib.qdot(h, layer['w_up']),
+                          layer['w_down'])
+    return x + (down if reduce is None else reduce(down))
 
 
 def attention_block(config: LlamaConfig, x: torch.Tensor, layer: Params,

@@ -239,18 +239,47 @@ def quantize_params(params: Params, device=None) -> Params:
     each leaf first moves there and quantizes there, so a tree on the
     host (``CheckpointManager.restore_to_host``) lands on the card as
     its int8 form plus one bf16 leaf at most."""
+    from skypilot_tpu_torch.parallel import sharding
+
     def moved(leaf):
         return leaf if device is None else leaf.to(device)
 
-    layers = {key: (quantize_weight(moved(leaf)) if key in _MATMUL_KEYS
-                    else moved(leaf))
-              for key, leaf in params['layers'].items()}
-    return {
-        'embed': quantize_embed(moved(params['embed'])),
-        'layers': layers,
-        'final_norm': moved(params['final_norm']),
-        'lm_head': quantize_weight(moved(params['lm_head'])),
-    }
+    return sharding.map_tree(
+        lambda path, leaf: quantize_leaf(path[-1], moved(leaf)), params)
+
+
+def init_params_quantized(config, generator, device='cpu', tp: int = 1,
+                          rank: int = 0) -> Params:
+    """Random init straight into int8 (the reference's
+    ``init_params_quantized``): each leaf is drawn whole in the compute
+    dtype (``models.llama.init_params``' draws, in its order), quantized
+    whole, and dropped before the next is drawn, so the tree's bf16 form
+    never exists at once. The values equal
+    ``quantize_params(init_params(config, generator, device))``.
+
+    ``tp > 1``: rank ``rank`` keeps only its slice of each quantized leaf
+    (``parallel/sharding.py``), so it holds 1/tp of the weights plus one
+    whole leaf at a time. A row-parallel weight's per-column scale covers
+    the whole contraction axis, which is why the leaf is quantized before
+    it is sliced, never per shard."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import sharding
+
+    def keep(path, leaf):
+        return sharding.shard_leaf(path, quantize_leaf(path[-1], leaf),
+                                   rank, tp)
+
+    return llama.init_params(config, generator, device, keep=keep)
+
+
+def quantize_leaf(name: str, leaf):
+    """The int8 form of the leaf ``name``: a matmul weight per output
+    channel, the embedding per row, a norm unchanged."""
+    if name in _MATMUL_KEYS:
+        return quantize_weight(leaf)
+    if name == 'embed':
+        return quantize_embed(leaf)
+    return leaf
 
 
 def _leaves(tree):

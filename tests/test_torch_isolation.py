@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``skypilot_tpu_torch``
 (the observability copies, the serving sweep, the dense cache and the
-prefix cache's copies of ``prefix_hash``, ``kv_wire`` and ``prefix_cache``
+prefix cache's copies of ``prefix_hash``, ``kv_wire`` and ``prefix_cache``,
+the tensor-parallel ``parallel/`` and the lockstep ``infer/multihost``
 included) and
 ``chip_smoke.py``, which drives it on the card, loads neither JAX nor any
 module of the JAX package. Checked in a fresh interpreter, since
@@ -37,6 +38,9 @@ assert {'skypilot_tpu_torch.utils.prefix_hash',
         'skypilot_tpu_torch.infer.cache'} <= set(names), names
 assert {'skypilot_tpu_torch.ops.quant',
         'skypilot_tpu_torch.train.checkpoint'} <= set(names), names
+assert {'skypilot_tpu_torch.parallel.' + m
+        for m in ('mesh', 'sharding', 'collectives')} \
+    | {'skypilot_tpu_torch.infer.multihost'} <= set(names), names
 '''
 
 
