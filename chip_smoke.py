@@ -57,7 +57,10 @@ Phases, in order; any failure exits non-zero:
    decode, verify and prefill kernels at a tensor-parallel rank's KV
    heads (4 at tp 2, 1 at tp 8; ``TP_HKV``) over 8 dense slots of 32
    pages, every verify query bitwise decode and the device-scalar
-   prefill entry bitwise the host one; phase 4 times tp 2's shapes.
+   prefill entry bitwise the host one; phase 4 times tp 2's shapes; and
+   the flash forward, dQ and dK/dV at a tensor-parallel training rank's
+   heads (``FLASH_TP_SHAPES``: bench_1b at tp 2, 6 heads; Llama-3-8B at
+   tp 2, 16 query and 4 KV heads at seq 4096), which phase 4 times.
 4. Timing: each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls:
    ``scaled_dot_product_attention`` for attention, its backward through
@@ -186,11 +189,18 @@ Phases, in order; any failure exits non-zero:
    flash attention and the fused cross-entropy (the kernels) against
    dense attention and the dense cross-entropy (no kernel): the loss and
    every gradient leaf, by relative norm.
+6b. The remat policies on the same slice: ``save_attn`` and ``dots``
+   against ``full`` (the loss bitwise, every gradient leaf by relative
+   norm, the bitwise leaves counted) and the flash forward's launches: 2
+   a layer under ``full`` and ``dots``, 1 under ``save_attn``.
 7. Training end to end: ``python -m skypilot_tpu_torch.bench --attn
    flash --ce fused`` (bench_1b at full width and depth) in a subprocess,
    whose JSON gives tokens/s, MFU, step time, peak memory and each
    training kernel's launches over its timed steps (counters reset just
-   before them), then the same with ``--ce dense`` for comparison; then
+   before them), then the same with ``--ce dense`` for comparison, then
+   with ``--ce fused --remat-policy save_attn`` and ``dots`` (24 flash
+   forward launches a step under ``save_attn``, 48 under ``dots``; their
+   tokens/s, MFU and peak memory beside full's); then
    ``python -m skypilot_tpu_torch.train.run --model llama-350m --steps 4
    --batch 4 --seq 2048`` with a checkpoint every 2 steps, and again with
    ``--steps 6``, which must resume at step 4.
@@ -198,6 +208,22 @@ Phases, in order; any failure exits non-zero:
    answers 8 greedy requests, whose tokens must equal an in-process
    engine's on ``restore_to_host`` + ``quantize_params(..., 'cuda')`` of
    the same directory; ``qdot_int8`` must have launched in the server.
+7c. Sharded training: ``train.run``'s rank program (``run_rank``) for
+   llama-350m at seq 512, batch 4, 3 steps, on 4 spawned ranks sharing
+   the card at fsdp 2 x tp 2 over ``gloo`` (named explicitly: a
+   correctness run, every collective staged through the host), at lr
+   0.02, with a checkpoint at steps 1 and 2: every rank's losses within
+   MESH_LOSS_ATOL of the one-rank run's, whose lr 0 control (the state
+   left unchanged) must part from it by more than MESH_CONTROL_X times
+   that, the flash forward, dQ and dK/dV
+   launched on every rank (``launches_train_mesh`` in the kernel line),
+   and the mesh's step-2 checkpoint (the whole state, written by rank 0)
+   resumed at one rank lands on the mesh's step-3 loss. Prints the time
+   a step, labelled gloo on one card. NCCL (one card a rank) needs more
+   cards and does not run here.
+7d. ResNet DDP: ``run_vision``'s rank program (ResNet-50, bf16, batch
+   32 at 224, 3 steps) at dp 2, two gloo ranks on the card, against one
+   rank within VISION_LOSS_RTOL; prints images/s (gloo on one card).
 
 Then it prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -397,6 +423,44 @@ TP_PREFILL_CASES = [(16, 0, 16), (64, 1792, 50), (256, 1792, 256)]
 TP_PROMPTS, TP_NEW = 4, 32
 TRAINING_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                     'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd')
+FLASH_KERNELS = TRAINING_KERNELS[:3]
+# The flash kernels at a tensor-parallel training rank's heads (b, hq,
+# hkv, s, d): bench_1b at tp 2 (6 of its 12 heads, group 1) and Llama-3-8B
+# at tp 2 (16 query and 4 KV heads, group 4) at the fine-tuning recipe's
+# seq 4096, one row.
+FLASH_TP_SHAPES = {'bench_1b tp 2': (FB, FH // 2, FH // 2, FS, FD),
+                   '8B tp 2': (1, 16, 4, 4096, FD)}
+# Phase 6b: the remat policies' gradients against full's on the card, by
+# relative norm. The same products on the same inputs in the same order
+# give the same bits; only the embedding's scatter-add (atomics, three or
+# more rows of one token) may round in another order.
+REMAT_GRAD_RTOL = 1e-3
+# Phase 7c: train.run's rank program on 4 gloo ranks sharing the card
+# (llama-350m at fsdp 2 x tp 2, bf16) against the one-rank run: losses of
+# ~10.9 summed over 2,048 tokens whose bf16 products round in other
+# orders at the tp ranks' shapes, within MESH_LOSS_ATOL. Under train.run's
+# warmup of 100 steps the first update is at lr 0 and the second at lr /
+# 100, so lr 0.02 makes the second update move the step-3 loss well past
+# the tolerance; the one-rank run at lr 0 (the state left as it was) is
+# the control, which must part from the one-rank run by more than
+# MESH_CONTROL_X times MESH_LOSS_ATOL, or the check could not see a mesh
+# step that updates nothing. On an H100 (700 W) the mesh's losses came
+# within 1.7e-3 of one rank's and the control parted by 6.14 (the step-3
+# loss 10.90 -> 4.76).
+MESH_ARGS = ['--model', 'llama-350m', '--seq', '512', '--batch', '4',
+             '--steps', '3', '--log-every', '1', '--checkpoint-every', '2',
+             '--lr', '0.02']
+MESH_LOSS_ATOL = 1e-2
+MESH_CONTROL_X = 10
+# Phase 7d: run_vision's rank program at dp 2 on the card (ResNet-50, bf16)
+# against one rank: the first loss before any update within 1e-2 of it,
+# the later ones (after SGD on updates that rounded in bf16 in other
+# orders) within VISION_LOSS_RTOL. The recipe's batch 1024 is cut to 32,
+# so its lr 0.1 by the linear scaling rule to 0.003 (at 0.1 a batch of 32
+# random images diverges: losses 12.7, 16.1, 228 on the card).
+VISION_ARGS = ['--model', 'resnet50', '--batch', '32', '--image-size', '224',
+               '--steps', '3', '--log-every', '1', '--lr', '0.003']
+VISION_LOSS_RTOL = 5e-2
 # --profile: decode steps with every slot at this context.
 PROFILE_PROMPT, PROFILE_STEPS = 512, 20
 # --profile's chunk steps: a prompt of seven 256-token chunks, timed over
@@ -3532,6 +3596,96 @@ def time_training_kernels(torch, att, ce, checked):
     return rows
 
 
+def check_tp_training_kernels(torch, att):
+    """Phase 3 at a tensor-parallel training rank's heads
+    (``FLASH_TP_SHAPES``): flash forward, dQ and dK/dV against their plain
+    versions. Returns {label: (errors, inputs, (out, lse, delta))} for
+    phase 4."""
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    checked = {}
+    for label, (b, hq, hkv, s, d) in FLASH_TP_SHAPES.items():
+        case = flash_inputs(torch, gen, b, hq, hkv, s, d)
+        errs, oks, saved = flash_check(torch, att, case, True, BLOCK)
+        print(f'flash attention vs plain at {label} (b={b} hq={hq} hkv={hkv} '
+              f's={s} d={d} causal): '
+              + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()),
+              flush=True)
+        bad = [k for k, ok in oks.items() if not ok]
+        if bad:
+            fail(f'flash kernels disagree with their plain versions at '
+                 f'{label}: {bad} {errs}')
+        checked[label] = (errs, case, saved)
+    return checked
+
+
+def time_flash(torch, att, case, saved, flush):
+    """Phase 4, the three flash kernels on one case (any GQA group), each
+    beside its plain version, SDPA (its autograd backward for both
+    backward kernels) and its bound."""
+    F = torch.nn.functional
+    q, k, v, do = case
+    out, lse, delta = saved
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    scale = d ** -0.5
+    kw = dict(causal=True, sm_scale=scale, block_k=BLOCK)
+    q_el, kv_el, rows_f32 = b * hq * s * d, b * hkv * s * d, b * hq * s
+    flops_1 = 2.0 * b * hq * d * s * (s + 1) // 2   # one causal product
+    gqa = {'enable_gqa': True} if hkv != hq else {}
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, **gqa), 20, flush)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             **gqa)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do, retain_graph=True), 20, flush)
+    del lib_out, qg, kg, vg
+    args = (q, k, v, do, lse, delta)
+    return {
+        'flash_attention_fwd': dict(
+            ms=time_ms(torch, lambda: att._flash_forward(
+                q, k, v, True, scale, BLOCK), 20, flush),
+            plain_ms=time_ms(torch, lambda: att.flash_forward_reference(
+                q, k, v, **kw), 5, flush),
+            library_ms=lib_fwd,
+            bound=bound((2 * q_el + 2 * kv_el) * 2 + rows_f32 * 4,
+                        2 * flops_1)),
+        'flash_attention_bwd_dq': dict(
+            ms=time_ms(torch, lambda: att._flash_backward_dq(
+                *args, True, scale, BLOCK), 20, flush),
+            plain_ms=time_ms(torch, lambda: att.flash_bwd_dq_reference(
+                *args, **kw), 5, flush),
+            library_ms=lib_bwd,
+            bound=bound((3 * q_el + 2 * kv_el) * 2 + 2 * rows_f32 * 4,
+                        3 * flops_1)),
+        'flash_attention_bwd_dkv': dict(
+            ms=time_ms(torch, lambda: att._flash_backward_dkv(
+                *args, True, scale, BLOCK), 20, flush),
+            plain_ms=time_ms(torch, lambda: att.flash_bwd_dkv_reference(
+                *args, **kw), 5, flush),
+            library_ms=lib_bwd,
+            bound=bound((2 * q_el + 4 * kv_el) * 2 + 2 * rows_f32 * 4,
+                        4 * flops_1)),
+    }
+
+
+def time_tp_training_kernels(torch, att, tp_checked):
+    """Phase 4 at the tensor-parallel training ranks' heads (rows 5t and
+    6t of PERF.md's kernel table)."""
+    flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
+    timed = {}
+    for label, (errs, case, saved) in tp_checked.items():
+        rows = time_flash(torch, att, case, saved, flush)
+        for name, r in rows.items():
+            print(f'{name} at {label}: {r["ms"]:.4f} ms, plain '
+                  f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} '
+                  f'ms, bound {r["bound"][0]:.4f} ms ({r["bound"][1]})',
+                  flush=True)
+        timed[label] = rows
+    return timed
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the training slice against its plain path
 # ---------------------------------------------------------------------------
@@ -3586,6 +3740,236 @@ def check_slice(torch, att, ce):
     return summary
 
 
+def check_remat(torch, att, ce):
+    """Phase 6b: ``loss_fn``'s gradients under the ``save_attn`` and
+    ``dots`` remat policies against ``full``'s (2 layers at bench_1b
+    width, b 1, s 2048, flash + fused CE, the same bf16 params), each leaf
+    by relative norm within REMAT_GRAD_RTOL (bitwise leaves counted), and
+    the flash forward's launches: 2 a layer under ``full`` and ``dots``
+    (the forward and its recompute), 1 under ``save_attn``."""
+    from skypilot_tpu_torch.models import llama
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(2)
+    kw = dict(n_layers=2, attention_impl='flash', fused_loss=True)
+    params = llama.init_params(llama.LlamaConfig.bench_1b(**kw), gen, 'cuda')
+    tokens = torch.randint(0, 32768, (1, FS + 1), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    leaves = [(f'layers.{k}', t) for k, t in params['layers'].items()] + [
+        (k, params[k]) for k in ('embed', 'final_norm', 'lm_head')]
+    for _, t in leaves:
+        t.requires_grad_(True)
+    runs = {}
+    for policy in ('full', 'save_attn', 'dots'):
+        cfg = llama.LlamaConfig.bench_1b(remat_policy=policy, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.reset_launches()
+        ce.reset_launches()
+        loss = llama.loss_fn(cfg, params, tokens[:, :-1], tokens[:, 1:])
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        torch.cuda.synchronize()
+        runs[policy] = (loss.item(), grads, dict(att.launches),
+                        torch.cuda.max_memory_allocated() / 1e9)
+    for _, t in leaves:
+        t.requires_grad_(False)
+    loss_f, grads_f, _, _ = runs['full']
+    summary, checks = {}, []
+    for policy, (loss, grads, launches, peak) in runs.items():
+        rel = {name: ((g.float() - gf.float()).norm()
+                      / gf.float().norm()).item()
+               for (name, _), g, gf in zip(leaves, grads, grads_f)}
+        bitwise = [name for (name, _), g, gf in zip(leaves, grads, grads_f)
+                   if torch.equal(g, gf)]
+        summary[policy] = {'loss': loss, 'loss_bitwise': loss == loss_f,
+                           'bitwise_leaves': len(bitwise),
+                           'max_grad_rel_norm_err': max(rel.values()),
+                           'launches': launches, 'peak_memory_gb': peak}
+        want = 1 if policy == 'save_attn' else 2
+        if launches['flash_attention_fwd'] != want * kw['n_layers']:
+            checks.append(f'{policy}: {launches["flash_attention_fwd"]} '
+                          f'flash forward launches, want {want} a layer')
+        if max(rel.values()) > REMAT_GRAD_RTOL or abs(loss - loss_f) > 0:
+            checks.append(f'{policy}: loss {loss} vs {loss_f}, grads {rel}')
+    print(f'remat policies vs full (2 layers at bench_1b width, b 1, s {FS}, '
+          f'flash + fused CE; {len(leaves)} leaves): '
+          + json.dumps(summary), flush=True)
+    if checks:
+        fail('phase 6b: ' + '; '.join(checks))
+    return summary
+
+
+def spawn_ranks(target, world: int, args: tuple, timeout: float,
+                label: str) -> None:
+    """``target(rank, world, address, *args)`` in ``world`` spawned
+    processes at a free localhost port; fails unless every one exits 0
+    within ``timeout`` seconds (one still alive then is killed)."""
+    import torch.multiprocessing as mp
+    from skypilot_tpu_torch.parallel import mesh
+    address = f'127.0.0.1:{mesh.free_port()}'
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=target, args=(r, world, address) + args)
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    for proc in procs:
+        proc.join(max(0.0, deadline - time.monotonic()))
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if codes != [0] * world:
+        fail(f'{label}: rank exit codes {codes}')
+
+
+def train_mesh_rank(rank: int, world: int, address: str, argv,
+                    tmp: str) -> None:
+    """One rank of phase 7c (a spawned process): ``train.run``'s rank
+    program at fsdp 2 x tp 2 on cuda:0 over gloo, its kernel counters set
+    to 0 just before; writes its logged steps, launches and peak memory to
+    ``<tmp>/rank<rank>.json``."""
+    import torch
+    from skypilot_tpu_torch.ops import attention as att
+    from skypilot_tpu_torch.ops import cross_entropy as ce
+    from skypilot_tpu_torch.parallel import mesh
+    from skypilot_tpu_torch.train import run
+    args = run.parse_args(argv)
+    att.reset_launches()
+    ce.reset_launches()
+    logged = run.run_rank(args, mesh.MeshShape(1, 2, 2), rank, address,
+                          'cuda:0', backend='gloo')
+    torch.cuda.synchronize()
+    pathlib.Path(tmp, f'rank{rank}.json').write_text(json.dumps({
+        'logged': logged, 'launches': {**att.launches, **ce.launches},
+        'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}))
+
+
+def train_mesh_on_one_card(torch, card: str):
+    """Phase 7c: ``train.run``'s rank program for llama-350m (seq 512,
+    batch 4, 3 steps, a checkpoint at steps 1 and 2) on 4 gloo ranks
+    sharing the card at fsdp 2 x tp 2 (the backend named: a correctness
+    run, every collective staged through the host) against the one-rank
+    run: every rank's losses within MESH_LOSS_ATOL of it, the flash
+    kernels launched on every rank; then the mesh's step-2 checkpoint
+    resumed at one rank lands on the mesh's step 3 loss. Prints the time
+    a step, labelled gloo on one card. Returns the launches summed over
+    the ranks."""
+    from skypilot_tpu_torch.parallel import mesh
+    from skypilot_tpu_torch.train import run
+    t0 = time.perf_counter()
+    one = run.run_rank(run.parse_args(MESH_ARGS), mesh.MeshShape(), 0,
+                       None, 'cuda')
+    control = run.run_rank(run.parse_args(MESH_ARGS + ['--lr', '0']),
+                           mesh.MeshShape(), 0, None, 'cuda')
+    torch.cuda.empty_cache()
+    checks = []
+    control_err = max(abs(c['loss'] - o['loss'])
+                      for c, o in zip(control, one, strict=True))
+    if control_err <= MESH_CONTROL_X * MESH_LOSS_ATOL:
+        checks.append(f'the lr 0 control parts from one rank by only '
+                      f'{control_err}: the losses cannot show an update')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_mesh_') as tmp:
+        ckpt = os.path.join(tmp, 'ckpt')
+        argv = MESH_ARGS + ['--checkpoint-dir', ckpt]
+        spawn_ranks(train_mesh_rank, 4, (argv, tmp), 900, 'phase 7c')
+        ranks = [json.loads(pathlib.Path(tmp, f'rank{r}.json').read_text())
+                 for r in range(4)]
+        saved = sorted(os.listdir(ckpt))
+        resumed = run.run_rank(run.parse_args(argv), mesh.MeshShape(), 0,
+                               None, 'cuda')
+        torch.cuda.empty_cache()
+    want = {r['step']: r['loss'] for r in one}
+    mesh_err = max(abs(r['loss'] - want[r['step']])
+                   for res in ranks for r in res['logged']
+                   if r['step'] in want)
+    launches = {}
+    for i, res in enumerate(ranks):
+        got = {r['step']: r['loss'] for r in res['logged']}
+        if sorted(got) != sorted(want) or any(
+                abs(got[k] - want[k]) > MESH_LOSS_ATOL for k in want):
+            checks.append(f'rank {i} losses {got} vs one rank {want}')
+        missing = [k for k in FLASH_KERNELS if res['launches'][k] <= 0]
+        if missing:
+            checks.append(f'rank {i}: {missing} not launched '
+                          f'({res["launches"]})')
+        for k, n in res['launches'].items():
+            launches[k] = launches.get(k, 0) + n
+    mesh3 = {r['step']: r['loss'] for r in ranks[0]['logged']}.get(3)
+    if [r['step'] for r in resumed] != [3] or mesh3 is None \
+            or abs(resumed[0]['loss'] - mesh3) > MESH_LOSS_ATOL:
+        checks.append(f'the step-2 checkpoint resumed at one rank logged '
+                      f'{resumed}, the mesh step 3 {mesh3}')
+    if saved != ['1', '2']:
+        checks.append(f'checkpoints {saved}, want steps 1 and 2')
+    tokens = 4 * 512
+    summary = {
+        'card': card, 'mesh': 'dp 1 x fsdp 2 x tp 2, 4 gloo ranks on one '
+        'card', 'one_rank': one, 'mesh_rank0': ranks[0]['logged'],
+        'control_lr0': control, 'mesh_max_abs_err': mesh_err,
+        'control_max_abs_err': control_err,
+        'mesh_loss_atol': MESH_LOSS_ATOL,
+        'resumed_at_one_rank': resumed, 'checkpoints': saved,
+        'launches_per_rank': [r['launches'] for r in ranks],
+        'peak_memory_gb_per_rank': [r['peak_memory_gb'] for r in ranks],
+        'wall_s': time.perf_counter() - t0}
+    print('phase 7c (train.run rank program, llama-350m, seq 512, batch 4, '
+          f'lr 0.02, {card}): ' + json.dumps(summary), flush=True)
+    print(f'  losses: mesh vs one rank {mesh_err:.6g}, the lr 0 control vs '
+          f'one rank {control_err:.6g} (MESH_LOSS_ATOL {MESH_LOSS_ATOL})',
+          flush=True)
+    for r in ranks[0]['logged'][1:]:
+        print(f'  fsdp 2 x tp 2 step {r["step"]}: '
+              f'{tokens / r["tokens_per_s"] * 1e3:.1f} ms a step (gloo on '
+              f'one card, not a speed number; one rank: '
+              f'{tokens / one[r["step"] - 1]["tokens_per_s"] * 1e3:.1f} ms)',
+              flush=True)
+    if checks:
+        fail('phase 7c: ' + '; '.join(checks))
+    return launches
+
+
+def vision_rank(rank: int, world: int, address: str, argv,
+                tmp: str) -> None:
+    """One rank of phase 7d (a spawned process): ``run_vision``'s rank
+    program on cuda:0 over gloo; writes its logged steps."""
+    from skypilot_tpu_torch.train import run_vision
+    out = run_vision.run_rank(run_vision.parse_args(argv), world, rank,
+                              address, 'cuda:0', backend='gloo')
+    pathlib.Path(tmp, f'rank{rank}.json').write_text(
+        json.dumps(out['logged']))
+
+
+def vision_ddp_on_one_card(torch, card: str):
+    """Phase 7d: ``run_vision``'s rank program (ResNet-50, bf16, batch 32
+    at 224, 3 steps) at dp 2, two gloo ranks sharing the card, against
+    one rank: the first loss within 1e-2, the later ones within
+    VISION_LOSS_RTOL. Prints images/s, labelled gloo on one card."""
+    from skypilot_tpu_torch.train import run_vision
+    t0 = time.perf_counter()
+    one = run_vision.run_rank(run_vision.parse_args(VISION_ARGS), 1, 0,
+                              None, 'cuda')['logged']
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_vision_') as tmp:
+        spawn_ranks(vision_rank, 2, (VISION_ARGS, tmp), 600, 'phase 7d')
+        ranks = [json.loads(pathlib.Path(tmp, f'rank{r}.json').read_text())
+                 for r in range(2)]
+    summary = {'card': card, 'one_rank': one, 'dp2': ranks,
+               'wall_s': time.perf_counter() - t0}
+    print('phase 7d (run_vision rank program, ResNet-50, batch 32 at 224, '
+          f'dp 2 as 2 gloo ranks on one card, {card}): '
+          + json.dumps(summary), flush=True)
+    print(f'  dp 2: {ranks[0][-1]["images_per_s"]:.1f} images/s (gloo on one '
+          f'card, not a speed number); one rank: '
+          f'{one[-1]["images_per_s"]:.1f}', flush=True)
+    for res in ranks:
+        for got, want in zip(res, one, strict=True):
+            tol = 1e-2 if got['step'] == 1 else VISION_LOSS_RTOL
+            if abs(got['loss'] - want['loss']) > tol * abs(want['loss']):
+                fail(f'phase 7d: dp 2 loss {got} vs one rank {want}')
+    return summary
+
+
 # ---------------------------------------------------------------------------
 # Phase 7: training end to end
 # ---------------------------------------------------------------------------
@@ -3609,12 +3993,14 @@ def run_logged(cmd, log_name: str, timeout: float):
     return proc.stdout, proc.stderr
 
 
-def run_bench(ce_flavor: str, card: str):
+def run_bench(ce_flavor: str, card: str, remat: str = 'full'):
+    flags = ['--attn', 'flash', '--ce', ce_flavor, '--remat-policy', remat]
+    suffix = '' if remat == 'full' else f'_{remat}'
     out, _ = run_logged(
-        [sys.executable, '-m', 'skypilot_tpu_torch.bench', '--attn', 'flash',
-         '--ce', ce_flavor], f'chip_smoke_bench_{ce_flavor}.log', 900)
+        [sys.executable, '-m', 'skypilot_tpu_torch.bench', *flags],
+        f'chip_smoke_bench_{ce_flavor}{suffix}.log', 900)
     result = json.loads(out.strip().splitlines()[-1])
-    print(f'bench_1b train step (--attn flash --ce {ce_flavor}, {card}): '
+    print(f'bench_1b train step ({" ".join(flags)}, {card}): '
           + json.dumps(result), flush=True)
     if not math.isfinite(result['loss']):
         fail(f'bench loss is not finite: {result["loss"]}')
@@ -3831,6 +4217,7 @@ def main() -> int:
     checked.update(check_spec_int8_kernels(torch, pa))
     checked.update(check_qdot_kernel(torch, quant))
     checked.update(check_training_kernels(torch, att, ce))
+    tp_train_checked = check_tp_training_kernels(torch, att)
     print('paged_prefill: the device-scalar entry is bitwise the '
           'host-scalar entry at ' + json.dumps(DEVICE_SCALAR_CHECKS)
           + ' cases (every prefill case, split edge and page type above)',
@@ -3855,7 +4242,8 @@ def main() -> int:
                    for name, (_, case, off, tl) in dense_checked.items()}
     print_timed(dense_timed)
     time_tp_attention(torch, pa, tp_checked)
-    del flush, dense_checked, tp_checked
+    time_tp_training_kernels(torch, att, tp_train_checked)
+    del flush, dense_checked, tp_checked, tp_train_checked
     for key in checked:              # keep the errors, free the inputs
         checked[key] = (checked[key][0],)
     torch.cuda.empty_cache()
@@ -3916,8 +4304,11 @@ def main() -> int:
     # Phase 5h: tensor parallelism, two gloo ranks on the one card.
     tp_launches = tp_in_process(torch, quant, card)
 
-    # Phase 6: the training slice against its plain path.
+    # Phase 6: the training slice against its plain path; 6b: the remat
+    # policies against full.
     check_slice(torch, att, ce)
+    torch.cuda.empty_cache()
+    check_remat(torch, att, ce)
     torch.cuda.empty_cache()
 
     # Phase 7: the training path, end to end.
@@ -3929,9 +4320,29 @@ def main() -> int:
     launches.update(bench['launches'])
     print(f'bench_1b launches per step: {json.dumps(per_step)}', flush=True)
     run_bench('dense', card)
+    # The selective remat policies: save_attn keeps the flash forward's
+    # outputs (one launch a layer a step), dots the 2-D products'.
+    remat = {'full': bench}
+    for policy in ('save_attn', 'dots'):
+        remat[policy] = run_bench('fused', card, policy)
+        got = remat[policy]['launches_per_step']['flash_attention_fwd']
+        want = 24 if policy == 'save_attn' else 48
+        if got != want:
+            fail(f'bench --remat-policy {policy}: {got} flash forward '
+                 f'launches a step, want {want}')
+    print('bench_1b by remat policy (' + card + '): ' + json.dumps({
+        policy: {k: r[k] for k in ('value', 'mfu', 'step_ms',
+                                   'peak_memory_gb')}
+        | {'flash_fwd_per_step':
+           r['launches_per_step']['flash_attention_fwd']}
+        for policy, r in remat.items()}), flush=True)
     # Phase 7b: the trained checkpoint served with --quantize.
     train_and_resume(card, after=lambda ckpt: serve_checkpoint_int8(
         torch, quant, card, ckpt))
+    # Phase 7c: sharded training, 4 gloo ranks on the card; 7d: ResNet
+    # DDP, 2 gloo ranks on the card.
+    mesh_launches = train_mesh_on_one_card(torch, card)
+    vision_ddp_on_one_card(torch, card)
     if args.profile:
         for kv_dtype in ('bfloat16', 'int8'):
             for verify in (False, True):
@@ -3995,6 +4406,9 @@ def main() -> int:
             # Phase 5h's two ranks at tp 2, both variants, summed (each
             # rank's counters set to 0 just before it served).
             'launches_tp2': tp_launches.get(wrapper, 0),
+            # Phase 7c's four ranks at fsdp 2 x tp 2, summed (each rank's
+            # counters set to 0 just before it trained).
+            'launches_train_mesh': mesh_launches.get(wrapper, 0),
             'max_abs_err': checked[key][0], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
             'bound_by': r['bound'][1], 'library_ms': r['library_ms']})

@@ -15,8 +15,12 @@ MFU is tokens/s x ``flops_per_token`` over the card's dense bf16 peak;
 H100 bf16 pretraining, as the reference does. Before the JSON line it
 prints the step time, the peak of ``torch.cuda.max_memory_allocated``
 and each kernel's launches per timed step, from the wrappers' counters.
+``--remat-policy dots|save_attn`` selects the reference's selective remat
+policies (``models/llama.py``).
 
-It needs a CUDA card and refuses to run without one.
+It needs a CUDA card and refuses to run without one, and it holds the
+machine-wide chip lock (``utils/locks.py``, the reference's path) while it
+measures.
 """
 from __future__ import annotations
 
@@ -132,6 +136,10 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError('skypilot_tpu_torch.bench measures a CUDA card '
                            'and CUDA is not available')
+    # The card is the bench's alone: wait for the test suite or another
+    # bench (the port's or the reference's) to let go of it.
+    from skypilot_tpu_torch.utils import locks
+    locks.acquire_chip_lock('bench')
     from skypilot_tpu_torch.models import llama
 
     seq = args.seq
@@ -157,7 +165,8 @@ def main(argv=None) -> None:
     print(f'[bench] device={name} params={config.num_params/1e6:.0f}M '
           f'batch={batch} seq={seq} attn={kw["attention_impl"]} '
           f'fused_loss={config.fused_loss} '
-          f'loss_vocab_chunks={config.loss_vocab_chunks}', flush=True)
+          f'loss_vocab_chunks={config.loss_vocab_chunks} '
+          f'remat_policy={config.remat_policy}', flush=True)
 
     r = measure(config, batch, seq, 'cuda')
     tok_per_sec = batch * seq * r['steps'] / r['seconds']
@@ -178,6 +187,7 @@ def main(argv=None) -> None:
         'mfu': mfu,
         'model_params_m': round(config.num_params / 1e6),
         'batch': batch, 'seq': seq,
+        'remat_policy': config.remat_policy,
         'device': name,
         'step_ms': step_ms,
         'loss': r['loss'],

@@ -32,9 +32,9 @@ a whole tick (step included) past ``SKY_TPU_LOCKSTEP_HARD_DEADLINE_S``.
 A collective that raises (``gloo`` sees the peer's socket close) exits
 the same way from :meth:`MultihostEngineDriver.run`.
 
-:func:`host_env` reads the multi-host environment the agent injects into
-every host of a slice (the reference's ``runtime/distributed_env.py``
-names, kept here since the port imports nothing of that package).
+``parallel/mesh.host_env`` reads the multi-host environment the agent
+injects into every host of a slice (the reference's
+``runtime/distributed_env.py`` names), for serving and training alike.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 from skypilot_tpu_torch.parallel import collectives
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
@@ -55,12 +55,6 @@ DEFAULT_TICK_DEADLINE_S = 900.0
 HARD_DEADLINE_ENV = 'SKY_TPU_LOCKSTEP_HARD_DEADLINE_S'
 DEFAULT_HARD_DEADLINE_S = 7200.0
 WATCHDOG_EXIT_CODE = 42
-
-# What the agent injects on every host of a multi-host replica
-# (skypilot_tpu/runtime/distributed_env.py).
-COORDINATOR_ENV = 'JAX_COORDINATOR_ADDRESS'
-NUM_PROCESSES_ENV = 'JAX_NUM_PROCESSES'
-PROCESS_ID_ENV = 'JAX_PROCESS_ID'
 
 
 def _broadcast_bytes(data: Optional[bytes],
@@ -292,15 +286,6 @@ class MultihostEngineDriver:
             self._stop = True
 
 
-def host_env() -> Tuple[int, int, Optional[str]]:
-    """(hosts, this host's id, the coordinator ``host:port``) from the
-    agent's environment; (1, 0, None) on a single host."""
-    n = int(os.environ.get(NUM_PROCESSES_ENV, '1'))
-    if n <= 1:
-        return 1, 0, None
-    return n, int(os.environ[PROCESS_ID_ENV]), os.environ[COORDINATOR_ENV]
-
-
 def maybe_initialize_distributed(tp: int, local_index: int = 0,
                                  device_type: str = 'cuda',
                                  address: Optional[str] = None,
@@ -312,7 +297,7 @@ def maybe_initialize_distributed(tp: int, local_index: int = 0,
     injected). ``tp`` 1: nothing is initialized."""
     if tp == 1:
         return mesh_lib.single(mesh_lib.rank_device(device_type, 0))
-    n_hosts, host_id, coordinator = host_env()
+    n_hosts, host_id, coordinator = mesh_lib.host_env()
     per = tp // n_hosts
     rank = host_id * per + local_index
     return mesh_lib.tp_group(rank, tp, address or coordinator,

@@ -1205,7 +1205,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     boot_t0 = time.time()
-    n_hosts, host_id, coordinator = multihost.host_env()
+    n_hosts, host_id, coordinator = mesh_lib.host_env()
     if n_hosts > 1 and args.tp == 1:
         # A multi-host replica exists to shard the model: every GPU of
         # the replica (one rank a host on the CPU).
@@ -1222,20 +1222,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     per = tp_layout(args, n_hosts)
     address = coordinator or f'127.0.0.1:{mesh_lib.free_port()}'
-    import torch.multiprocessing as mp
-    ctx = mp.get_context('spawn')
-    followers = [ctx.Process(target=_follower,
-                             args=(args, i, address, boot_t0),
-                             name=f'tp-rank-{host_id * per + i}')
-                 for i in range(1, per)]
-    for proc in followers:
-        proc.start()
-    _rank_main(args, 0, address, boot_t0)
-    codes = []
-    for proc in followers:
-        proc.join()
-        codes.append(proc.exitcode)
-        logger.info('%s exited %s', proc.name, proc.exitcode)
+    codes = mesh_lib.run_local_ranks(
+        _rank_main, _follower, lambda i: (args, i, address, boot_t0), per,
+        'tp-rank', host_id * per)
     if any(codes):
         sys.exit(1)
 

@@ -11,11 +11,32 @@ Params are a plain dict of tensors with the reference's layout. A
 Python loop over the stacked layers stands in for ``lax.scan``; with
 ``config.remat`` each layer runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint``), so its activations are recomputed in
-the backward pass.
+the backward pass. The remat policies are the reference's, as selective
+activation checkpointing (``context_fn``), which sees dispatcher
+operators:
+
+- ``full``: nothing saved, everything recomputed;
+- ``dots``: the outputs of 2-D products (``aten.mm``, ``aten.addmm``)
+  saved, as ``dots_with_no_batch_dims_saveable``; batched products and
+  everything else recomputed;
+- ``save_attn``: the attention's output saved, as the reference's
+  ``save_only_these_names('attn_out')``: the flash operator's outputs
+  (out and lse, what its backward needs), so the flash forward runs once
+  a layer a step; with dense attention the ``attn_out`` operator's copy.
+
+A rank of a training mesh (``parallel/mesh.py``) passes ``shard``, a
+``parallel.sharding.RankOps``: each layer gathers its fsdp shards inside
+its checkpoint region (so the whole weights are gathered again for the
+backward and never kept), runs its ``n_heads / tp`` and ``n_kv_heads /
+tp`` heads with column-parallel QKV, gate and up products and
+row-parallel ``wo`` and ``w_down`` (reduced over tp), the embedding is
+vocab-parallel over tp, and the loss runs on the rank's rows over the
+whole ``lm_head`` as the global mean's share.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -224,68 +245,129 @@ def layer_params(params: Params, i: int) -> Params:
 
 
 def mlp_block(config: LlamaConfig, x: torch.Tensor,
-              layer: Params, reduce=None) -> torch.Tensor:
-    """norm -> SwiGLU -> residual. ``reduce`` (a tensor-parallel rank's
-    all-reduce) sums the row-parallel ``w_down`` product's partials
-    before the residual add."""
+              layer: Params, reduce=None, copy=None) -> torch.Tensor:
+    """norm -> SwiGLU -> residual. ``copy`` and ``reduce`` are a
+    tensor-parallel rank's entry into and exit from its parallel region:
+    the normed input enters the column-parallel gate and up products, and
+    the row-parallel ``w_down`` product's partials are summed before the
+    residual add."""
     h = norms.rms_norm(x, layer['mlp_norm'], config.norm_eps)
+    if copy is not None:
+        h = copy(h)
     gate = F.silu(quant_lib.qdot(h, layer['w_gate']))
     down = quant_lib.qdot(gate * quant_lib.qdot(h, layer['w_up']),
                           layer['w_down'])
     return x + (down if reduce is None else reduce(down))
 
 
+def _tags_attention(config: LlamaConfig, seq: int, on_cuda: bool) -> bool:
+    """Whether the attention output needs the ``attn_out`` tag: the
+    ``save_attn`` policy where the flash operator does not produce it."""
+    return (config.remat and config.remat_policy == 'save_attn'
+            and not attention_lib.uses_flash(config.attention_impl, seq,
+                                             on_cuda))
+
+
 def attention_block(config: LlamaConfig, x: torch.Tensor, layer: Params,
                     cos: torch.Tensor, sin: torch.Tensor,
-                    positions: Optional[torch.Tensor]) -> tuple:
+                    positions: Optional[torch.Tensor], reduce=None,
+                    copy=None) -> tuple:
     """norm -> QKV -> RoPE -> attention -> residual. Returns (x, k, v)
     with k/v post-RoPE [b, s, kv_heads, head_dim], as the reference's
-    shared block does."""
+    shared block does. The head counts are the weights' (a
+    tensor-parallel rank's ``n_heads / tp``); ``copy`` and ``reduce`` as
+    in :func:`mlp_block`, around the QKV and ``wo`` products."""
     b, s, d = x.shape
-    hq, hkv, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    hd = config.head_dim
     h = norms.rms_norm(x, layer['attn_norm'], config.norm_eps)
-    q = quant_lib.qdot(h, layer['wq']).reshape(b, s, hq, hd)
-    k = quant_lib.qdot(h, layer['wk']).reshape(b, s, hkv, hd)
-    v = quant_lib.qdot(h, layer['wv']).reshape(b, s, hkv, hd)
-    q = rope_lib.apply_rope(q, cos, sin, positions)
-    k = rope_lib.apply_rope(k, cos, sin, positions)
+    if copy is not None:
+        h = copy(h)
+    q = quant_lib.qdot(h, layer['wq'])
+    k = quant_lib.qdot(h, layer['wk'])
+    v = quant_lib.qdot(h, layer['wv'])
+    hq, hkv = q.shape[-1] // hd, k.shape[-1] // hd
+    q = rope_lib.apply_rope(q.reshape(b, s, hq, hd), cos, sin, positions)
+    k = rope_lib.apply_rope(k.reshape(b, s, hkv, hd), cos, sin, positions)
+    v = v.reshape(b, s, hkv, hd)
     # [b, s, h, hd] -> [b, h, s, hd] for the attention kernels.
     att = attention_lib.attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, impl=config.attention_impl,
         block_q=config.attn_block_q, block_k=config.attn_block_k)
+    if _tags_attention(config, s, x.is_cuda):
+        att = attention_lib.attn_out(att)
     att = att.transpose(1, 2).reshape(b, s, hq * hd)
-    return x + quant_lib.qdot(att, layer['wo']), k, v
+    out = quant_lib.qdot(att, layer['wo'])
+    return x + (out if reduce is None else reduce(out)), k, v
 
 
 def _layer(config: LlamaConfig, x: torch.Tensor, layer: Params,
            cos: torch.Tensor, sin: torch.Tensor,
-           positions: Optional[torch.Tensor]) -> torch.Tensor:
-    x, _, _ = attention_block(config, x, layer, cos, sin, positions)
-    return mlp_block(config, x, layer)
+           positions: Optional[torch.Tensor], shard=None) -> torch.Tensor:
+    if shard is None:
+        x, _, _ = attention_block(config, x, layer, cos, sin, positions)
+        return mlp_block(config, x, layer)
+    # A mesh rank: the whole layer (its tp blocks) from the fsdp shards,
+    # here inside the checkpoint region.
+    layer = {k: shard.gather(('layers', k), v) for k, v in layer.items()}
+    x, _, _ = attention_block(config, x, layer, cos, sin, positions,
+                              shard.reduce_tp, shard.copy_tp)
+    return mlp_block(config, x, layer, shard.reduce_tp, shard.copy_tp)
 
 
-def _check_remat_policy(config: LlamaConfig) -> None:
-    if config.remat_policy in ('dots', 'save_attn'):
-        # Their JAX meaning rests on checkpoint_name and XLA's saveable
-        # policies; torch.utils.checkpoint has neither.
-        raise NotImplementedError(
-            f'remat_policy {config.remat_policy!r} is not ported yet '
-            f'(ROADMAP.md queue 1 item 14, left: selective remat '
-            f"policies); use 'full' or remat=False")
-    if config.remat_policy != 'full':
+def _saved_ops(policy: str):
+    """The operators whose outputs ``policy`` saves."""
+    if policy == 'dots':
+        return {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+    return {torch.ops.skypilot_tpu_torch.flash_fwd.default,
+            torch.ops.skypilot_tpu_torch.attn_out.default}
+
+
+def _remat_kwargs(config: LlamaConfig) -> Dict[str, Any]:
+    """``torch.utils.checkpoint`` arguments of the remat policy."""
+    if config.remat_policy == 'full':
+        return {}
+    if config.remat_policy not in ('dots', 'save_attn'):
         # A typo must not silently bench as full remat.
         raise ValueError(
             f'Unknown remat_policy {config.remat_policy!r}; '
             f"expected 'full', 'dots' or 'save_attn'")
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = _saved_ops(config.remat_policy)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return {'context_fn': functools.partial(
+        create_selective_checkpoint_contexts, policy)}
+
+
+def _embed(params: Params, tokens: torch.Tensor, shard) -> torch.Tensor:
+    """The embedding rows of ``tokens``; on a mesh rank the table is
+    gathered over fsdp and vocab-parallel over tp: a token outside the
+    rank's rows gathers zeros, and the tp reduction sums the one rank's
+    row with zeros (exact)."""
+    if shard is None:
+        return params['embed'][tokens]
+    table = shard.gather(('embed',), params['embed'])
+    if shard.tp == 1:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens.long() - shard.tp_rank * rows
+    hit = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)]
+    x = torch.where(hit[..., None], x, torch.zeros_like(x))
+    return shard.reduce_tp(x)
 
 
 def backbone(config: LlamaConfig, params: Params, tokens: torch.Tensor,
-             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [b, s] int -> final-norm hidden states [b, s, d]."""
-    if config.remat:
-        _check_remat_policy(config)
-    x = params['embed'][tokens]
+             positions: Optional[torch.Tensor] = None,
+             shard=None) -> torch.Tensor:
+    """tokens [b, s] int -> final-norm hidden states [b, s, d]. ``shard``:
+    a mesh rank's ``parallel.sharding.RankOps`` (None on one device)."""
+    remat_kw = _remat_kwargs(config) if config.remat else {}
+    x = _embed(params, tokens, shard)
     cos, sin = rope_lib.rope_frequencies(config.head_dim,
                                          config.max_seq_len,
                                          config.rope_theta,
@@ -298,10 +380,10 @@ def backbone(config: LlamaConfig, params: Params, tokens: torch.Tensor,
         layer = dict(zip(layers, values))
         if config.remat:
             x = torch.utils.checkpoint.checkpoint(
-                _layer, config, x, layer, cos, sin, positions,
-                use_reentrant=False)
+                _layer, config, x, layer, cos, sin, positions, shard,
+                use_reentrant=False, **remat_kw)
         else:
-            x = _layer(config, x, layer, cos, sin, positions)
+            x = _layer(config, x, layer, cos, sin, positions, shard)
     return norms.rms_norm(x, params['final_norm'], config.norm_eps)
 
 
@@ -314,28 +396,43 @@ def forward(config: LlamaConfig, params: Params, tokens: torch.Tensor,
 
 def loss_fn(config: LlamaConfig, params: Params, tokens: torch.Tensor,
             targets: torch.Tensor,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
     """Causal LM cross-entropy: the fused kernel forward with
     ``config.fused_loss``, else the vocab-chunked path with
     ``config.loss_vocab_chunks``, else the dense fp32 log-softmax. With
-    ``mask``, the masked mean over at least one token."""
+    ``mask``, the masked mean over at least one token.
+
+    On a mesh rank (``shard``) every branch runs unchanged on the rank's
+    rows over the whole ``lm_head``, and the result is the rank's share
+    of the global mean: its rows' sum over the global count (the mask's
+    count summed over dp x fsdp), so the shares add to the reference's
+    loss over the global batch."""
+    head = params['lm_head'] if shard is None \
+        else shard.whole_head(params['lm_head'])
     if config.fused_loss or config.loss_vocab_chunks:
         b, s = tokens.shape
-        x = backbone(config, params, tokens).reshape(b * s, config.dim)
+        x = backbone(config, params, tokens, shard=shard).reshape(
+            b * s, config.dim)
         flat = targets.reshape(b * s).to(torch.int32)
         if config.fused_loss:
-            nll = ce.fused_cross_entropy(x, params['lm_head'], flat)
+            nll = ce.fused_cross_entropy(x, head, flat)
         else:
-            nll = ce.chunked_cross_entropy(x, params['lm_head'], flat,
+            nll = ce.chunked_cross_entropy(x, head, flat,
                                            config.loss_vocab_chunks)
         nll = nll.reshape(b, s)
     else:
-        logits = forward(config, params, tokens)
+        x = backbone(config, params, tokens, shard=shard)
+        logits = quant_lib.qdot(x, head).float()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    if shard is None:
+        if mask is not None:
+            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        return nll.mean()
     if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
-    return nll.mean()
+        count = shard.data_sum(mask.sum())
+        return (nll * mask).sum() / torch.clamp(count, min=1)
+    return nll.sum() / (nll.numel() * shard.data_world)
 
 
 def flops_per_token(config: LlamaConfig) -> float:

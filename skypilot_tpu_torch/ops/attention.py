@@ -21,6 +21,16 @@ plain blockwise versions below, which the CPU tests hold to the JAX
 kernels and ``chip_smoke.py`` holds the CUDA kernels to. Each wrapper
 adds one to its entry of :data:`launches` where it launches its kernel,
 and nowhere else.
+
+The autograd Function reaches the three passes through registered
+operators (``torch.ops.skypilot_tpu_torch.flash_fwd``, ``flash_bwd_dq``,
+``flash_bwd_dkv``), whose CUDA implementation is the kernel and whose CPU
+implementation is the plain version: the dispatcher picks by the
+tensors' device. Selective activation checkpointing sees only
+dispatcher operators, so this is what lets the ``save_attn`` remat policy
+(``models/llama.py``) keep the forward's out and lse instead of running
+the forward again. :data:`op_calls` counts the operators' calls on
+either device.
 """
 from __future__ import annotations
 
@@ -50,9 +60,16 @@ CUDA_GROUPS = (1, 2, 4, 8)
 CUDA_SEQ_MULTIPLE = 64
 
 
+# Calls of the registered operators, on either device, since the process
+# started (or the last reset_launches()).
+op_calls: Dict[str, int] = {'flash_fwd': 0, 'flash_bwd_dq': 0,
+                            'flash_bwd_dkv': 0}
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, op_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -331,13 +348,67 @@ def _flash_backward_dkv(q, k, v, do, lse, delta, causal: bool,
     return dk, dv
 
 
-def _flash_backward(q, k, v, out, lse, do, causal: bool, sm_scale: float,
-                    block_k: int):
-    """(dq, dk, dv): delta = rowsum(dO * O) in fp32 (the reference's XLA
-    step between its kernels), then the dQ pass and the dK/dV pass."""
-    delta = (do.float() * out.float()).sum(dim=-1)[:, :, None, :]
-    args = (q, k, v, do, lse, delta, causal, sm_scale, block_k)
-    return (_flash_backward_dq(*args), *_flash_backward_dkv(*args))
+# ---------------------------------------------------------------------------
+# Registered operators: the kernel on CUDA tensors, the plain version on
+# CPU tensors
+# ---------------------------------------------------------------------------
+_OPS = 'skypilot_tpu_torch'
+
+
+@torch.library.custom_op(f'{_OPS}::flash_fwd', mutates_args=(),
+                         device_types='cpu')
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, sm_scale: float,
+                 block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the flash forward as an operator."""
+    op_calls['flash_fwd'] += 1
+    return flash_forward_reference(q, k, v, causal=causal,
+                                   sm_scale=sm_scale, block_k=block_k)
+
+
+@flash_fwd_op.register_kernel('cuda')
+def _flash_fwd_cuda(q, k, v, causal, sm_scale, block_k):
+    op_calls['flash_fwd'] += 1
+    return _flash_forward(q, k, v, causal, sm_scale, block_k)
+
+
+@torch.library.custom_op(f'{_OPS}::flash_bwd_dq', mutates_args=(),
+                         device_types='cpu')
+def flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                    causal: bool, sm_scale: float,
+                    block_k: int) -> torch.Tensor:
+    """dQ of the flash backward as an operator."""
+    op_calls['flash_bwd_dq'] += 1
+    return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=causal,
+                                  sm_scale=sm_scale, block_k=block_k)
+
+
+@flash_bwd_dq_op.register_kernel('cuda')
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale, block_k):
+    op_calls['flash_bwd_dq'] += 1
+    return _flash_backward_dq(q, k, v, do, lse, delta, causal, sm_scale,
+                              block_k)
+
+
+@torch.library.custom_op(f'{_OPS}::flash_bwd_dkv', mutates_args=(),
+                         device_types='cpu')
+def flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, causal: bool, sm_scale: float,
+                     block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of the flash backward as an operator."""
+    op_calls['flash_bwd_dkv'] += 1
+    return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=causal,
+                                   sm_scale=sm_scale, block_k=block_k)
+
+
+@flash_bwd_dkv_op.register_kernel('cuda')
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale,
+                        block_k):
+    op_calls['flash_bwd_dkv'] += 1
+    return _flash_backward_dkv(q, k, v, do, lse, delta, causal, sm_scale,
+                               block_k)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -345,7 +416,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, block_k):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = _flash_forward(q, k, v, causal, sm_scale, block_k)
+        out, lse = flash_fwd_op(q, k, v, causal, sm_scale, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, sm_scale, block_k)
         return out
@@ -353,8 +424,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, out, lse, g.contiguous(),
-                                     *ctx.args)
+        do = g.contiguous()
+        # delta = rowsum(dO * O) in fp32: the reference's XLA step between
+        # its kernels.
+        delta = (do.float() * out.float()).sum(dim=-1)[:, :, None, :]
+        args = (q, k, v, do, lse, delta, *ctx.args)
+        dq = flash_bwd_dq_op(*args)
+        dk, dv = flash_bwd_dkv_op(*args)
         return dq, dk, dv, None, None, None
 
 
@@ -395,6 +471,26 @@ def _fit_block(want: int, seq_len: int) -> int:
     return max(b, 1)
 
 
+@torch.library.custom_op(f'{_OPS}::attn_out', mutates_args=())
+def attn_out(x: torch.Tensor) -> torch.Tensor:
+    """A copy of an attention output, as an operator: the tag the
+    ``save_attn`` remat policy saves where the output did not come from
+    the flash operator (the reference's ``checkpoint_name(att,
+    'attn_out')``)."""
+    return x.clone()
+
+
+attn_out.register_autograd(lambda ctx, g: g)
+
+
+def uses_flash(impl: str, seq: int, on_cuda: bool) -> bool:
+    """Whether :func:`attention` takes the flash path for ``impl`` at
+    ``seq`` on CUDA (``on_cuda``) or CPU tensors."""
+    if impl == 'dense':
+        return False
+    return impl == 'flash' or (on_cuda and seq % 128 == 0 and seq >= 256)
+
+
 def attention(q, k, v, *, causal: bool = True,
               sm_scale: Optional[float] = None,
               impl: str = 'auto',
@@ -404,9 +500,9 @@ def attention(q, k, v, *, causal: bool = True,
     seq is a multiple of 128 and at least 256, else dense).
     block_q/block_k override the flash tile sizes (clamped to seq; None
     -> defaults)."""
-    if impl == 'dense':
-        return dense_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     s = q.shape[2]
+    if not uses_flash(impl, s, q.is_cuda):
+        return dense_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     bq = _fit_block(block_q or DEFAULT_BLOCK_Q, s)
     bk = _fit_block(block_k or DEFAULT_BLOCK_K, s)
     if impl == 'flash':
@@ -418,9 +514,5 @@ def attention(q, k, v, *, causal: bool = True,
                 f'flash attention needs seq_len divisible by a >=128 '
                 f'tile; got seq_len={s} (fitted tiles {bq}x{bk}). Pad '
                 f'the sequence or use impl="dense"/"auto".')
-        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                               block_q=bq, block_k=bk)
-    if q.is_cuda and s % 128 == 0 and s >= 256:
-        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                               block_q=bq, block_k=bk)
-    return dense_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                           block_q=bq, block_k=bk)

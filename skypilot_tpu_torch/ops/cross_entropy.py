@@ -22,7 +22,11 @@ Two ``torch.autograd.Function``s with the reference's numerics:
   reference too, so they are ``torch.matmul``.
 
 The fused wrapper adds one to ``launches['fused_cross_entropy_fwd']``
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else. The fused autograd
+Function reaches the forward through a registered operator
+(``torch.ops.skypilot_tpu_torch.ce_fwd``: the kernel on CUDA tensors, the
+plain version on CPU tensors), which selective activation checkpointing
+can see, as ``ops/attention.py``'s flash operators.
 """
 from __future__ import annotations
 
@@ -291,11 +295,24 @@ def _fused_bwd(x, w, targets, lse, g):
     return _ce_bwd(v // c, x, w, targets, lse[:, 0], g)
 
 
+@torch.library.custom_op('skypilot_tpu_torch::ce_fwd', mutates_args=(),
+                         device_types='cpu')
+def ce_fwd_op(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+              block_v: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nll, lse): the fused cross-entropy forward as an operator."""
+    return fused_forward_reference(x, w, targets, block_v)
+
+
+@ce_fwd_op.register_kernel('cuda')
+def _ce_fwd_cuda(x, w, targets, block_v):
+    return _fused_fwd(x, w, targets, block_v)
+
+
 class _FusedCrossEntropy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, targets, block_v):
-        nll, lse = _fused_fwd(x, w, targets, block_v)
+        nll, lse = ce_fwd_op(x, w, targets, block_v)
         ctx.save_for_backward(x, w, targets, lse)
         return nll
 

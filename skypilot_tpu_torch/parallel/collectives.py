@@ -1,6 +1,9 @@
-"""The collectives of tensor-parallel serving. The reference has no
-counterpart: GSPMD inserts its collectives from the shardings; the port
-calls them where Megatron's rules put them (``sharding.py``).
+"""The collectives the port calls where GSPMD would insert them. The
+reference has no counterpart: XLA inserts its collectives from the
+shardings; the port calls them where Megatron's and ZeRO-3's rules put
+them (``sharding.py``).
+
+Serving (no gradient):
 
 - :func:`all_reduce_sum`: after a row-parallel product (``wo``,
   ``w_down``) and the vocab-parallel embedding.
@@ -11,13 +14,30 @@ calls them where Megatron's rules put them (``sharding.py``).
   driver's submissions (rank 0 to all) and its per-rank output digests,
   on the group's host ``gloo`` group, never on an NCCL one.
 
+Training, each a ``torch.autograd.Function`` whose backward is stated with
+the forward:
+
+- :func:`gather_shards` (over ``fsdp``): forward all-gather; backward
+  reduce-scatter, summed over the group's ranks.
+- :func:`copy_to` (into ``tp``): forward identity; backward all-reduce.
+- :func:`reduce_from` (from ``tp``): forward all-reduce; backward
+  identity.
+- :func:`gather_replicated` (over ``tp``, for a computation every rank of
+  the group repeats): forward all-gather; backward keeps the rank's slice
+  and does not sum, since every rank computed the same whole gradient.
+
+``torch.distributed.nn.functional.all_reduce`` is not used: its backward
+all-reduces again, which multiplies a replicated gradient by the group's
+size. :func:`gather_along` and :func:`reduce_scatter_along` are the
+no-gradient halves (the checkpoint gathers whole leaves with the first).
+
 Each is the identity at world size 1 (``group`` None or of one rank): not
 called, so a single-card engine runs exactly the launches it ran before.
-The model's collectives run on ``group.pg``. With ``gloo`` over tensors
-on a card (two ranks sharing one card, a correctness run) they stage
-explicitly through the host: a copy to the CPU, the collective there, a
-copy back. That synchronizes the stream, which is why such an engine runs
-without CUDA graphs; NCCL runs them on the card, inside a graph.
+The collectives run on ``group.pg``. With ``gloo`` over tensors on a card
+(ranks sharing one card, a correctness run) they stage explicitly through
+the host: a copy to the CPU, the collective there, a copy back. That
+synchronizes the stream, which is why such an engine runs without CUDA
+graphs; NCCL runs them on the card, inside a graph.
 """
 from __future__ import annotations
 
@@ -90,3 +110,150 @@ def all_gather_u32(value: int, group: Optional[TPGroup]) -> List[int]:
     parts = [torch.zeros_like(mine) for _ in range(group.world)]
     dist.all_gather(parts, mine, group=group.host_pg)
     return [int(p[0]) for p in parts]
+
+
+# ---------------------------------------------------------------------------
+# Training: tensors along an axis, and their autograd Functions
+# ---------------------------------------------------------------------------
+def _all_gather_single(out: torch.Tensor, src: torch.Tensor, pg) -> None:
+    """Every rank's ``src`` stacked along axis 0 into ``out``.
+    ``all_gather_single`` is the name torch 2.13 gives the operation it
+    deprecates as ``all_gather_into_tensor``; a torch without the new name
+    runs the same operation under the old one."""
+    fn = getattr(dist, 'all_gather_single', None) \
+        or dist.all_gather_into_tensor
+    fn(out, src, group=pg)
+
+
+def _reduce_scatter_single(out: torch.Tensor, src: torch.Tensor,
+                           pg) -> None:
+    """The sum over ranks of ``src``, rank ``i`` keeping the ``i``-th block
+    of axis 0 in ``out`` (``reduce_scatter_single``, the 2.13 name of
+    ``reduce_scatter_tensor``, as :func:`_all_gather_single`). gloo
+    runs it at world size 2 and more, as NCCL does."""
+    fn = getattr(dist, 'reduce_scatter_single', None) \
+        or dist.reduce_scatter_tensor
+    fn(out, src, group=pg)
+
+
+def _stage(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    return x.cpu() if group.staged else x
+
+
+def gather_along(x: torch.Tensor, group: Optional[TPGroup],
+                 axis: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``axis`` in rank order (a new
+    tensor); ``x`` itself at world size 1."""
+    if not _multi(group):
+        return x
+    src = _stage(x.movedim(axis, 0).contiguous(), group)
+    out = torch.empty((group.world * src.shape[0], *src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _all_gather_single(out, src, group.pg)
+    return out.to(x.device).movedim(0, axis)
+
+
+def reduce_scatter_along(x: torch.Tensor, group: Optional[TPGroup],
+                         axis: int) -> torch.Tensor:
+    """The sum of every rank's ``x``, of which this rank keeps its block of
+    ``axis`` (a new tensor); ``x`` itself at world size 1."""
+    if not _multi(group):
+        return x
+    src = _stage(x.movedim(axis, 0).contiguous(), group)
+    out = torch.empty((src.shape[0] // group.world, *src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _reduce_scatter_single(out, src, group.pg)
+    return out.to(x.device).movedim(0, axis)
+
+
+def _summed(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """The sum of every rank's ``x`` as a new tensor (``x`` untouched)."""
+    return all_reduce_sum(x.clone(), group)
+
+
+def _keep(x: torch.Tensor, group: TPGroup, axis: int) -> torch.Tensor:
+    n = x.shape[axis] // group.world
+    return x.narrow(axis, group.rank * n, n).contiguous()
+
+
+class _GatherShards(torch.autograd.Function):
+    """Forward all-gather along ``axis``; backward reduce-scatter (the
+    sum over the group of each rank's gradient of the whole tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return gather_along(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_along(g, ctx.group, ctx.axis), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Forward identity; backward all-reduce (each rank holds a partial
+    gradient of the replicated input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Forward all-reduce (sum of the ranks' partials); backward identity
+    (the sum's gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Forward all-gather along ``axis``; backward keeps this rank's block
+    of ``axis`` and does not sum: every rank computed the same whole
+    gradient from the same whole tensor."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return gather_along(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _keep(g, ctx.group, ctx.axis), None, None
+
+
+def gather_shards(x: torch.Tensor, group: Optional[TPGroup],
+                  axis: int) -> torch.Tensor:
+    """The whole tensor from the ranks' shards along ``axis``; its
+    gradient is reduce-scattered (summed) back onto the shards."""
+    return _GatherShards.apply(x, group, axis) if _multi(group) else x
+
+
+def copy_to(x: torch.Tensor, group: Optional[TPGroup]) -> torch.Tensor:
+    """``x`` entering the group's parallel region (column-parallel
+    products): identity forward, all-reduced gradient."""
+    return _CopyTo.apply(x, group) if _multi(group) else x
+
+
+def reduce_from(x: torch.Tensor, group: Optional[TPGroup]) -> torch.Tensor:
+    """The group's partial sums leaving its parallel region (row-parallel
+    products): all-reduced forward, identity gradient."""
+    return _ReduceFrom.apply(x, group) if _multi(group) else x
+
+
+def gather_replicated(x: torch.Tensor, group: Optional[TPGroup],
+                      axis: int) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks along ``axis``, for a
+    computation that every rank of the group repeats whole; the gradient
+    keeps the rank's block, unsummed."""
+    return _GatherReplicated.apply(x, group, axis) if _multi(group) else x

@@ -1,29 +1,52 @@
-"""The tensor-parallel process group (counterpart of the ``tp`` half of
+"""Process groups: serving's tensor-parallel group and training's
+``dp`` x ``fsdp`` x ``tp`` mesh (counterpart of
 ``skypilot_tpu/parallel/mesh.py`` and of ``tp_mesh`` in
 ``skypilot_tpu/infer/engine.py``).
 
-JAX serves ``tp > 1`` as one process over ``tp`` local devices; PyTorch's
-idiom is one process per GPU, so the port's ``tp`` is ``tp`` ranks of one
-``torch.distributed`` group. :func:`tp_group` joins it and returns a
-:class:`TPGroup`: the rank, the world, the model's process group, a second
-``gloo`` group for host bytes, and the rank's device. At world size 1
-nothing is initialized and every collective is skipped.
+JAX runs a mesh as one process over its local devices; PyTorch's idiom
+is one process per GPU, so the port's mesh is ``dp * fsdp * tp`` ranks of
+one ``torch.distributed`` world.
+
+- Serving: :func:`tp_group` joins a ``tp``-rank world and returns a
+  :class:`TPGroup`: the rank, the world, the model's process group, a
+  second ``gloo`` group for host bytes, and the rank's device. At world
+  size 1 nothing is initialized and every collective is skipped. The
+  reference's layout rules hold: ``tp`` no larger than the devices, and
+  ranks striped evenly over hosts (:func:`check_layout`).
+- Training: :func:`make_mesh`, :func:`auto_mesh`,
+  :func:`make_multislice_mesh` and :func:`mesh_from_hosts` choose a
+  :class:`MeshShape` by the reference's rules, raising its ValueErrors;
+  :func:`train_mesh` joins the world and returns a :class:`TrainMesh`:
+  the rank's coordinates and one :class:`TPGroup` per axis (``dp``,
+  ``fsdp``, ``tp``) plus ``data``, the ``dp`` x ``fsdp`` ranks that share
+  the rank's ``tp`` coordinate (the batch's axes). The rank order is the
+  reference's ``np.array(devices).reshape(dp, fsdp, tp)``: rank ``r`` sits
+  at ``(r // (fsdp * tp), (r // tp) % fsdp, r % tp)``. The groups are made
+  with ``dist.new_group``, every rank creating every group of every axis
+  in the same order (as ``new_group`` requires); an axis of size 1 gets
+  no group, and at ``dp`` 1 or ``fsdp`` 1 ``data`` is the other axis'
+  group.
 
 The backend is ``nccl`` on CUDA and ``gloo`` on the CPU unless the caller
-names one (``backend='gloo'`` puts two ranks on one card, a correctness
-run); nothing picks a backend quietly. The reference's layout rules hold:
-``tp`` no larger than the devices, and ranks striped evenly over hosts
-(:func:`check_layout`). The training axes (``dp``, ``fsdp``) are not
-ported here.
+names one (``backend='gloo'`` puts several ranks on one card, a
+correctness run whose collectives stage through the host); nothing picks
+a backend quietly. :func:`host_env` reads the environment the agent
+injects on every host of a multi-host job; :func:`run_local_ranks` starts
+one host's ranks, one process each, for the server, ``train.run`` and
+``train.run_vision``.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import socket
-from typing import Any, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
 
 BACKENDS = ('nccl', 'gloo')
 
@@ -127,4 +150,247 @@ def tp_group(rank: int, world: int, address: Optional[str] = None,
 def destroy(group: TPGroup) -> None:
     """Leave the group (a no-op at world size 1)."""
     if group.world > 1 and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The multi-host environment
+# ---------------------------------------------------------------------------
+# What the agent injects on every host of a multi-host job
+# (skypilot_tpu/runtime/distributed_env.py).
+COORDINATOR_ENV = 'JAX_COORDINATOR_ADDRESS'
+NUM_PROCESSES_ENV = 'JAX_NUM_PROCESSES'
+PROCESS_ID_ENV = 'JAX_PROCESS_ID'
+
+
+def host_env() -> Tuple[int, int, Optional[str]]:
+    """(hosts, this host's id, the coordinator ``host:port``) from the
+    agent's environment; (1, 0, None) on a single host."""
+    n = int(os.environ.get(NUM_PROCESSES_ENV, '1'))
+    if n <= 1:
+        return 1, 0, None
+    return n, int(os.environ[PROCESS_ID_ENV]), os.environ[COORDINATOR_ENV]
+
+
+def run_local_ranks(lead: Callable, follower: Callable,
+                    args_for: Callable[[int], tuple], count: int,
+                    name: str, first: int = 0) -> List[int]:
+    """A host's ``count`` local ranks: ``follower(*args_for(i))`` in a
+    spawned process for each ``i`` in 1..count-1, then
+    ``lead(*args_for(0))`` in this process. If the lead raises, the
+    followers are terminated and the error goes on; else each is joined
+    and its exit code logged as ``<name>-<first + i> exited <code>``.
+    Returns the followers' exit codes: the caller exits non-zero if any
+    is."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    followers = [ctx.Process(target=follower, args=args_for(i),
+                             name=f'{name}-{first + i}')
+                 for i in range(1, count)]
+    for proc in followers:
+        proc.start()
+    try:
+        lead(*args_for(0))
+    except BaseException:
+        for proc in followers:
+            proc.terminate()
+        raise
+    codes = []
+    for proc in followers:
+        proc.join()
+        codes.append(proc.exitcode)
+        logger.info('%s exited %s', proc.name, proc.exitcode)
+    return codes
+
+
+# ---------------------------------------------------------------------------
+# The training mesh
+# ---------------------------------------------------------------------------
+AXES = ('dp', 'fsdp', 'tp')
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """The sizes of the three axes; ``size`` ranks in all."""
+    dp: int = 1
+    fsdp: int = 1
+    tp: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.fsdp * self.tp
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """``{'dp': .., 'fsdp': .., 'tp': ..}``, as ``Mesh.shape``."""
+        return dict(zip(AXES, (self.dp, self.fsdp, self.tp)))
+
+    def coords(self, rank: int) -> Tuple[int, int, int]:
+        """Rank ``rank``'s (dp, fsdp, tp) coordinates."""
+        return (rank // (self.fsdp * self.tp), (rank // self.tp) % self.fsdp,
+                rank % self.tp)
+
+    def rank_of(self, dp: int, fsdp: int, tp: int) -> int:
+        """The rank at coordinates (dp, fsdp, tp)."""
+        return (dp * self.fsdp + fsdp) * self.tp + tp
+
+    def axis_groups(self, axis: str) -> List[List[int]]:
+        """Every group of ranks along ``axis`` (``'data'``: ``dp`` and
+        ``fsdp`` together, dp-major), each in rank order, the groups
+        ordered by the other coordinates."""
+        ranges = dict(dp=range(self.dp), fsdp=range(self.fsdp),
+                      tp=range(self.tp))
+        if axis == 'data':
+            return [[self.rank_of(d, f, t) for d in ranges['dp']
+                     for f in ranges['fsdp']] for t in ranges['tp']]
+        if axis not in AXES:
+            raise ValueError(f'unknown mesh axis {axis!r}')
+        others = [a for a in AXES if a != axis]
+        groups = []
+        for i in ranges[others[0]]:
+            for j in ranges[others[1]]:
+                fixed = {others[0]: i, others[1]: j}
+                groups.append([self.rank_of(**{**fixed, axis: k})
+                               for k in ranges[axis]])
+        return groups
+
+
+def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1,
+              n_devices: int = 1) -> MeshShape:
+    """The reference's ``make_mesh`` over ``n_devices`` ranks: the axes
+    must multiply to exactly that many."""
+    want = dp * fsdp * tp
+    if want != n_devices:
+        raise ValueError(
+            f'mesh {dp}x{fsdp}x{tp}={want} != {n_devices} devices')
+    return MeshShape(dp, fsdp, tp)
+
+
+def auto_mesh(n_devices: int, *, tp: Optional[int] = None) -> MeshShape:
+    """All-FSDP with an optional ``tp`` factor (the reference's
+    default)."""
+    tp = tp or 1
+    if n_devices % tp != 0:
+        raise ValueError(f'tp={tp} does not divide {n_devices} devices')
+    return make_mesh(dp=1, fsdp=n_devices // tp, tp=tp, n_devices=n_devices)
+
+
+def mesh_from_hosts(n_hosts: int, devices_per_host: int, *,
+                    tp: Optional[int] = None, dp: int = 1) -> MeshShape:
+    """The reference's ``mesh_from_slice`` rule over ``n_hosts`` hosts of
+    ``devices_per_host`` GPUs: ``tp`` defaults to one host's devices
+    (NVLink inside a host), ``fsdp`` takes the rest."""
+    total = n_hosts * devices_per_host
+    if tp is None:
+        tp = min(devices_per_host, total)
+    if total % (tp * dp) != 0:
+        raise ValueError(f'dp={dp} * tp={tp} must divide {total} chips')
+    return make_mesh(dp=dp, fsdp=total // (tp * dp), tp=tp, n_devices=total)
+
+
+def make_multislice_mesh(num_slices: int, n_devices: int, *,
+                         fsdp: Optional[int] = None,
+                         tp: int = 1) -> MeshShape:
+    """The reference's multislice mesh: ``dp`` spans the slices (ranks
+    slice-major, as the agent numbers the hosts), ``fsdp`` and ``tp`` stay
+    inside one."""
+    if n_devices % num_slices != 0:
+        raise ValueError(
+            f'{n_devices} devices do not split into {num_slices} slices')
+    per_slice = n_devices // num_slices
+    if fsdp is None:
+        if per_slice % tp != 0:
+            raise ValueError(f'tp={tp} must divide {per_slice} '
+                             f'devices/slice')
+        fsdp = per_slice // tp
+    if fsdp * tp != per_slice:
+        raise ValueError(
+            f'fsdp={fsdp} * tp={tp} != {per_slice} devices per slice')
+    return make_mesh(dp=num_slices, fsdp=fsdp, tp=tp, n_devices=n_devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """One rank's view of the training mesh: its shape, rank, device and
+    backend, a :class:`TPGroup` for each axis it belongs to
+    (``groups['dp' | 'fsdp' | 'tp' | 'data']``; the world-size-1 group
+    for an axis of size 1), and ``host_pg``, a ``gloo`` group of the whole
+    world for host values (the checkpoint's decisions), never an NCCL
+    one."""
+    shape: MeshShape = MeshShape()
+    rank: int = 0
+    device: torch.device = torch.device('cpu')
+    backend: Optional[str] = None
+    groups: Dict[str, TPGroup] = dataclasses.field(default_factory=dict)
+    host_pg: Any = None
+
+    @property
+    def size(self) -> int:
+        return self.shape.size
+
+    @property
+    def coords(self) -> Tuple[int, int, int]:
+        return self.shape.coords(self.rank)
+
+    def group(self, axis: str) -> TPGroup:
+        return self.groups.get(axis) or single(self.device)
+
+    def data_index(self) -> int:
+        """This rank's row block of the batch: dp-major over dp x fsdp."""
+        d, f, _ = self.coords
+        return d * self.shape.fsdp + f
+
+
+def single_mesh(device='cpu') -> TrainMesh:
+    """The one-device mesh: no process group."""
+    return TrainMesh(device=torch.device(device))
+
+
+def train_mesh(shape: MeshShape, rank: int, address: Optional[str] = None,
+               device='cpu', backend: Optional[str] = None) -> TrainMesh:
+    """Join the ``shape.size``-rank world at ``address`` (``host:port`` of
+    rank 0's TCP store) as ``rank`` on ``device`` with ``backend``
+    (default: :func:`default_backend`) and make the axis groups with
+    ``dist.new_group``. Size 1 initializes nothing."""
+    device = torch.device(device)
+    if shape.size == 1:
+        return single_mesh(device)
+    backend = backend or default_backend(device)
+    if backend not in BACKENDS:
+        raise ValueError(f'backend must be one of {BACKENDS}, got '
+                         f'{backend!r}')
+    if backend == 'nccl' and device.type != 'cuda':
+        raise ValueError(f'nccl needs a CUDA device, got {device}')
+    if address is None:
+        raise ValueError('a mesh of more than one rank needs the '
+                         'rendezvous address (host:port)')
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f'tcp://{address}',
+                            world_size=shape.size, rank=rank)
+    groups = {}
+    sizes = dict(shape.shape, data=shape.dp * shape.fsdp)
+    for axis in AXES + ('data',):
+        if sizes[axis] == 1:
+            continue
+        if axis == 'data' and sizes['data'] in (shape.dp, shape.fsdp):
+            # dp 1 or fsdp 1: the data ranks are the other axis' group.
+            groups['data'] = groups['fsdp' if shape.dp == 1 else 'dp']
+            continue
+        for ranks in shape.axis_groups(axis):
+            # Every rank creates every group, in the same order.
+            pg = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                groups[axis] = TPGroup(rank=ranks.index(rank),
+                                       world=len(ranks), device=device,
+                                       backend=backend, pg=pg)
+    host_pg = (dist.group.WORLD if backend == 'gloo'
+               else dist.new_group(backend='gloo'))
+    return TrainMesh(shape=shape, rank=rank, device=device, backend=backend,
+                     groups=groups, host_pg=host_pg)
+
+
+def destroy_mesh(mesh: TrainMesh) -> None:
+    """Leave the world (a no-op at size 1)."""
+    if mesh.size > 1 and dist.is_initialized():
         dist.destroy_process_group()

@@ -19,15 +19,26 @@ saved, and so is the first save of a manager with no checkpoints;
 the host, whatever device it was saved from, for
 ``ops/quant.quantize_params(params, device)`` to quantize onto the card
 leaf by leaf.
+
+A mesh run saves what the reference saves, ``jax.device_get(state)``:
+the whole tree. In :func:`save_mesh` the ranks send their blocks to
+rank 0 a piece at a time and rank 0 writes today's format;
+:func:`restore_or_init_mesh` has every rank read the whole tree
+(memory-mapped, so the ranks of a host share its pages) and keep its
+blocks. A checkpoint therefore moves freely
+between meshes, to one device, and to the serving ``--checkpoint`` path.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import os
 import shutil
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
 DEFAULT_CHECKPOINT_DIR_ENV = 'SKY_TPU_CHECKPOINT_DIR'
 _FILE = 'state.pt'
@@ -170,3 +181,83 @@ def restore_or_init(directory: str, init_fn, *,
     state = mgr.restore(step, target=target if target is not None
                         else init_fn())
     return state, True
+
+
+def _broadcast_int(value: int, mesh) -> int:
+    """Rank 0's ``value`` on every rank of the mesh's world."""
+    t = torch.tensor([value], dtype=torch.int64)
+    dist.broadcast(t, src=0, group=mesh.host_pg)
+    return int(t[0])
+
+
+def _file_backed(directory: str):
+    """An ``alloc`` for ``trainer.gather_train_state`` whose every whole
+    leaf is a shared mapping of its own file under ``directory``: the
+    host holds page cache the kernel can write back and drop, not the
+    whole state in anonymous memory."""
+    names = itertools.count()
+
+    def alloc(shape, dtype):
+        path = os.path.join(directory, f'{next(names)}.bin')
+        return torch.from_file(path, shared=True, size=math.prod(shape),
+                               dtype=dtype).view(shape)
+    return alloc
+
+
+def save_mesh(mgr: CheckpointManager, step: int, state: Any,
+              mesh) -> bool:
+    """A mesh run's save; every rank calls it. Rank 0's ``should_save``
+    decides for all. Then the ranks at dp 0 send their blocks to rank 0 a
+    piece at a time (``trainer.gather_train_state``), which copies each
+    into whole leaves mapped from files beside the step's directory,
+    writes them in the one-device format and deletes the files: the
+    state crosses the disk twice, and no rank holds a whole leaf in
+    memory. One rank: :meth:`CheckpointManager.save`."""
+    if mesh.size == 1:
+        return mgr.save(step, state)
+    from skypilot_tpu_torch.train import trainer
+    go = mgr.should_save(step) if mesh.rank == 0 else False
+    if not _broadcast_int(int(go), mesh):
+        return False
+    parts = None
+    if mesh.rank == 0:
+        parts = os.path.join(mgr.directory, f'.{step}.parts-{os.getpid()}')
+        shutil.rmtree(parts, ignore_errors=True)
+        os.makedirs(parts)
+    try:
+        whole = trainer.gather_train_state(
+            state, mesh, _file_backed(parts) if parts else None)
+        if mesh.rank == 0:
+            mgr.save(step, whole, force=True)
+            del whole
+    finally:
+        if parts:
+            shutil.rmtree(parts, ignore_errors=True)
+    dist.barrier(group=mesh.host_pg)
+    return True
+
+
+def restore_or_init_mesh(directory: str, init_fn, mesh, target: Any,
+                         device) -> tuple:
+    """The resume convention on a mesh rank: with a checkpoint (rank 0's
+    latest step, for all), the whole saved state checked against
+    ``target`` (the whole state's tree, ``'meta'`` leaves allowed) and
+    this rank's blocks of it on ``device``; else ``init_fn()``. Returns
+    (state, restored: bool)."""
+    from skypilot_tpu_torch.train import trainer
+    mgr = CheckpointManager(directory)
+    latest = mgr.latest_step() if mesh.rank == 0 else None
+    step = _broadcast_int(-1 if latest is None else latest, mesh)
+    if step < 0:
+        return init_fn(), False
+    saved = torch.load(os.path.join(mgr.directory, str(step), _FILE),
+                       map_location='cpu', weights_only=False, mmap=True)
+    check_like(saved, target)
+    state = trainer.shard_train_state(saved, mesh)
+    opt = dict(state.opt_state)
+    for k in ('mu', 'nu'):
+        opt[k] = _to(opt[k], lambda t: t.to(device))
+    return trainer.TrainState(step=state.step,
+                              params=_to(state.params,
+                                         lambda t: t.to(device)),
+                              opt_state=opt), True

@@ -1,25 +1,33 @@
 """Training entrypoint: ``python -m skypilot_tpu_torch.train.run``
 (counterpart of ``python -m skypilot_tpu.train.run``).
 
-One device (an NVIDIA GPU unless ``--device cpu``), synthetic data,
-and the checkpoint/resume convention of the managed jobs: with
-``--checkpoint-dir`` a run restores the latest checkpoint there and
+Synthetic data and the checkpoint/resume convention of the managed jobs:
+with ``--checkpoint-dir`` a run restores the latest checkpoint there and
 goes on from its step.
 
-    python -m skypilot_tpu_torch.train.run --model llama-350m --steps 100 \\
-        --batch 8 --seq 2048 --checkpoint-dir /mnt/ckpt
+    python -m skypilot_tpu_torch.train.run --model llama-8b --steps 1000 \\
+        --batch 16 --seq 4096 --fsdp 8 --tp 1 --checkpoint-dir /ckpt
 
-The mesh flags of the reference (``--dp --fsdp --tp``) are accepted;
-anything but one device raises until sharding is ported (ROADMAP.md
-queue 1 item 15).
+The mesh is the reference's: ``--dp``, ``--fsdp`` (0 = every device the
+other two leave) and ``--tp`` over every GPU of the job, ``fsdp = fsdp or
+devices // (dp * tp)``, ranked as ``parallel/mesh.py`` says. The port runs
+one process per GPU: on each host the command starts one rank per local
+GPU itself (this process is the host's first), so a recipe's single
+``run:`` line needs no launcher; across hosts it reads the agent's
+environment (``parallel/mesh.host_env``), and the coordinator's address
+is rank 0's rendezvous. With ``--device cpu`` it runs ``dp * fsdp * tp``
+``gloo`` ranks on the CPU (``--fsdp 0``: one). A single device runs in
+this process. If any rank exits non-zero, the command does.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
 import time
+from typing import Dict, List, Optional
 
 import torch
 
@@ -44,7 +52,7 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='llama-350m',
                         choices=sorted(MODELS))
@@ -63,58 +71,88 @@ def main(argv=None) -> None:
     parser.add_argument('--log-every', type=int, default=10)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
-    args = parser.parse_args(argv)
-    logging.basicConfig(
-        level=logging.INFO,
-        format='%(asctime)s %(levelname)s %(name)s: %(message)s')
+    return parser.parse_args(argv)
 
+
+@contextlib.contextmanager
+def cpu_share(device: torch.device, ranks: int):
+    """On the CPU with more than one rank: each rank's intra-op threads a
+    share of the host's cores, not all of them (restored after)."""
+    if device.type != 'cpu' or ranks == 1:
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def run_rank(args: argparse.Namespace, shape, rank: int = 0,
+             address: Optional[str] = None, device='cpu',
+             backend: Optional[str] = None) -> List[Dict[str, float]]:
+    """One rank of a run over the mesh ``shape`` (a ``MeshShape``): join
+    it, restore or initialize, train, checkpoint, leave. Rank 0 logs.
+    Returns the logged steps' metrics."""
+    device = torch.device(device)
+    with cpu_share(device, shape.size):
+        return _train(args, shape, rank, address, device, backend)
+
+
+def _train(args, shape, rank, address, device, backend):
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import sharding
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
     from skypilot_tpu_torch.train import trainer
 
-    family, preset = MODELS[args.model]
-    if family != 'llama':
-        raise SystemExit(f'--model {args.model}: the MoE trainer entry '
-                         f'lands with the MoE train-step factory; use '
-                         f'llama-* presets here for now')
-    n = 1
-    fsdp = args.fsdp or n // (args.dp * args.tp)
-    if args.dp * fsdp * args.tp != n:
-        raise SystemExit(f'mesh dp={args.dp} fsdp={fsdp} tp={args.tp}: the '
-                         f'port trains on one device; sharding is '
-                         f'ROADMAP.md queue 1 item 15')
-    device = resolve_device(args.device)
+    mesh = mesh_lib.train_mesh(shape, rank, address, device, backend)
+    lead = mesh.rank == 0
+    _, preset = MODELS[args.model]
     config = getattr(llama.LlamaConfig, preset)(max_seq_len=args.seq)
-    logger.info('device=%s mesh dp=%d fsdp=%d tp=%d model=%s (%.0fM)',
-                device, args.dp, fsdp, args.tp, args.model,
-                config.num_params / 1e6)
+    if lead:
+        logger.info('devices=%d mesh dp=%d fsdp=%d tp=%d model=%s (%.0fM) '
+                    'device=%s', shape.size, shape.dp, shape.fsdp, shape.tp,
+                    args.model, config.num_params / 1e6, device)
 
     opt = trainer.make_optimizer(learning_rate=args.lr,
                                  total_steps=args.steps)
-    step_fn = trainer.make_train_step(config, opt)
+    step_fn = trainer.make_train_step(config, opt, mesh)
 
     def init():
         gen = torch.Generator(device=device).manual_seed(0)
-        return trainer.init_train_state(config, gen, opt, device)
+        return trainer.init_train_state(config, gen, opt, device, mesh)
 
     start_step = 0
+    mgr = None
     if args.checkpoint_dir:
-        from skypilot_tpu_torch.train import checkpoint as ckpt_lib
         mgr = ckpt_lib.CheckpointManager(
             args.checkpoint_dir, save_interval_steps=args.checkpoint_every)
-        state, restored = ckpt_lib.restore_or_init(args.checkpoint_dir, init)
+        if mesh.size == 1:
+            state, restored = ckpt_lib.restore_or_init(args.checkpoint_dir,
+                                                       init)
+        else:
+            whole = trainer.init_train_state(config, None, opt, 'meta')
+            state, restored = ckpt_lib.restore_or_init_mesh(
+                args.checkpoint_dir, init, mesh, whole, device)
         if restored:
             start_step = int(state.step)
-            logger.info('resumed from checkpoint at step %d', start_step)
+            if lead:
+                logger.info('resumed from checkpoint at step %d',
+                            start_step)
     else:
-        mgr = None
         state = init()
 
     batch = trainer.synthetic_batch(
         config, args.batch, args.seq,
         torch.Generator(device=device).manual_seed(1), device)
+    if mesh.size > 1:
+        batch = sharding.batch_rows(batch, mesh)
 
     tokens_per_step = args.batch * args.seq
     t_last, logged = time.perf_counter(), start_step
+    out = []
     for step in range(start_step, args.steps):
         state, metrics = step_fn(state, batch)
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
@@ -122,17 +160,69 @@ def main(argv=None) -> None:
             dt = time.perf_counter() - t_last
             tps = tokens_per_step * (step + 1 - logged) / dt
             t_last, logged = time.perf_counter(), step + 1
-            logger.info('step %d/%d loss=%.4f tokens/s=%.0f',
-                        step + 1, args.steps, loss, tps)
+            out.append({'step': step + 1, 'loss': loss,
+                        'grad_norm': float(metrics['grad_norm']),
+                        'tokens_per_s': tps})
+            if lead:
+                logger.info('step %d/%d loss=%.4f tokens/s=%.0f',
+                            step + 1, args.steps, loss, tps)
             if not torch.isfinite(metrics['loss']):
                 logger.error('non-finite loss; aborting')
                 sys.exit(1)
         if mgr is not None:
-            mgr.save(step + 1, state)
+            ckpt_lib.save_mesh(mgr, step + 1, state, mesh)
     if mgr is not None:
         mgr.wait()
         mgr.close()
-    logger.info('done: %d steps', args.steps)
+    if lead:
+        logger.info('done: %d steps', args.steps)
+    mesh_lib.destroy_mesh(mesh)
+    return out
+
+
+def _follower(args: argparse.Namespace, shape, rank: int, address: str,
+              device: torch.device) -> None:
+    """A spawned local rank."""
+    logging.basicConfig(
+        level=logging.INFO,
+        format='%(asctime)s %(levelname)s %(name)s: %(message)s')
+    run_rank(args, shape, rank, address, device)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format='%(asctime)s %(levelname)s %(name)s: %(message)s')
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+
+    family, _ = MODELS[args.model]
+    if family != 'llama':
+        raise SystemExit(f'--model {args.model}: the MoE trainer entry '
+                         f'lands with the MoE train-step factory; use '
+                         f'llama-* presets here for now')
+    device = resolve_device(args.device)
+    n_hosts, host_id, coordinator = mesh_lib.host_env()
+    # This host's ranks: its GPUs, or on the CPU the ranks the flags ask
+    # for (--fsdp 0 counting one).
+    per_host = (torch.cuda.device_count() if device.type == 'cuda'
+                else args.dp * (args.fsdp or 1) * args.tp)
+    n = n_hosts * per_host
+    shape = mesh_lib.make_mesh(dp=args.dp,
+                               fsdp=args.fsdp or n // (args.dp * args.tp),
+                               tp=args.tp, n_devices=n)
+    if shape.size == 1:
+        run_rank(args, shape, 0, None, device)
+        return
+    address = coordinator or f'127.0.0.1:{mesh_lib.free_port()}'
+    first = host_id * per_host
+    codes = mesh_lib.run_local_ranks(
+        run_rank, _follower,
+        lambda i: (args, shape, first + i, address,
+                   mesh_lib.rank_device(device.type, i)),
+        per_host, 'train-rank', first)
+    if any(codes):
+        sys.exit(1)
 
 
 if __name__ == '__main__':

@@ -18,8 +18,15 @@ eps=1e-8, weight_decay, mu_dtype)`` under
 - Params and moments are updated in place: the reference donates the
   state's buffers to its jitted step, which is the same thing.
 
-Sharding (a mesh of more than one device) is a later slice of the port
-(ROADMAP.md queue 1, item 15).
+On a mesh (``parallel/mesh.py``'s ``TrainMesh`` of more than one rank)
+each rank holds its blocks of the params and of their moments (ZeRO-3:
+``parallel/sharding.py``) and steps on its rows of the batch. The step
+computes what the reference's mesh step computes: the loss is the global
+mean (masked: ``sum(nll * mask) / max(sum(mask), 1)`` over the global
+batch); gradients of fsdp-split leaves are reduce-scattered over fsdp and
+summed over dp, the others summed over dp x fsdp; the global norm, for
+clipping and for ``grad_norm``, counts each element once; AdamW updates
+the rank's blocks with that norm.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
+from skypilot_tpu_torch.parallel.mesh import TrainMesh
 
 
 @dataclasses.dataclass
@@ -95,10 +104,16 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads, opt_state, params) -> torch.Tensor:
+    def update(self, grads, opt_state, params,
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``g_norm``: the whole gradient's norm where ``grads`` are a
+        mesh rank's blocks (``sharding.global_norm``); computed from
+        ``grads`` when None."""
         leaves = _leaves(grads)
-        # optax.global_norm: sqrt of the sum of the squares of all leaves.
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+        if g_norm is None:
+            # optax.global_norm: sqrt of the sum of the squares of all
+            # leaves.
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
         clip = not bool(g_norm < self.grad_clip)
         count = int(opt_state['count'])
         count_inc = count + 1
@@ -139,24 +154,74 @@ def make_optimizer(learning_rate: float = 3e-4,
 
 
 def init_train_state(config: llama.LlamaConfig, generator: torch.Generator,
-                     optimizer: AdamW, device='cpu') -> TrainState:
-    params = llama.init_params(config, generator, device)
+                     optimizer: AdamW, device='cpu',
+                     mesh: Optional[TrainMesh] = None) -> TrainState:
+    """The fresh state. On a mesh of more than one rank each leaf is
+    drawn whole with the one-device generator sequence and the rank keeps
+    its block, so a mesh run starts from the one-device run's params."""
+    keep = None
+    if mesh is not None and mesh.size > 1:
+        def keep(path, leaf):
+            return sharding_lib.shard_for(path, leaf, mesh)
+    params = llama.init_params(config, generator, device, keep=keep)
     return TrainState(step=torch.zeros((), dtype=torch.int32),
                       params=params, opt_state=optimizer.init(params))
 
 
+def _paths(tree, prefix=()) -> list:
+    if isinstance(tree, dict):
+        return [p for k in tree for p in _paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def shard_train_state(state: TrainState, mesh: TrainMesh) -> TrainState:
+    """This rank's blocks of a whole state: params and moments alike
+    (ZeRO-3); the counts stay whole."""
+    if mesh.size == 1:
+        return state
+    opt = dict(state.opt_state)
+    for k in ('mu', 'nu'):
+        opt[k] = sharding_lib.shard_train_tree(opt[k], mesh)
+    return TrainState(step=state.step,
+                      params=sharding_lib.shard_train_tree(state.params,
+                                                           mesh),
+                      opt_state=opt)
+
+
+def gather_train_state(state: TrainState, mesh: TrainMesh,
+                       alloc: Callable) -> Optional[TrainState]:
+    """The whole state from every rank's blocks on rank 0's host, each
+    whole leaf from ``alloc(shape, dtype)``; None on the other ranks (a
+    collective: every rank calls it). The blocks reach rank 0 a piece at
+    a time (``sharding.gather_to_first``); the counts stay as they
+    are."""
+    def whole(tree):
+        return sharding_lib.gather_to_first(tree, mesh, alloc)
+    params = whole(state.params)
+    opt = dict(state.opt_state)
+    for k in ('mu', 'nu'):
+        opt[k] = whole(opt[k])
+    if mesh.rank != 0:
+        return None
+    return TrainState(step=state.step, params=params, opt_state=opt)
+
+
 def make_train_step(config: llama.LlamaConfig, optimizer: AdamW,
-                    mesh=None):
-    """Returns ``step(state, batch) -> (state, metrics)`` on one device.
+                    mesh: Optional[TrainMesh] = None):
+    """Returns ``step(state, batch) -> (state, metrics)``.
 
     batch: {'tokens': [b, s] int, 'targets': [b, s] int,
             'mask': optional [b, s]}. The state's params and moments
     are updated in place and the same state comes back with its step
-    advanced. A mesh of more than one device raises."""
-    if mesh is not None and getattr(mesh, 'size', 1) != 1:
-        raise NotImplementedError(
-            'the port trains on one device; sharding over a mesh is '
-            'ROADMAP.md queue 1 item 15')
+    advanced. On a mesh of more than one rank the state holds the rank's
+    blocks (:func:`init_train_state` or :func:`shard_train_state`) and
+    the batch is the rank's rows (``sharding.batch_rows``); the metrics
+    are the global ones, the same on every rank."""
+    if mesh is not None and mesh.size > 1:
+        sharding_lib.check_divisible(config, mesh.shape.tp, mesh.shape.fsdp)
+        shard = sharding_lib.RankOps(mesh)
+    else:
+        mesh = shard = None
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -165,16 +230,25 @@ def make_train_step(config: llama.LlamaConfig, optimizer: AdamW,
             p.requires_grad_(True)
         try:
             loss = llama.loss_fn(config, state.params, batch['tokens'],
-                                 batch['targets'], batch.get('mask'))
-            grads = torch.autograd.grad(loss, leaves)
+                                 batch['targets'], batch.get('mask'),
+                                 shard=shard)
+            grads = list(torch.autograd.grad(loss, leaves))
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grad_tree = _unflatten(state.params, list(grads))
-        g_norm = optimizer.update(grad_tree, state.opt_state, state.params)
+        g_norm = None
+        loss = loss.detach()
+        if mesh is not None:
+            paths = _paths(state.params)
+            grads = [sharding_lib.reduce_grad(path, g, mesh)
+                     for path, g in zip(paths, grads)]
+            g_norm = sharding_lib.global_norm(paths, grads, mesh)
+            loss = shard.data_sum(loss)
+        grad_tree = _unflatten(state.params, grads)
+        g_norm = optimizer.update(grad_tree, state.opt_state, state.params,
+                                  g_norm)
         state.step = state.step + 1
-        metrics = {'loss': loss.detach(), 'grad_norm': g_norm,
-                   'step': state.step}
+        metrics = {'loss': loss, 'grad_norm': g_norm, 'step': state.step}
         return state, metrics
 
     return step_fn

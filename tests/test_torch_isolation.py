@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``skypilot_tpu_torch``
 (the observability copies, the serving sweep, the dense cache and the
 prefix cache's copies of ``prefix_hash``, ``kv_wire`` and ``prefix_cache``,
-the tensor-parallel ``parallel/`` and the lockstep ``infer/multihost``
-included) and
+the tensor-parallel ``parallel/`` and the lockstep ``infer/multihost``,
+the ResNet DDP path and the chip lock included) and
 ``chip_smoke.py``, which drives it on the card, loads neither JAX nor any
 module of the JAX package. Checked in a fresh interpreter, since
 this test process has both loaded."""
@@ -26,7 +26,7 @@ bad = sorted(m for m in sys.modules
              or m == 'skypilot_tpu' or m.startswith('skypilot_tpu.'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 38, names
+assert len(names) >= 41, names
 assert {'skypilot_tpu_torch.infer.sched.' + m
         for m in ('base', 'deadline', 'wfq')} <= set(names), names
 assert ({'skypilot_tpu_torch.observability.' + m
@@ -41,6 +41,9 @@ assert {'skypilot_tpu_torch.ops.quant',
 assert {'skypilot_tpu_torch.parallel.' + m
         for m in ('mesh', 'sharding', 'collectives')} \
     | {'skypilot_tpu_torch.infer.multihost'} <= set(names), names
+assert {'skypilot_tpu_torch.models.resnet',
+        'skypilot_tpu_torch.train.run_vision',
+        'skypilot_tpu_torch.utils.locks'} <= set(names), names
 '''
 
 

@@ -278,12 +278,12 @@ def test_desync_digest_check_fails_loudly():
 
 
 def test_host_env_reads_the_agents_names(monkeypatch):
-    for name in (multihost.NUM_PROCESSES_ENV, multihost.PROCESS_ID_ENV,
-                 multihost.COORDINATOR_ENV):
+    for name in (mesh.NUM_PROCESSES_ENV, mesh.PROCESS_ID_ENV,
+                 mesh.COORDINATOR_ENV):
         monkeypatch.delenv(name, raising=False)
-    assert multihost.host_env() == (1, 0, None)
-    monkeypatch.setenv(multihost.NUM_PROCESSES_ENV, '2')
-    monkeypatch.setenv(multihost.PROCESS_ID_ENV, '1')
-    monkeypatch.setenv(multihost.COORDINATOR_ENV, '10.0.0.1:8476')
-    assert multihost.host_env() == (2, 1, '10.0.0.1:8476')
-    assert os.environ[multihost.NUM_PROCESSES_ENV] == '2'
+    assert mesh.host_env() == (1, 0, None)
+    monkeypatch.setenv(mesh.NUM_PROCESSES_ENV, '2')
+    monkeypatch.setenv(mesh.PROCESS_ID_ENV, '1')
+    monkeypatch.setenv(mesh.COORDINATOR_ENV, '10.0.0.1:8476')
+    assert mesh.host_env() == (2, 1, '10.0.0.1:8476')
+    assert os.environ[mesh.NUM_PROCESSES_ENV] == '2'

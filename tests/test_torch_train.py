@@ -9,7 +9,6 @@ fp32 matmuls summed in different orders by XLA and PyTorch); three
 optimizer steps' params at 1e-5 (the updates are lr-sized, the params
 O(0.1)). The JAX flash and fused-CE kernels run in interpret mode.
 """
-import dataclasses
 
 import numpy as np
 import optax
@@ -22,6 +21,7 @@ import torch
 from skypilot_tpu.models import llama as jllama
 from skypilot_tpu.train import trainer as jtrainer
 from skypilot_tpu_torch.models import llama as tllama
+from skypilot_tpu_torch.parallel import mesh as tmesh
 from skypilot_tpu_torch.train import trainer as ttrainer
 
 jax.config.update('jax_default_matmul_precision', 'highest')
@@ -129,10 +129,12 @@ def test_remat_on_equals_off_bitwise(models):
 def test_remat_policies(models):
     _, tparams, tokens, _, _ = models
     t = torch.from_numpy(tokens)
+    full = tllama.backbone(tllama.LlamaConfig.tiny(), tparams, t)
     for policy in ('dots', 'save_attn'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tllama.backbone(tllama.LlamaConfig.tiny(remat_policy=policy),
-                            tparams, t)
+        # Ported (selective checkpointing): the forward is full's, bit for
+        # bit; tests/test_torch_remat.py holds the gradients.
+        assert torch.equal(tllama.backbone(
+            tllama.LlamaConfig.tiny(remat_policy=policy), tparams, t), full)
     with pytest.raises(ValueError, match='Unknown remat_policy'):
         tllama.backbone(tllama.LlamaConfig.tiny(remat_policy='bogus'),
                         tparams, t)
@@ -220,13 +222,34 @@ def test_schedule_matches_optax():
                                        rtol=1e-6, atol=1e-12)
 
 
-def test_make_train_step_refuses_a_mesh():
-    @dataclasses.dataclass
-    class Mesh:
-        size: int = 4
-    with pytest.raises(NotImplementedError, match='item 15'):
-        ttrainer.make_train_step(tllama.LlamaConfig.tiny(),
-                                 ttrainer.make_optimizer(), mesh=Mesh())
+def test_make_train_step_refuses_a_mesh(models):
+    """A mesh is ported (tests/test_torch_train_mesh.py runs one): a
+    one-rank mesh steps exactly as no mesh does, and a mesh whose fsdp
+    does not divide the model dimension is refused with the reference's
+    divisibility error."""
+    _, tparams, tokens, targets, _ = models
+    cfg = tllama.LlamaConfig.tiny()
+    batch = {'tokens': torch.from_numpy(tokens),
+             'targets': torch.from_numpy(targets)}
+    out = []
+    for mesh in (None, tmesh.single_mesh()):
+        opt = ttrainer.make_optimizer(warmup_steps=1, total_steps=10)
+        params = jax.tree.map(lambda t: t.clone(), tparams)
+        state = ttrainer.TrainState(step=torch.zeros((), dtype=torch.int32),
+                                    params=params,
+                                    opt_state=opt.init(params))
+        step = ttrainer.make_train_step(cfg, opt, mesh=mesh)
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        out.append((metrics, state.params))
+    (m0, p0), (m1, p1) = out
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(p0),
+                                                 jax.tree.leaves(p1)))
+    with pytest.raises(ValueError, match='fsdp=3 must divide dim=64'):
+        ttrainer.make_train_step(
+            cfg, ttrainer.make_optimizer(),
+            mesh=tmesh.TrainMesh(shape=tmesh.MeshShape(1, 3, 1)))
 
 
 @pytest.mark.parametrize('preset', ['tiny', 'bench_350m', 'bench_1b',

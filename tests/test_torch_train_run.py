@@ -2,9 +2,10 @@
 ``python -m skypilot_tpu_torch.train.run`` on ``llama-tiny`` with a
 checkpoint directory, then a resume that must land where an
 uninterrupted run lands (bit for bit: the checkpoint holds params,
-moments and counts); the refusals (a mesh, the MoE presets, CUDA
-without a card); and ``skypilot_tpu_torch.bench``, which refuses to run
-without a card while its measuring loop runs here on the tiny config.
+moments and counts); two-rank meshes started by the command; the
+refusals (the MoE presets, CUDA without a card); and
+``skypilot_tpu_torch.bench``, which refuses to run without a card while
+its measuring loop runs here on the tiny config, and its chip lock.
 """
 import json
 import logging
@@ -58,13 +59,23 @@ def test_train_resume_lands_where_an_uninterrupted_run_does(tmp_path,
 
 
 @pytest.mark.parametrize('extra, match', [
-    (['--tp', '2'], 'one device'),
-    (['--dp', '2', '--fsdp', '1'], 'one device'),
+    (['--tp', '2'], None),
+    (['--dp', '2', '--fsdp', '1'], None),
     (['--model', 'moe-tiny'], 'MoE'),
 ])
-def test_run_refuses_what_is_not_ported(extra, match):
-    with pytest.raises(SystemExit, match=match):
-        run.main(ARGS + ['--steps', '1'] + extra)
+def test_run_refuses_what_is_not_ported(extra, match, caplog):
+    """The MoE presets exit, as in the reference; a mesh is ported: the
+    command starts the other CPU rank itself and both exit 0."""
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            run.main(ARGS + ['--steps', '1'] + extra)
+        return
+    caplog.set_level(logging.INFO)
+    run.main(ARGS + ['--steps', '1'] + extra)
+    messages = [r.getMessage() for r in caplog.records]
+    assert 'done: 1 steps' in messages
+    assert 'train-rank-1 exited 0' in messages
+    assert sorted(_losses(caplog)) == [1]
 
 
 def test_run_needs_cuda_unless_told_cpu(monkeypatch):
@@ -95,3 +106,32 @@ def test_bench_measure_runs_the_training_path():
         'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd'}
     assert all(v == 0 for v in r['launches'].values())
     json.dumps(r)
+
+
+def test_chip_lock_second_holder_waits(tmp_path, monkeypatch):
+    """The bench's chip lock at the reference's path and env: while
+    another process holds it a second holder times out, then gets it once
+    the first lets go."""
+    import subprocess
+    import sys
+
+    import filelock
+
+    from skypilot_tpu_torch.utils import locks
+    path = str(tmp_path / 'chip.lock')
+    monkeypatch.setenv(locks.CHIP_LOCK_ENV, path)
+    assert locks.chip_lock_path() == path
+    holder = subprocess.Popen(
+        [sys.executable, '-c',
+         'import sys, filelock; l = filelock.FileLock(sys.argv[1]); '
+         'l.acquire(); print("held", flush=True); sys.stdin.readline()',
+         path], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        assert holder.stdout.readline().strip() == 'held'
+        with pytest.raises(filelock.Timeout):
+            locks.acquire_chip_lock('test', timeout=0.3)
+    finally:
+        holder.communicate('\n', timeout=30)
+    lock = locks.acquire_chip_lock('test', timeout=30)
+    assert lock.is_locked
+    lock.release()
