@@ -184,6 +184,31 @@ Phases, in order; any failure exits non-zero:
    the ranks' output digests every tick. Prints each rank's time a tick and
    a step, labelled gloo on one card. The NCCL path (one card a rank)
    needs two cards and does not run here.
+5i. The rest of the replica: ``bench_ttft``'s coldstart boots of the
+   server at the serving recipe's single-chip flags with ``--spec-k 6
+   --scheduler wfq --max-queue-requests 64`` (dense, int8 weights), twice
+   against one fresh ``--compile-cache-dir``: boot 1 must compile the
+   library of every kernel source the replica launches (``paged_decode``,
+   ``paged_prefill``, ``qdot_int8``) into it, boot 2 nothing, leaving
+   every library's mtime as it was, and both must answer a fixed greedy
+   prompt alike. Against boot 2: phase 5's speculation check (so that
+   verify runs), one ``speculative`` level (8 in flight, greedy tokens
+   bitwise with speculation on and off), one ``tenants`` level (3 s of
+   the 10:1 trace, both tenants served) and one ``chaos-resume`` level
+   (16 requests at 4 in flight, every stream completed, and every spliced
+   stream bitwise the tokens an in-process engine of the replica's flags
+   and weights gives the same resume: the splice loses, repeats and
+   changes nothing. A spliced stream may part from its uninterrupted
+   twin, since the resume recomputes the delivered tokens' K/V through
+   prefill, as a preemption's resume does (``ROADMAP.md`` queue 3 item
+   B), but only at a near-tie of the twin (a top-2 logit margin of at
+   most RESUME_TIE_STEPS bf16 steps of its top logit) and in at most
+   RESUME_MAX_PARTED streams; each parting is printed with its margin);
+   decode, prefill, verify and ``qdot_int8``
+   launched in those runs (``launches_sweeps`` in the kernel line). Then
+   the flight recorder's profile smoke (``python -m
+   skypilot_tpu_torch.observability.stepline``) on the card. Prints each
+   boot's time to ready and nvcc seconds and the sweep heads.
 6. The training slice against its plain path: a 2-layer model at
    bench_1b width (b 1, s 2048, the same bf16 params), ``loss_fn`` with
    flash attention and the fused cross-entropy (the kernels) against
@@ -3050,6 +3075,230 @@ def tp_in_process(torch, quant, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5i: the rest of the replica, booted twice on one kernel directory
+# ---------------------------------------------------------------------------
+# The serving recipe's single-chip flags (5g's replica without its long
+# tier) with speculation and weighted fair queueing, as bench_ttft takes
+# them, and an admission bound, which the bench forwards only to its
+# tenants sweep's server and 5i passes to its boots itself.
+SWEEP_BENCH = ['--model', '8b', '--quantize', '--slots', '16',
+               '--max-seq-len', str(MAX_SEQ), '--spec-k', '6',
+               '--scheduler', 'wfq']
+SWEEP_QUEUE = ['--max-queue-requests', '64']
+SWEEP_REPLICA = SWEEP_BENCH + SWEEP_QUEUE
+# The wrappers the replica (dense cache, int8 weights) must launch during
+# the sweeps.
+SWEEP_KERNELS = DENSE_KERNELS + ('qdot_int8',)
+# A fixed greedy prompt both boots must answer alike.
+SWEEP_PROMPT_SEED, SWEEP_PROMPT_LEN, SWEEP_NEW = 11, 300, 32
+# A spliced stream's resume recomputes its delivered tokens' K/V through
+# prefill (ROADMAP.md queue 3 item B), so it may part from its
+# uninterrupted twin, but only where the twin's top-2 logit margin is at
+# most RESUME_TIE_STEPS bf16 steps of its top logit, and in at most
+# RESUME_MAX_PARTED of the chaos level's 8 spliced streams: on an H100
+# (NVIDIA H100 80GB HBM3, 700.00 W) every run of this phase parted the
+# same 3, at margins of 1-3 steps (0.03125 at a top logit of 4.1875,
+# 0.0625 at 4.28125, 0.046875 at 3.875; PERF.md section 6).
+RESUME_TIE_STEPS, RESUME_MAX_PARTED = 4, 3
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at ``x``."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def resume_check(torch, chaos):
+    """5i's chaos level against the engine itself: an in-process engine
+    built from SWEEP_REPLICA as the server builds it (the same seed-0 int8
+    weights) resumes each spliced stream from the tokens delivered before
+    its cut. Returns the streams whose splice differs from that resume
+    (must be none), and for each stream that parted from its
+    uninterrupted twin the twin's top-2 logit margin where it parted (its
+    prompt and tokens before that point through the prefill path)."""
+    from skypilot_tpu_torch.infer import model as model_lib
+    from skypilot_tpu_torch.infer import paged_cache as pc_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    sargs = server_lib.parse_args(['--port', '0', *SWEEP_REPLICA])
+    eng = server_lib.engine_from_args(sargs)
+    reqs = [eng.submit(list(p['prompt'].encode()), max_new_tokens=SWEEP_NEW,
+                       resume_tokens=p['tokens'][:p['cut_at']])
+            for p in chaos['spliced']]
+    while not all(r.done for r in reqs):
+        eng.step()
+    wrong = [{'request': p['request'], 'cut_at': p['cut_at'],
+              'spliced': p['tokens'], 'engine': r.output_tokens}
+             for p, r in zip(chaos['spliced'], reqs)
+             if r.output_tokens != p['tokens']]
+    cfg = eng.config
+    rope = model_lib.rope_tables(cfg, 'cuda')
+    prompts = {p['request']: p['prompt'] for p in chaos['spliced']}
+    ties = []
+    for p in chaos['parted']:
+        j = p['at']
+        logits, cache, _ = prefill_logits(
+            torch, model_lib, pc_lib, cfg, eng.params, rope,
+            list(prompts[p['request']].encode()) + p['want'][:j],
+            torch.bfloat16)
+        del cache
+        top2 = torch.topk(logits.float(), 2).values.tolist()
+        ties.append({'request': p['request'], 'step': j,
+                     'margin': top2[0] - top2[1], 'top_logit': top2[0]})
+    del eng, reqs
+    torch.cuda.empty_cache()
+    return wrong, ties
+
+
+def replica_sweeps(torch, card: str):
+    """5i: ``bench_ttft``'s coldstart boots of the replica at SWEEP_REPLICA
+    against a fresh ``--compile-cache-dir`` (never the default ``_build/``
+    the other phases use). Boot 1 must compile (and add to the directory)
+    the library of every kernel source the replica launches, boot 2 none,
+    the libraries' mtimes unchanged; both must answer a fixed greedy prompt
+    with the same tokens. Against boot 2: phase 5's speculation check
+    (repetitive prompts led by their own continuation, so that the drafter
+    proposes and verify runs: the sweep's template prompts draft nothing on
+    random 8B weights), one ``speculative`` level (8 in flight,
+    ``bit_identical``), one ``tenants`` level (3 s of trace, both tenants
+    served) and one ``chaos-resume`` level (16 requests at 4 in flight:
+    every stream completed, every spliced stream bitwise an in-process
+    engine's resume of it, ``resume_check``, and at most
+    RESUME_MAX_PARTED parted from their uninterrupted twins, each at a
+    twin's top-2 margin of at most RESUME_TIE_STEPS bf16 steps); decode,
+    prefill, verify and ``qdot_int8`` must have launched in those runs
+    (their counts, from 0 just before, are returned). Then the flight recorder's smoke twin on
+    the card. Prints the boots' time to ready, their nvcc seconds, the
+    sweep heads, and where a spliced stream parted from its uninterrupted
+    twin, with the twin's top-2 logit margin there."""
+    import random
+    from skypilot_tpu_torch import bench_ttft
+    from skypilot_tpu_torch.infer import server as server_lib
+    vocab = server_lib.MODELS['8b']().vocab_size
+    rnd = random.Random(SWEEP_PROMPT_SEED)
+    prompt = [rnd.randrange(vocab) for _ in range(SWEEP_PROMPT_LEN)]
+    args = bench_ttft.parse_args(['--sweep', 'coldstart', '--device',
+                                  'cuda', '--boot-timeout', '600',
+                                  *SWEEP_BENCH])
+    device = torch.device('cuda', 0)
+
+    def launches(base):
+        _, raw = http_json(base + '/metrics')
+        return json.loads(raw)['kernel_launches']
+
+    def greedy(base):
+        _, raw = http_json(base + '/generate', {
+            'tokens': prompt, 'max_new_tokens': SWEEP_NEW})
+        return json.loads(raw)['tokens']
+
+    def sweeps(base):
+        gen, met = base + '/generate', base + '/metrics'
+        tokens = greedy(base)
+        before = launches(base)
+        spec = spec_check(base, vocab)
+        bench_ttft.warm_speculative(gen, 8, 16, 64)
+        speculative = bench_ttft.speculative_level(gen, met, 8, 16, 6, 64)
+        tenants = bench_ttft.tenant_level(gen, met, 4, args.trace_seed, 3.0)
+        chaos = bench_ttft.chaos_resume_level(gen, 4, 16, SWEEP_NEW,
+                                              args.kill_after_chunks)
+        after = launches(base)
+        return {'tokens': tokens, 'spec_check': spec,
+                'speculative': speculative, 'tenants': tenants,
+                'chaos': chaos,
+                'launches': {k: after[k] - before[k] for k in after}}
+
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix='chip-smoke-kernels-') as cache:
+        boots = []
+        for i, then in enumerate((greedy, sweeps)):
+            args.server_log = str(OUT_DIR / f'chip_smoke_coldstart_{i}.log')
+            boots.append(bench_ttft.coldstart_boot(args, device, cache, i,
+                                                   then, SWEEP_QUEUE))
+    cold, warm = boots
+    got = warm['then']
+    spec, tenants, chaos = got['speculative'], got['tenants'], got['chaos']
+    out = {
+        'card': card, 'flags': SWEEP_REPLICA,
+        'time_to_ready_s': [b['time_to_ready_s'] for b in boots],
+        'first_token_s': [b['first_token_s'] for b in boots],
+        'ready_ratio_cold_over_warm': (cold['time_to_ready_s']
+                                       / warm['time_to_ready_s']),
+        'nvcc_s': [b['nvcc_s'] for b in boots],
+        'stamps': [b['stamps'] for b in boots],
+        'libraries_added': [b['libraries_added'] for b in boots],
+        'speculative': {k: spec.get(k) for k in (
+            'accepted_len_mean', 'spec_accept_rate', 'tokens_per_step',
+            'itl_improvement_x', 'bit_identical', 'counters')},
+        'spec_check_accept_rate': got['spec_check']['spec_accept_rate'],
+        'tenants': {'victim_ttft_p99_s': tenants['tenants'].get(
+            'victim', {}).get('ttft_p99_s'), **{k: tenants[k] for k in (
+                'samples', 'tenants', 'replica_requests_shed')}},
+        'chaos_resume': {k: chaos.get(k) for k in (
+            'completed_rate', 'resumes', 'resume_added_p99_s',
+            'bit_identical')} | {'parted': [
+                (p['request'], p['at']) for p in chaos['parted']]},
+        'launches': got['launches']}
+    print('replica sweeps (Llama-3-8B, int8 weights, random, ' + card
+          + '): ' + json.dumps(out), flush=True)
+    sources = server_lib.replica_sources(
+        server_lib.parse_args(['--port', '0', *SWEEP_REPLICA]))
+    if len(sources) != 3:
+        fail(f'the replica should compile three kernel sources: {sources}')
+    for src in sources:
+        if not any(n.startswith(src + '-') for n in cold['libraries_added']) \
+                or src not in cold['nvcc_s']:
+            fail(f'boot 1 did not compile {src} into the fresh directory: '
+                 f'{cold["libraries_added"]}, {cold["nvcc_s"]}')
+    if warm['libraries_added'] or warm['nvcc_s'] \
+            or warm['library_mtimes_after'] != warm['library_mtimes_before'] \
+            or warm['library_mtimes_before'] != cold['library_mtimes_after']:
+        fail(f'boot 2 compiled or touched a library: {warm["nvcc_s"]}, '
+             f'{warm["library_mtimes_before"]} -> '
+             f'{warm["library_mtimes_after"]}')
+    if {cold['kernel_build_dir'], warm['kernel_build_dir']} \
+            != {str(pathlib.Path(cache).resolve())}:
+        fail(f'the replica did not build in --compile-cache-dir: '
+             f'{cold["kernel_build_dir"]}, {warm["kernel_build_dir"]}')
+    if cold['then'] != got['tokens']:
+        fail(f'the two boots answered the fixed prompt differently: '
+             f'{cold["then"][:8]} vs {got["tokens"][:8]}')
+    if not spec['bit_identical']:
+        fail(f'the speculative level: {json.dumps(spec)[:2000]}')
+    served = tenants['tenants']
+    if set(served) != {'victim', 'aggressor'} \
+            or not served['victim']['ttft_p99_s']:
+        fail(f'the tenants level did not serve both tenants: {served}')
+    if chaos['completed_rate'] != 1.0 or not chaos['resumes']:
+        fail(f'the chaos-resume level: {json.dumps(chaos)[:2000]}')
+    wrong, ties = resume_check(torch, chaos)
+    for t in ties:
+        t['bf16_steps'] = t['margin'] / bf16_step(t['top_logit'])
+    print(f'chaos-resume: {len(chaos["spliced"])} spliced streams, each '
+          f'bitwise the in-process engine\'s resume: {not wrong}; '
+          f'{len(ties)} parted from their uninterrupted twin, the twin\'s '
+          f'top-2 logit margin there, in bf16 steps of its top logit '
+          f'too (' + card + '): ' + json.dumps(ties),
+          flush=True)
+    if wrong:
+        fail(f'a spliced stream differs from the engine\'s own resume: '
+             f'{json.dumps(wrong)[:2000]}')
+    wide = [t for t in ties if t['bf16_steps'] > RESUME_TIE_STEPS]
+    if wide or len(ties) > RESUME_MAX_PARTED:
+        fail(f'{len(ties)} spliced streams parted from their uninterrupted '
+             f'twins (at most {RESUME_MAX_PARTED}), {len(wide)} at a top-2 '
+             f'margin above {RESUME_TIE_STEPS} bf16 steps: {json.dumps(ties)}')
+    for name in SWEEP_KERNELS:
+        if got['launches'].get(name, 0) <= 0:
+            fail(f'{name} was not launched by the sweeps: {got["launches"]}')
+    run = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.observability.stepline'],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print(run.stdout.strip(), flush=True)
+    if run.returncode != 0 or 'profile-smoke OK' not in run.stdout:
+        fail(f'the profile smoke exited {run.returncode}:\n'
+             f'{run.stdout[-2000:]}\n{run.stderr[-4000:]}')
+    return got['launches']
+
+
 def _kernel_kind(name: str) -> str:
     low = name.lower()
     if 'paged_prefill_kernel' in low:
@@ -4303,6 +4552,9 @@ def main() -> int:
                       for k in set(dense_launches) | set(pool_launches)}
     # Phase 5h: tensor parallelism, two gloo ranks on the one card.
     tp_launches = tp_in_process(torch, quant, card)
+    # Phase 5i: the replica booted twice on one kernel directory, the
+    # serving sweeps against it, and the profile smoke.
+    sweep_launches = replica_sweeps(torch, card)
 
     # Phase 6: the training slice against its plain path; 6b: the remat
     # policies against full.
@@ -4406,6 +4658,9 @@ def main() -> int:
             # Phase 5h's two ranks at tp 2, both variants, summed (each
             # rank's counters set to 0 just before it served).
             'launches_tp2': tp_launches.get(wrapper, 0),
+            # Phase 5i's sweeps against the second boot (the server's
+            # counters read just before and just after them).
+            'launches_sweeps': sweep_launches.get(wrapper, 0),
             # Phase 7c's four ranks at fsdp 2 x tp 2, summed (each rank's
             # counters set to 0 just before it trained).
             'launches_train_mesh': mesh_launches.get(wrapper, 0),

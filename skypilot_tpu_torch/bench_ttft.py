@@ -1,6 +1,5 @@
-"""The port's serving sweep on one card (counterpart of the root
-``bench_ttft.py``'s ``--sweep chunked``, ``shared-prefix`` and ``disagg``
-and of its default concurrency sweep, for a torch replica).
+"""The port's serving sweeps on one card (counterpart of the root
+``bench_ttft.py``'s eight sweeps, for a torch replica).
 
 - ``--sweep chunked``: in-process engines (the stall under test is a
   property of the step loop, not of HTTP): victims decode on all but one
@@ -38,6 +37,35 @@ and of its default concurrency sweep, for a torch replica).
   the block (what the serve load balancer does), so it pulls the pages.
   It reports the transfers, their bytes, ``kv_transfer_p99_s`` and the
   TTFT of each cohort.
+- ``--sweep coldstart``: boots the server twice against one fresh kernel
+  build directory (``--compile-cache-dir``): the first boot compiles the
+  kernels it launches with ``nvcc``, the second loads them. Per boot:
+  spawn to ``/health`` ready, to the first streamed token, the
+  ``coldstart.*`` stamps from ``/debug/stepline``, the seconds each
+  compile took (``/metrics`` ``kernel_build_s``) and the libraries the
+  boot added to the directory, with every library's mtime before and
+  after. On the CPU neither boot builds anything.
+- ``--sweep speculative``: the server with ``--spec-k`` (default 6); at
+  each level the same template-heavy prompts (a 12-token block four times
+  and a unique 6-token tail) with per-request ``"spec": false``, then
+  ``true``, the replica's ``spec_*`` and ``decode_*`` counters windowed
+  around the second pass: ``accepted_len_mean``, ``spec_accept_rate``,
+  ``tokens_per_step``, the time between tokens off over on, and a probe
+  that one prompt gives the same greedy tokens both ways.
+- ``--sweep tenants``: the server with ``--scheduler`` (default wfq) and
+  ``--max-queue-requests`` 4 x slots; at each level a seeded 10:1
+  aggressor/victim trace (``utils/loadgen.py``; ``--trace`` replays a
+  file) replayed with the ``X-SkyTpu-Tenant`` header: per-tenant TTFT,
+  time between tokens and shed rate, and the replica's per-tenant
+  counters over the level.
+- ``--sweep chaos-resume``: mid-stream failover. The bench plays the
+  serve load balancer's splice, as ``disagg`` plays its router: at each
+  level an uninterrupted pass, then a pass where every second stream is
+  cut by the client after ``--kill-after-chunks`` lines and re-posted
+  with ``resume_from`` = the tokens it delivered, the rest spliced on. It
+  reports the completed-stream rate, the resumes, the p99 wall time of
+  clean and of resumed streams and what a resume adds, and whether every
+  spliced stream carries the tokens of the same request uninterrupted.
 
 The servers' KV cache follows ``--paged``, as the reference bench's does:
 without it the concurrency sweep measures a dense replica (the
@@ -54,8 +82,19 @@ one JSON document that names the card by name and power limit
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``).
 Weights are random, drawn from ``--seed``.
 
+The servers get the reference's replica flags from the bench:
+``--prefix-cache``, ``--spec-k`` and ``--spec-ngram``, ``--scheduler``,
+``--tenant-weights`` and ``--tokenizer``, and for the tenants sweep
+``--max-queue-requests`` 4 x slots
+(``128k`` derives a 128,256-entry word-level tokenizer.json under
+``$SKY_TPU_HOME/cache``; loading it needs the optional ``tokenizers``
+package).
+``--long-prompt-tokens N`` adds a long lane to the concurrency sweep:
+every 8th request a prompt of about N tokens, its TTFT reported apart.
+
 Run: ``python -m skypilot_tpu_torch.bench_ttft --sweep chunked --model
-8b`` (or ``--sweep concurrency``, ``shared-prefix`` or ``disagg``).
+8b`` (or ``--sweep concurrency``, ``shared-prefix``, ``disagg``,
+``coldstart``, ``speculative``, ``tenants`` or ``chaos-resume``).
 """
 from __future__ import annotations
 
@@ -66,15 +105,19 @@ import json
 import os
 import pathlib
 import random
+import re
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
+
+from skypilot_tpu_torch.utils import loadgen
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -93,13 +136,6 @@ def card_line(device: torch.device) -> str:
         return out[index] if index < len(out) else out[0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return torch.cuda.get_device_name(device)
-
-
-def _pct(sorted_vals, p: float):
-    if not sorted_vals:
-        return None
-    i = min(len(sorted_vals) - 1, int(len(sorted_vals) * p))
-    return sorted_vals[i]
 
 
 def _ms(v):
@@ -188,9 +224,9 @@ def _chunked_victim_run(engine, conc: int, aggr_prompt: list,
     itls.sort()
     ttfts.sort()
     return {
-        'victim_itl_p50_ms': _ms(_pct(itls, 0.50)),
-        'victim_itl_p99_ms': _ms(_pct(itls, 0.99)),
-        'aggressor_ttft_p50_s': _pct(ttfts, 0.50),
+        'victim_itl_p50_ms': _ms(loadgen.pct(itls, 0.50)),
+        'victim_itl_p99_ms': _ms(loadgen.pct(itls, 0.99)),
+        'aggressor_ttft_p50_s': loadgen.pct(ttfts, 0.50),
         'aggressor_ttft_max_s': ttfts[-1] if ttfts else None,
         'itl_samples': len(itls),
         'fused_steps': m['fused_steps'],
@@ -350,50 +386,65 @@ def _streamed_request(url: str, payload, max_new_tokens: int,
     return ttft, itls, tokens, queue_wait
 
 
+def _is_long(long_prompt_tokens: int, i: int) -> bool:
+    return bool(long_prompt_tokens) and i % 8 == 7
+
+
 def _sweep_level(gen_url: str, concurrency: int, n_requests: int,
-                 new_tokens: int, payload_for=None, headers_for=None) -> dict:
+                 new_tokens: int, payload_for=None, headers_for=None,
+                 long_prompt_tokens: int = 0) -> dict:
     """One concurrency level: ``n_requests`` streamed requests, at most
     ``concurrency`` in flight; request i sends ``payload_for(i)`` (default
-    a short distinct prompt) with ``headers_for(i)`` (called as it is
-    sent)."""
-    payload_for = payload_for or (
-        lambda i: {'prompt': f'request {i} hello world'})
+    a short distinct prompt, or with ``long_prompt_tokens`` every 8th a
+    prompt of about that many byte tokens, whose TTFTs are also reported
+    apart) with ``headers_for(i)`` (called as it is sent)."""
+    def prompt_for(i):
+        if _is_long(long_prompt_tokens, i):
+            return {'prompt': f'ctx{i} ' * (long_prompt_tokens // 5)
+                    + ' summarize.'}
+        return {'prompt': f'request {i} hello world'}
+    payload_for = payload_for or prompt_for
 
     def one(i):
-        return _streamed_request(gen_url, payload_for(i), new_tokens,
-                                 headers=headers_for(i) if headers_for
-                                 else None)
+        return i, _streamed_request(gen_url, payload_for(i), new_tokens,
+                                    headers=headers_for(i) if headers_for
+                                    else None)
 
-    ttfts, itl_samples, waits = [], [], []
+    ttfts, itl_samples, waits, longs, shorts = [], [], [], [], []
     tokens = 0
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
         futs = [pool.submit(one, i) for i in range(n_requests)]
         for f in concurrent.futures.as_completed(futs):
-            ttft, itls, n, qwait = f.result()
+            i, (ttft, itls, n, qwait) = f.result()
             ttfts.append(ttft)
+            (longs if _is_long(long_prompt_tokens, i)
+             else shorts).append(ttft)
             itl_samples.extend(itls)
             tokens += n
             if qwait is not None:
                 waits.append(qwait)
     wall = time.perf_counter() - t0
-    ttfts.sort()
-    itl_samples.sort()
-    waits.sort()
+    for vals in (ttfts, itl_samples, waits, longs, shorts):
+        vals.sort()
+    lane = ({'short_ttft_p50_s': loadgen.pct(shorts, 0.50),
+             'long_ttft_p50_s': loadgen.pct(longs, 0.50),
+             'long_samples': len(longs)} if longs else {})
     return {
         'concurrency': concurrency,
         'samples': len(ttfts),
-        'ttft_p50_s': _pct(ttfts, 0.50),
-        'ttft_p90_s': _pct(ttfts, 0.90),
-        'ttft_p99_s': _pct(ttfts, 0.99),
+        'ttft_p50_s': loadgen.pct(ttfts, 0.50),
+        'ttft_p90_s': loadgen.pct(ttfts, 0.90),
+        'ttft_p99_s': loadgen.pct(ttfts, 0.99),
         'ttft_mean_s': statistics.fmean(ttfts),
-        'queue_wait_p50_ms': _ms(_pct(waits, 0.50)),
-        'queue_wait_p99_ms': _ms(_pct(waits, 0.99)),
-        'itl_p50_ms': _ms(_pct(itl_samples, 0.50)),
-        'itl_p99_ms': _ms(_pct(itl_samples, 0.99)),
+        'queue_wait_p50_ms': _ms(loadgen.pct(waits, 0.50)),
+        'queue_wait_p99_ms': _ms(loadgen.pct(waits, 0.99)),
+        'itl_p50_ms': _ms(loadgen.pct(itl_samples, 0.50)),
+        'itl_p99_ms': _ms(loadgen.pct(itl_samples, 0.99)),
         'itl_samples': len(itl_samples),
         'tokens_per_sec': tokens / wall,
         'throughput_rps': n_requests / wall,
+        **lane,
     }
 
 
@@ -417,6 +468,8 @@ class _Servers:
     def __init__(self, args, device, flag_sets) -> None:
         self.procs, self.bases, self.logs = [], [], []
         self.ready_s = None
+        # Time to ready counts from the first spawn.
+        self._t0 = time.perf_counter()
         for i, flags in enumerate(flag_sets):
             port = _free_port()
             cmd = [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
@@ -426,7 +479,8 @@ class _Servers:
                    '--device', str(device), '--seed', str(args.seed),
                    *(['--paged'] if args.paged else []),
                    *(['--quantize'] if args.quantize else []),
-                   *(['--tp', str(args.tp)] if args.tp > 1 else []), *flags]
+                   *(['--tp', str(args.tp)] if args.tp > 1 else []),
+                   *replica_flags(args), *flags]
             log = (open(f'{args.server_log}.{i}' if i else args.server_log,
                         'w') if args.server_log else subprocess.DEVNULL)
             self.logs.append(log)
@@ -438,7 +492,6 @@ class _Servers:
     def __enter__(self) -> '_Servers':
         try:
             deadline = time.time() + self._boot_timeout
-            t_boot = time.perf_counter()
             waiting = list(zip(self.procs, self.bases))
             while waiting:
                 proc, base = waiting[0]
@@ -456,7 +509,7 @@ class _Servers:
                 if time.time() > deadline:
                     raise RuntimeError('a server never became healthy')
                 time.sleep(0.25)
-            self.ready_s = time.perf_counter() - t_boot
+            self.ready_s = time.perf_counter() - self._t0
         except BaseException:
             self.__exit__()
             raise
@@ -476,6 +529,24 @@ class _Servers:
                 log.close()
 
 
+def replica_flags(args) -> List[str]:
+    """The reference bench's replica flags, forwarded to every server."""
+    flags = ['--prefix-cache'] if args.prefix_cache else []
+    if args.spec_k:
+        flags += ['--spec-k', str(args.spec_k), '--spec-ngram',
+                  str(args.spec_ngram)]
+    if args.scheduler:
+        flags += ['--scheduler', args.scheduler]
+    if args.tenant_weights:
+        flags += ['--tenant-weights', args.tenant_weights]
+    if args.sweep == 'tenants':
+        # Fairness needs a finite admission bound to shed against.
+        flags += ['--max-queue-requests', str(4 * args.slots)]
+    if args.tokenizer:
+        flags += ['--tokenizer', args.tokenizer]
+    return flags
+
+
 def run_concurrency_sweep(args, device: torch.device) -> dict:
     """The port's server in a subprocess, driven over HTTP."""
     flags = ['--fused-prefill'] if args.fused_prefill else []
@@ -485,9 +556,11 @@ def run_concurrency_sweep(args, device: torch.device) -> dict:
         cold_s = _streamed_request(gen_url, {'prompt': 'cold request'},
                                    args.new_tokens)[0]
         _sweep_level(gen_url, max(args.concurrency), 2 * args.slots,
-                     args.new_tokens)   # warm, off the clock
+                     args.new_tokens,      # warm, off the clock
+                     long_prompt_tokens=args.long_prompt_tokens)
         sweep = [_sweep_level(gen_url, conc, args.requests_per_level,
-                              args.new_tokens)
+                              args.new_tokens,
+                              long_prompt_tokens=args.long_prompt_tokens)
                  for conc in args.concurrency]
         metrics = _get_json(base + '/metrics')
         ready_s = servers.ready_s
@@ -508,6 +581,7 @@ def run_concurrency_sweep(args, device: torch.device) -> dict:
         'slots': args.slots,
         'new_tokens': args.new_tokens,
         'fused_prefill': args.fused_prefill,
+        'long_prompt_tokens': args.long_prompt_tokens,
         'tp': args.tp,
         'server_metrics': {k: metrics.get(k) for k in (
             'decode_steps', 'decode_tokens', 'tokens_per_step',
@@ -559,7 +633,7 @@ def run_shared_prefix_sweep(args, device: torch.device) -> dict:
     """The port's server with the prefix cache: cold then shared passes
     at each concurrency level."""
     sys_tokens = args.shared_prefix_tokens
-    with _Servers(args, device, [['--prefix-cache']]) as servers:
+    with _Servers(args, device, [[]]) as servers:
         base = servers.bases[0]
         gen_url, metrics_url = base + '/generate', base + '/metrics'
         # Cold and warm off the clock: every chunk bucket's program, and
@@ -624,7 +698,7 @@ def run_disagg_sweep(args, device: torch.device) -> dict:
     would."""
     from skypilot_tpu_torch.utils import prefix_hash
     sys_tokens = args.shared_prefix_tokens
-    common = ['--prefix-cache', '--kv-dtype', 'int8']
+    common = ['--kv-dtype', 'int8']
     if args.n_pages:
         common += ['--n-pages', str(args.n_pages)]
     with _Servers(args, device, [common + ['--role', 'prefill'],
@@ -735,11 +809,491 @@ def run_disagg_sweep(args, device: torch.device) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# --sweep coldstart
+# ---------------------------------------------------------------------------
+def libraries(build_dir) -> Dict[str, float]:
+    """The kernel libraries in a build directory: file name -> mtime."""
+    return {p.name: p.stat().st_mtime
+            for p in sorted(pathlib.Path(build_dir).glob('*.so'))}
+
+
+def coldstart_boot(args, device: torch.device, build_dir: str, boot: int,
+                   then=None, flags=()) -> dict:
+    """One whole server boot with ``--compile-cache-dir build_dir``: spawn
+    -> ``/health`` ready -> the first streamed token, the server's
+    ``coldstart.*`` stamps, the seconds each ``nvcc`` of the boot took,
+    and the libraries the boot added to ``build_dir`` (with every
+    library's mtime before and after). ``then(base_url)``, when given,
+    runs against the ready server before it stops; its result is
+    ``then``. ``flags``: more server flags for this boot."""
+    before = libraries(build_dir)
+    with _Servers(args, device,
+                  [['--compile-cache-dir', build_dir, *flags]]) as servers:
+        base = servers.bases[0]
+        ttft = _streamed_request(base + '/generate', {'prompt': 'hello'},
+                                 4)[0]
+        stamps = {ev['event'].split('.', 1)[1]:
+                  {k: v for k, v in ev.items() if k.endswith('_s')}
+                  for ev in _get_json(base + '/debug/stepline')['events']
+                  if ev['event'].startswith('coldstart.')}
+        metrics = _get_json(base + '/metrics')
+        extra = then(base) if then is not None else None
+        ready_s = servers.ready_s
+    after = libraries(build_dir)
+    out = {'boot': boot,
+           'time_to_ready_s': ready_s,
+           'first_token_s': ready_s + ttft,
+           'ttft_after_ready_s': ttft,
+           'stamps': stamps,
+           'kernel_build_dir': metrics['kernel_build_dir'],
+           'nvcc_s': metrics['kernel_build_s'],
+           'libraries_added': sorted(set(after) - set(before)),
+           'library_mtimes_before': before,
+           'library_mtimes_after': after}
+    if then is not None:
+        out['then'] = extra
+    return out
+
+
+def run_coldstart_sweep(args, device: torch.device) -> dict:
+    """Two boots against one fresh build directory: the first compiles
+    the kernels it launches, the second loads them."""
+    with tempfile.TemporaryDirectory(prefix='sky-tpu-kernels-') as cache:
+        boots = [coldstart_boot(args, device, cache, i) for i in range(2)]
+    cold, warm = boots
+    return {
+        'metric': 'coldstart_ready_ratio_cold_over_warm',
+        'value': cold['time_to_ready_s'] / warm['time_to_ready_s'],
+        'unit': 'x (boot-1 time-to-ready, nvcc into an empty kernel build '
+                'directory / boot-2 time-to-ready, the same directory)',
+        'cold_time_to_ready_s': cold['time_to_ready_s'],
+        'warm_time_to_ready_s': warm['time_to_ready_s'],
+        'cold_first_token_s': cold['first_token_s'],
+        'warm_first_token_s': warm['first_token_s'],
+        'cold_nvcc_s': cold['nvcc_s'],
+        'warm_nvcc_s': warm['nvcc_s'],
+        'sweep_mode': 'coldstart',
+        'sweep': boots,
+        'model': args.model,
+        'slots': args.slots,
+        'path': 'whole server boot (spawn -> /health -> first streamed '
+                'token), the kernel build directory shared across boots',
+    }
+
+
+# ---------------------------------------------------------------------------
+# --sweep speculative
+# ---------------------------------------------------------------------------
+SPEC_COUNTERS = ('spec_steps', 'spec_slot_steps', 'spec_drafted_tokens',
+                 'spec_accepted_tokens', 'spec_emitted_tokens',
+                 'decode_steps', 'decode_tokens')
+
+
+def speculative_level(gen_url: str, metrics_url: str, concurrency: int,
+                      n_requests: int, spec_k: int, max_new: int,
+                      uniq_base: int = 0) -> dict:
+    """One level: the same template-heavy prompts (a shared 12-token block
+    four times and a unique 6-token tail: the shape prompt-lookup drafting
+    is for) with per-request speculation off (plain decode steps), then
+    on, the replica's counters windowed around the second pass, and a
+    probe that one prompt gives the same greedy tokens both ways."""
+    template = _block(9973, 12) * 4
+
+    def payload(i: int, spec: bool) -> dict:
+        return {'tokens': template + _block(uniq_base + 31 + i, 6),
+                'max_new_tokens': max_new, 'spec': spec}
+
+    off = _sweep_level(gen_url, concurrency, n_requests, max_new,
+                       payload_for=lambda i: payload(i, False))
+    m0 = _get_json(metrics_url)
+    on = _sweep_level(gen_url, concurrency, n_requests, max_new,
+                      payload_for=lambda i: payload(i + n_requests, True))
+    m1 = _get_json(metrics_url)
+    d = {k: (m1.get(k) or 0) - (m0.get(k) or 0) for k in SPEC_COUNTERS}
+    probe = payload(10**9, False)
+    identical = (_spliced_request(gen_url, probe, max_new)['tokens']
+                 == _spliced_request(gen_url, {**probe, 'spec': True},
+                                     max_new)['tokens'])
+    out = {
+        'concurrency': concurrency,
+        'samples': off['samples'] + on['samples'],
+        'spec_k': spec_k,
+        'spec_off': off,
+        'spec_on': on,
+        'counters': d,
+        'accepted_len_mean': (d['spec_emitted_tokens'] / d['spec_slot_steps']
+                              if d['spec_slot_steps'] else None),
+        'spec_accept_rate': (d['spec_accepted_tokens']
+                             / d['spec_drafted_tokens']
+                             if d['spec_drafted_tokens'] else None),
+        'tokens_per_step': (d['decode_tokens'] / d['decode_steps']
+                            if d['decode_steps'] else None),
+        'bit_identical': identical,
+    }
+    if on['itl_p50_ms'] and off['itl_p50_ms']:
+        # > 1: speculation cut the time between tokens by that factor.
+        out['itl_improvement_x'] = off['itl_p50_ms'] / on['itl_p50_ms']
+    if on['ttft_p50_s'] and off['ttft_p50_s']:
+        out['ttft_ratio_on_over_off'] = on['ttft_p50_s'] / off['ttft_p50_s']
+    return out
+
+
+def warm_speculative(gen_url: str, concurrency: int, n: int,
+                     max_new: int) -> None:
+    """Run decode and verify off the clock: one pass with speculation
+    off, one with it on."""
+    for base, spec in ((777, False), (8777, True)):
+        _sweep_level(gen_url, concurrency, n, max_new,
+                     payload_for=lambda i, b=base, sp=spec: {
+                         'tokens': _block(b + i, 54), 'spec': sp})
+
+
+def run_speculative_sweep(args, device: torch.device) -> dict:
+    """The server with ``--spec-k``: speculation off vs on at each
+    level."""
+    with _Servers(args, device, [[]]) as servers:
+        base = servers.bases[0]
+        gen_url, metrics_url = base + '/generate', base + '/metrics'
+        cold_s = _streamed_request(gen_url, {'prompt': 'cold request'},
+                                   args.new_tokens)[0]
+        warm_speculative(gen_url, max(args.concurrency), args.slots,
+                         args.spec_max_new)
+        sweep = [speculative_level(gen_url, metrics_url, conc,
+                                   args.requests_per_level, args.spec_k,
+                                   args.spec_max_new,
+                                   uniq_base=(li + 1) * 1_000_000)
+                 for li, conc in enumerate(args.concurrency)]
+        metrics = _get_json(metrics_url)
+        ready_s = servers.ready_s
+    first = sweep[0] if sweep else {}
+    return {
+        'metric': 'speculative_itl_improvement_x',
+        'value': first.get('itl_improvement_x'),
+        'unit': 'x (spec-off itl p50 / spec-on itl p50, same '
+                'template-heavy workload, first level)',
+        'accepted_len_mean': first.get('accepted_len_mean'),
+        'spec_accept_rate': first.get('spec_accept_rate'),
+        'tokens_per_step': first.get('tokens_per_step'),
+        'spec_on_itl_p50_ms': (first.get('spec_on') or {}).get('itl_p50_ms'),
+        'spec_off_itl_p50_ms': (first.get('spec_off') or {}).get(
+            'itl_p50_ms'),
+        'bit_identical': all(lv['bit_identical'] for lv in sweep),
+        'spec_k': args.spec_k,
+        'sweep_mode': 'speculative',
+        'server_ready_s': ready_s,
+        'cold_first_request_s': cold_s,
+        'sweep': sweep,
+        'total_samples': sum(lv['samples'] for lv in sweep),
+        'model': args.model, 'slots': args.slots,
+        'spec_max_new': args.spec_max_new,
+        'server_metrics': {k: metrics.get(k) for k in (
+            'spec_steps', 'spec_accept_rate', 'accepted_len_mean',
+            'step_programs', 'kernel_launches', 'integrity', 'paged')},
+        'path': 'client -> torch replica server with --spec-k (streamed; '
+                'client-side send -> first token line clock)',
+    }
+
+
+# ---------------------------------------------------------------------------
+# --sweep tenants
+# ---------------------------------------------------------------------------
+def tenant_trace_spec(level: int) -> dict:
+    """The 10:1 aggressor/victim mix at ``level``: the victim at about
+    ``level`` requests/s in bursts of 2, the aggressor at 10x in bursts of
+    10 with longer prompts, 8 new tokens each (the reference's)."""
+    return {
+        'victim': {'rps': float(level), 'burst': 2, 'prompt_mean': 16,
+                   'prompt_max': 48, 'max_new': 8},
+        'aggressor': {'rps': 10.0 * level, 'burst': 10, 'prompt_mean': 24,
+                      'prompt_max': 96, 'max_new': 8},
+    }
+
+
+def tenant_level(gen_url: str, metrics_url: str, level: int, seed: int,
+                 duration_s: float, trace_path: Optional[str] = None
+                 ) -> dict:
+    """One level: the seeded trace (or ``trace_path``) replayed with the
+    tenant header; per-tenant TTFT, time between tokens and shed rate, and
+    the replica's counters over the level (its 429s and each tenant's
+    sheds and decode tokens, from ``/metrics``)."""
+    if trace_path:
+        events, _ = loadgen.load_trace(trace_path)
+    else:
+        events = loadgen.synthesize(seed, tenant_trace_spec(level),
+                                    duration_s=duration_s)
+    m0 = _get_json(metrics_url)
+    records = loadgen.replay_over_http(events, gen_url)
+    m1 = _get_json(metrics_url)
+
+    def tenant_delta(key: str) -> dict:
+        # The replica's per-tenant counters are cumulative: each level
+        # reports its own traffic.
+        t0 = m0.get('tenants') or {}
+        return {t: row.get(key, 0) - (t0.get(t) or {}).get(key, 0)
+                for t, row in (m1.get('tenants') or {}).items()}
+    return {
+        'concurrency': level,
+        'samples': len(records),
+        'trace_events': len(events),
+        'tenants': loadgen.tenant_summary(records),
+        'replica_requests_shed': (m1.get('requests_shed', 0)
+                                  - m0.get('requests_shed', 0)),
+        'replica_tenants_shed': tenant_delta('requests_shed'),
+        'replica_tenants_decode_tokens': tenant_delta('decode_tokens'),
+        'engine_queue_depth_after': m1.get('num_waiting'),
+    }
+
+
+def run_tenants_sweep(args, device: torch.device) -> dict:
+    """The server with a scheduler and a bounded queue; the trace at each
+    level."""
+    with _Servers(args, device, [[]]) as servers:
+        base = servers.bases[0]
+        gen_url, metrics_url = base + '/generate', base + '/metrics'
+        cold_s = _streamed_request(gen_url, {'prompt': 'cold request'},
+                                   args.new_tokens)[0]
+        _sweep_level(gen_url, max(args.concurrency), 2 * args.slots,
+                     args.new_tokens)   # warm, off the clock
+        sweep = [tenant_level(gen_url, metrics_url, level, args.trace_seed,
+                              args.trace_duration, trace_path=args.trace)
+                 for level in args.concurrency]
+        metrics = _get_json(metrics_url)
+        ready_s = servers.ready_s
+    first = sweep[0] if sweep else {}
+    vict = (first.get('tenants') or {}).get('victim') or {}
+    aggr = (first.get('tenants') or {}).get('aggressor') or {}
+    return {
+        'metric': 'tenants_victim_ttft_p99_s',
+        'value': vict.get('ttft_p99_s'),
+        'unit': 'seconds (victim p99 TTFT under a 10:1 aggressor tenant, '
+                'first level)',
+        'victim_shed_rate': vict.get('shed_rate'),
+        'aggressor_shed_rate': aggr.get('shed_rate'),
+        'victim_queue_wait_p99_ms': vict.get('queue_wait_p99_ms'),
+        'victim_itl_p99_ms': vict.get('itl_p99_ms'),
+        'scheduler': args.scheduler,
+        'trace_seed': args.trace_seed,
+        'trace_duration_s': args.trace_duration,
+        'max_queue_requests': 4 * args.slots,
+        'sweep_mode': 'tenants',
+        'server_ready_s': ready_s,
+        'cold_first_request_s': cold_s,
+        'sweep': sweep,
+        'total_samples': sum(lv['samples'] for lv in sweep),
+        'model': args.model, 'slots': args.slots,
+        'server_metrics': {k: metrics.get(k) for k in (
+            'scheduler', 'requests_shed', 'tenants', 'step_programs',
+            'kernel_launches', 'integrity', 'paged')},
+        'path': 'trace replay (X-SkyTpu-Tenant) -> torch replica server '
+                '(streamed; client-side clock)',
+    }
+
+
+# ---------------------------------------------------------------------------
+# --sweep chaos-resume
+# ---------------------------------------------------------------------------
+def _spliced_request(gen_url: str, payload: dict, max_new_tokens: int,
+                     cut_after: Optional[int] = None,
+                     timeout: float = 600.0) -> dict:
+    """One streamed request. With ``cut_after``, the client hangs up after
+    that many lines and re-posts the request with ``resume_from`` = the
+    tokens delivered so far, splicing the new leg's tokens on: what the
+    serve load balancer does when a replica's stream dies. Returns the
+    wall time, the resumes, whether a done line closed the stream, the
+    spliced tokens and how many of them came before the cut."""
+    body = {'max_new_tokens': max_new_tokens, 'stream': True, **payload}
+    t0 = time.perf_counter()
+    delivered: List[int] = []
+    resumes, completed, cut_at = 0, False, None
+    try:
+        while True:
+            leg = {**body, 'resume_from': delivered} if resumes else body
+            req = urllib.request.Request(
+                gen_url, data=json.dumps(leg).encode(),
+                headers={'Content-Type': 'application/json'})
+            lines, cut = 0, False
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                for line in iter(r.readline, b''):
+                    if not line.strip():
+                        continue
+                    obj = json.loads(line)
+                    if 'error' in obj:
+                        raise RuntimeError(obj['error'])
+                    if obj.get('done'):
+                        completed = True
+                        break
+                    delivered.extend(obj.get('tokens') or [])
+                    lines += 1
+                    if (cut_after is not None and not resumes
+                            and lines >= cut_after):
+                        cut = True     # closing the response: the cut
+                        break
+            if not cut:
+                break
+            resumes += 1
+            cut_at = len(delivered)
+    except (OSError, ValueError, RuntimeError):
+        completed = False
+    return {'duration_s': time.perf_counter() - t0, 'resumed': resumes,
+            'completed': completed, 'tokens': delivered, 'cut_at': cut_at}
+
+
+def _chaos_pass(gen_url: str, concurrency: int, n_requests: int,
+                max_new_tokens: int, cut_after: Optional[int]) -> tuple:
+    """``n_requests`` at ``concurrency`` in flight, every second one cut
+    after ``cut_after`` lines (None: none cut). Returns (stats, each
+    request's tokens)."""
+    with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
+        futs = [pool.submit(_spliced_request, gen_url,
+                            {'prompt': f'chaos request {i}'}, max_new_tokens,
+                            cut_after if i % 2 == 0 else None)
+                for i in range(n_requests)]
+        results = [f.result() for f in futs]
+    clean = sorted(r['duration_s'] for r in results
+                   if r['completed'] and not r['resumed'])
+    resumed = sorted(r['duration_s'] for r in results
+                     if r['completed'] and r['resumed'])
+    completed = sum(r['completed'] for r in results)
+    return {
+        'concurrency': concurrency,
+        'issued': n_requests,
+        'completed': completed,
+        'completed_rate': completed / n_requests,
+        'resumes': sum(r['resumed'] for r in results),
+        'resumed_streams': len(resumed),
+        'clean_total_p99_s': loadgen.pct(clean, 0.99),
+        'resumed_total_p99_s': loadgen.pct(resumed, 0.99),
+    }, results
+
+
+def chaos_resume_level(gen_url: str, concurrency: int, n_requests: int,
+                       max_new_tokens: int, kill_after_chunks: int) -> dict:
+    """One level: an uninterrupted pass, then the chaos pass; every
+    spliced stream is held to the same request's uninterrupted tokens
+    (greedy: a resume must not change them). ``spliced`` lists each
+    resumed stream (its prompt, the tokens before the cut and in all),
+    ``parted`` those that differ from their twin, where, and the twin's
+    tokens."""
+    clean, want = _chaos_pass(gen_url, concurrency, n_requests,
+                              max_new_tokens, None)
+    chaos, got = _chaos_pass(gen_url, concurrency, n_requests,
+                             max_new_tokens, kill_after_chunks)
+    spliced, parted = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not g['resumed']:
+            continue
+        spliced.append({'request': i, 'prompt': f'chaos request {i}',
+                        'cut_at': g['cut_at'], 'tokens': g['tokens']})
+        if g['tokens'] != w['tokens']:
+            at = next((j for j, (a, b) in enumerate(zip(g['tokens'],
+                                                        w['tokens']))
+                       if a != b), min(len(g['tokens']), len(w['tokens'])))
+            parted.append({'request': i, 'at': at, 'want': w['tokens']})
+    level = {'concurrency': concurrency,
+             'samples': clean['issued'] + chaos['issued'],
+             'uninterrupted': clean, 'chaos': chaos,
+             'completed_rate': chaos['completed_rate'],
+             'resumes': chaos['resumes'],
+             'bit_identical': not parted, 'parted': parted,
+             'spliced': spliced}
+    if chaos['resumed_total_p99_s'] and clean['clean_total_p99_s']:
+        # The price of a mid-stream failover: resumed p99 over untouched.
+        level['resume_added_p99_s'] = (chaos['resumed_total_p99_s']
+                                       - clean['clean_total_p99_s'])
+    return level
+
+
+def run_chaos_resume_sweep(args, device: torch.device) -> dict:
+    """The server, and the bench cutting and resuming every second
+    stream."""
+    with _Servers(args, device, [[]]) as servers:
+        base = servers.bases[0]
+        gen_url = base + '/generate'
+        cold_s = _streamed_request(gen_url, {'prompt': 'cold request'},
+                                   args.new_tokens)[0]
+        _sweep_level(gen_url, max(args.concurrency), 2 * args.slots,
+                     args.new_tokens)   # warm, off the clock
+        sweep = [chaos_resume_level(gen_url, conc, args.requests_per_level,
+                                    args.new_tokens, args.kill_after_chunks)
+                 for conc in args.concurrency]
+        metrics = _get_json(base + '/metrics')
+        ready_s = servers.ready_s
+    first = sweep[0] if sweep else {}
+    return {
+        'metric': 'chaos_resume_completed_rate',
+        'value': first.get('completed_rate'),
+        'unit': 'completed streams / issued (every second stream cut '
+                'mid-stream and resumed, first level)',
+        'resumes': sum(lv['resumes'] for lv in sweep),
+        'resume_added_p99_s': first.get('resume_added_p99_s'),
+        'bit_identical': all(lv['bit_identical'] for lv in sweep),
+        'kill_after_chunks': args.kill_after_chunks,
+        'sweep_mode': 'chaos-resume',
+        'server_ready_s': ready_s,
+        'cold_first_request_s': cold_s,
+        'sweep': sweep,
+        'total_samples': sum(lv['samples'] for lv in sweep),
+        'model': args.model, 'slots': args.slots,
+        'new_tokens': args.new_tokens,
+        'server_metrics': {k: metrics.get(k) for k in (
+            'requests_cancelled', 'step_programs', 'kernel_launches',
+            'integrity', 'paged')},
+        'path': 'client (cutting every second stream and resuming it with '
+                'resume_from, as the serve load balancer splices) -> torch '
+                'replica server',
+    }
+
+
+_REVISION_RE = re.compile(r'^TTFT_r(\d+)\.json$')
+
+
+def resolve_output(output: Optional[str], clobber: bool) -> Optional[str]:
+    """``--output``: ``auto`` is the next free ``TTFT_rNN.json`` in the
+    working directory (max + 1 of those there); an existing path is
+    refused unless ``--clobber`` (the reference's rules)."""
+    if not output:
+        return output
+    if output == 'auto':
+        revs = [int(m.group(1)) for m in
+                (_REVISION_RE.match(name) for name in os.listdir('.')) if m]
+        return f'TTFT_r{(max(revs) + 1 if revs else 1):02d}.json'
+    if os.path.exists(output) and not clobber:
+        raise SystemExit(f'refusing to overwrite existing {output!r} (pass '
+                         f'--clobber to allow, or --output auto for the next '
+                         f'free revision)')
+    return output
+
+
+def resolve_tokenizer(spec: Optional[str]) -> Optional[str]:
+    """``--tokenizer``: a path as it is; ``128k`` the derived 128,256-entry
+    word-level tokenizer.json, written once under ``$SKY_TPU_HOME/cache``
+    (default ``~/.sky_tpu``)."""
+    if spec != '128k':
+        return spec
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.observability import store
+    path = os.path.join(store.base_dir(), 'cache', 'tokenizer_128k.json')
+    if not os.path.exists(path):
+        print(f'[bench_ttft] deriving the 128k tokenizer -> {path}',
+              file=sys.stderr)
+        server_lib.synthesize_wordlevel_tokenizer(128_256, path)
+    return path
+
+
+SWEEPS = {'chunked': run_chunked_sweep,
+          'concurrency': run_concurrency_sweep,
+          'shared-prefix': run_shared_prefix_sweep,
+          'disagg': run_disagg_sweep,
+          'coldstart': run_coldstart_sweep,
+          'speculative': run_speculative_sweep,
+          'tenants': run_tenants_sweep,
+          'chaos-resume': run_chaos_resume_sweep}
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    p.add_argument('--sweep', choices=['chunked', 'concurrency',
-                                       'shared-prefix', 'disagg'],
-                   default='concurrency')
+    p.add_argument('--sweep', choices=SWEEPS, default='concurrency')
     p.add_argument('--model', default='8b',
                    choices=['tiny', '350m', '1b', '8b'])
     p.add_argument('--device', default='cuda',
@@ -753,9 +1307,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--page-size', type=int, default=64)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--concurrency', type=int, nargs='+', default=None,
-                   help='in-flight requests per level (concurrency '
-                        'sweep, default 1 4 8) or victims (chunked, '
-                        'default slots - 1)')
+                   help='in-flight requests per level (the server sweeps, '
+                        'default 1 4 8; tenants: the victim\'s requests/s, '
+                        'the aggressor 10x) or victims (chunked, default '
+                        'slots - 1)')
     p.add_argument('--requests-per-level', type=int, default=32)
     p.add_argument('--new-tokens', type=int, default=32,
                    help='tokens per request (the server sweeps)')
@@ -783,11 +1338,58 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument('--boot-timeout', type=float, default=900.0)
     p.add_argument('--server-log', default=None,
                    help='file for the server subprocess output')
+    p.add_argument('--prefix-cache', action='store_true',
+                   help='the servers\' shared-prefix KV reuse (needs '
+                        '--paged; shared-prefix and disagg imply both)')
+    p.add_argument('--spec-k', type=int, default=0,
+                   help='the servers\' speculative draft width (0 = off; '
+                        'the speculative sweep defaults it to 6)')
+    p.add_argument('--spec-ngram', type=int, default=3,
+                   help='the drafter\'s n-gram width (forwarded)')
+    p.add_argument('--spec-max-new', type=int, default=64,
+                   help='speculative sweep: tokens per request')
+    p.add_argument('--scheduler', default=None,
+                   choices=['fcfs', 'deadline', 'wfq'],
+                   help='the servers\' scheduling policy (default the '
+                        'server\'s fcfs, or wfq for the tenants sweep)')
+    p.add_argument('--tenant-weights', default=None,
+                   help="wfq weights, e.g. 'victim=2,aggressor=1' "
+                        '(forwarded)')
+    p.add_argument('--trace', default=None,
+                   help='tenants sweep: replay this trace file (the '
+                        'loadgen JSONL format) instead of synthesizing')
+    p.add_argument('--trace-seed', type=int, default=7,
+                   help='tenants sweep: the trace\'s seed')
+    p.add_argument('--trace-duration', type=float, default=6.0,
+                   help='tenants sweep: seconds of trace a level')
+    p.add_argument('--kill-after-chunks', type=int, default=6,
+                   help='chaos-resume: cut every second stream after this '
+                        'many lines')
+    p.add_argument('--long-prompt-tokens', type=int, default=0,
+                   help='concurrency sweep: every 8th request a prompt of '
+                        'about this many tokens, its TTFT reported apart')
+    p.add_argument('--tokenizer', default=None,
+                   help='the servers\' tokenizer.json (default: bytes); '
+                        "'128k' derives a 128,256-entry word-level one "
+                        'under $SKY_TPU_HOME/cache (loading it needs the '
+                        'tokenizers package)')
     p.add_argument('--output', default=None,
-                   help='also write the JSON document here')
+                   help="also write the JSON document here; 'auto': the "
+                        'next free TTFT_rNN.json in the working directory')
+    p.add_argument('--clobber', action='store_true',
+                   help='let --output overwrite an existing file')
     args = p.parse_args(argv)
+    args.output = resolve_output(args.output, args.clobber)
     if args.sweep in ('shared-prefix', 'disagg'):
         args.paged = True
+        args.prefix_cache = True
+    if args.sweep == 'tenants':
+        if args.scheduler is None:
+            args.scheduler = 'wfq'
+    if args.sweep == 'speculative' and not args.spec_k:
+        args.spec_k = 6
+    if args.prefix_cache and not args.paged:
+        raise SystemExit('--prefix-cache requires --paged')
     if args.concurrency is None:
         args.concurrency = ([args.slots - 1] if args.sweep == 'chunked'
                             else [1, 4, 8])
@@ -803,11 +1405,8 @@ def sweep(argv: Optional[List[str]] = None) -> dict:
         device = torch.device('cuda', torch.cuda.current_device()
                               if device.index is None else device.index)
     t0 = time.perf_counter()
-    run = {'chunked': run_chunked_sweep,
-           'concurrency': run_concurrency_sweep,
-           'shared-prefix': run_shared_prefix_sweep,
-           'disagg': run_disagg_sweep}[args.sweep]
-    result = run(args, device)
+    args.tokenizer = resolve_tokenizer(args.tokenizer)
+    result = SWEEPS[args.sweep](args, device)
     result.update(device=str(device), card=card_line(device),
                   torch=torch.__version__, quantize=args.quantize,
                   paged=args.paged or args.sweep == 'chunked',

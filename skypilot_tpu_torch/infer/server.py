@@ -68,6 +68,15 @@ int8 form of the random draw); ``--tokenizer`` names a ``tokenizer.json``
 text prompts. The replica stamps its cold-start timeline into the recorder:
 ``coldstart.weights_loaded`` (``load_s``) once the weights exist,
 ``coldstart.compiled`` (``warm_s``, ``total_s``) once every tier is warm.
+On the card its boot-time compile is ``nvcc``: the kernel sources the
+replica launches are compiled in parallel at the start of the warm-up
+(rank 0's, under ``--tp``; the other ranks of its host then load the
+same libraries), so that their seconds count in ``coldstart.compiled``'s
+``warm_s`` at every tp, into ``skypilot_tpu_torch/_build/`` or the
+directory ``--compile-cache-dir`` names (the port's counterpart of the reference's persistent XLA cache:
+libraries are named by a hash of their sources, so a relaunch on the same
+directory compiles nothing). ``/metrics`` carries ``kernel_build_dir`` and
+``kernel_build_s``, the seconds each compile of this boot took.
 
 The KV cache is dense by default, as the reference's: ``max_seq_len``
 rows per slot. ``--paged`` selects the paged cache (a shared page pool,
@@ -107,8 +116,10 @@ import argparse
 import http.server
 import json
 import logging
+import os
 import signal
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -122,6 +133,7 @@ from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.infer import multihost
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import prometheus as prom_lib
+from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import quant as quant_lib
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel import sharding as sharding_lib
@@ -248,6 +260,76 @@ class IncrementalDecoder:
         return delta
 
 
+def synthesize_wordlevel_tokenizer(vocab_size: int, path: str) -> str:
+    """Write a derived ``tokenizers`` WordLevel tokenizer.json of
+    ``vocab_size`` entries to ``path`` and return ``path`` (a copy of the
+    reference's): the 256 byte tokens, then synthetic words, split on
+    whitespace. For vocabulary-size workloads (the 128k-vocab serving
+    lane), where what matters is the model's vocabulary and the width of
+    the id distribution, not the words. Deterministic; JSON only, so
+    loading it needs the ``tokenizers`` package."""
+    vocab = {}
+    for b in range(min(256, vocab_size)):
+        vocab[f'<0x{b:02X}>'] = b
+    i = len(vocab)
+    while i < vocab_size:
+        vocab[f'w{i:07d}'] = i
+        i += 1
+    tok = {
+        'version': '1.0',
+        'truncation': None,
+        'padding': None,
+        'added_tokens': [],
+        'normalizer': None,
+        'pre_tokenizer': {'type': 'Whitespace'},
+        'post_processor': None,
+        'decoder': None,
+        'model': {
+            'type': 'WordLevel',
+            'vocab': vocab,
+            'unk_token': '<0x00>',
+        },
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f'{path}.tmp.{os.getpid()}'
+    with open(tmp, 'w', encoding='utf-8') as f:
+        json.dump(tok, f)
+    os.replace(tmp, path)
+    return path
+
+
+def setup_compile_cache(cache_dir: str) -> bool:
+    """Point the kernel build directory (``ops/_build.py``: the libraries
+    ``nvcc`` builds, named by a hash of their sources) at ``cache_dir``, so
+    a relaunched replica loads its kernels instead of compiling them: the
+    port's counterpart of the reference's persistent XLA compile cache.
+    Degradation, not failure, as the reference's: a directory that cannot
+    be made or written, or a process that already loaded a kernel, logs a
+    warning and keeps the current directory, and the replica serves."""
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+        with tempfile.TemporaryFile(dir=cache_dir):
+            pass
+        before = _build.BUILD_DIR
+        path = _build.set_build_dir(cache_dir)
+    except (OSError, RuntimeError) as e:
+        logger.warning('compile cache setup failed (%s: %s): building '
+                       'kernels in %s', type(e).__name__, e,
+                       _build.BUILD_DIR)
+        return False
+    if path != before:
+        logger.info('kernel build directory (compile cache) at %s', path)
+    return True
+
+
+def replica_sources(args: argparse.Namespace) -> tuple:
+    """The kernel sources this replica launches: paged decode and verify
+    (``paged_decode``) and prefill on either cache flavor, and the
+    int8-weight product with ``--quantize``."""
+    return ('paged_decode', 'paged_prefill') + (
+        ('qdot_int8',) if args.quantize else ())
+
+
 def parse_tenant_weights(spec: Optional[str]) -> Optional[dict]:
     """``'tenantA=4,tenantB=1'`` -> ``{'tenantA': 4.0, 'tenantB': 1.0}``
     (None/empty -> None); a malformed entry exits loudly (a copy of the
@@ -280,9 +362,13 @@ class InferenceServer:
                  boot_t0: Optional[float] = None,
                  role: str = 'mixed', kv_pull_timeout_s: float = 10.0,
                  kv_export_max_pages: int = 64,
-                 driver: Optional[multihost.MultihostEngineDriver] = None
+                 driver: Optional[multihost.MultihostEngineDriver] = None,
+                 kernel_sources: tuple = ()
                  ) -> None:
         self.engine = engine
+        # The kernel sources the warm-up builds before it launches
+        # anything (replica_sources on the card, none on the CPU).
+        self.kernel_sources = kernel_sources
         self.tokenizer = tokenizer or Tokenizer()
         # A tensor-parallel replica: submissions go through the lockstep
         # driver's broadcast, and its loop is the engine loop.
@@ -358,6 +444,11 @@ class InferenceServer:
         a prompt one past the previous tier's cap routes to the next."""
         try:
             t0 = time.time()
+            if self.kernel_sources:
+                secs = _build.build(self.kernel_sources)
+                logger.info('kernels in %s: %s', _build.BUILD_DIR,
+                            ', '.join(f'{k} {v:.1f}s'
+                                      for k, v in secs.items()))
             capture()
             tiers = getattr(self.engine, 'engines', [self.engine])
             warm = [submit([1], max_new_tokens=4)]
@@ -444,6 +535,10 @@ class InferenceServer:
             if self.drain_duration_s is not None:
                 m['drain_duration_s'] = round(self.drain_duration_s, 4)
         m['role'] = self.role
+        # The boot's nvcc: where the kernel libraries live and the seconds
+        # each compile of this process took (none on a warm directory).
+        m['kernel_build_dir'] = str(_build.BUILD_DIR)
+        m['kernel_build_s'] = dict(_build.compiled)
         if self.engine.kv_index_armed():
             m['kv_prefix_index'] = self.engine.kv_index_snapshot(since_gen)
         if prometheus:
@@ -1044,6 +1139,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help='tokenizer.json (needs the optional tokenizers '
                              'package) or sentencepiece .model for '
                              '/generate text; default: bytes')
+    parser.add_argument('--compile-cache-dir', default=None,
+                        help='kernel build directory, the persistent '
+                             'compile cache: the nvcc-built kernel '
+                             'libraries, named by a hash of their sources, '
+                             'so a relaunched replica loads its kernels '
+                             'instead of compiling them, cutting cold-start '
+                             'time-to-ready. Survives restarts; share it '
+                             'across replicas of one build. A directory '
+                             'that cannot be used only warns (the default '
+                             'skypilot_tpu_torch/_build/ is used)')
     args = parser.parse_args(argv)
     check_usage(args)
     return args
@@ -1139,7 +1244,10 @@ def server_from_args(args: argparse.Namespace,
                            role=args.role,
                            kv_pull_timeout_s=args.kv_pull_timeout_s,
                            kv_export_max_pages=args.kv_export_max_pages,
-                           driver=driver)
+                           driver=driver,
+                           kernel_sources=(replica_sources(args)
+                                           if _device_type(args) == 'cuda'
+                                           else ()))
 
 
 def _device_type(args: argparse.Namespace) -> str:
@@ -1169,6 +1277,9 @@ def _rank_main(args: argparse.Namespace, local_index: int, address: str,
     """One rank of a tensor-parallel replica: join the group, load this
     rank's weights, build its engine; global rank 0 serves HTTP through
     the lockstep driver, every other rank runs its loop."""
+    if args.compile_cache_dir:
+        # A spawned rank does not inherit the parent's module globals.
+        setup_compile_cache(args.compile_cache_dir)
     group = multihost.maybe_initialize_distributed(
         args.tp, local_index, _device_type(args), address)
     if group.rank == 0:
@@ -1205,6 +1316,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     boot_t0 = time.time()
+    if args.compile_cache_dir:
+        setup_compile_cache(args.compile_cache_dir)
     n_hosts, host_id, coordinator = mesh_lib.host_env()
     if n_hosts > 1 and args.tp == 1:
         # A multi-host replica exists to shard the model: every GPU of

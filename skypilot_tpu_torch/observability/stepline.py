@@ -26,6 +26,15 @@ Two export paths, as in the reference:
 Determinism contract: the recorder reads clocks and counters only; it
 never influences scheduling, sampling or page decisions, so greedy
 outputs are identical recorder on vs off.
+
+Profile smoke (the reference's ``make profile-smoke``): ``python -m
+skypilot_tpu_torch.observability.stepline [--device cpu]`` runs a tiny
+workload on the port's engine with a zero TTFT SLO, which forces a dump,
+and exits 0 only if the live Perfetto export validates, the dump writer
+drains, and the dump reads back from the span store, renders, validates
+and holds its ``stepline.trigger`` span. It runs on the card unless
+``--device cpu``: there on the smallest model preset whose shapes the
+paged attention kernels take.
 """
 from __future__ import annotations
 
@@ -533,3 +542,115 @@ def flush_dumps(timeout_s: float = 5.0) -> bool:
                 return False
             _dump_cv.wait(remaining)
     return True
+
+
+# ---- profile-smoke -------------------------------------------------------
+
+_SMOKE_PAGE = 16
+
+
+def _smoke_config(device):
+    """The smoke's model: the tiny preset on the CPU; on the card the
+    smallest preset whose head_dim, group and page the paged attention
+    kernels take."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import paged_attention as paged_attn
+    presets = (llama.LlamaConfig.tiny, llama.LlamaConfig.bench_350m,
+               llama.LlamaConfig.bench_1b, llama.LlamaConfig.llama3_8b)
+    if device.type != 'cuda':
+        return presets[0]()
+    for preset in presets:
+        cfg = preset()
+        try:
+            paged_attn.check_cuda_shape(cfg.head_dim,
+                                        cfg.n_heads // cfg.n_kv_heads,
+                                        _SMOKE_PAGE)
+        except ValueError:
+            continue
+        return cfg
+    raise RuntimeError('no model preset fits the paged attention kernels')
+
+
+def _smoke(argv: Optional[List[str]] = None) -> int:
+    """Run a tiny in-process workload with the recorder on, force an
+    anomaly dump (a zero TTFT SLO), and validate the live Perfetto export
+    and the dump's round trip through the span store. Exit code 0: the
+    flight recorder works end to end."""
+    import argparse
+    import json
+    import tempfile
+
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.observability import render
+    from skypilot_tpu_torch.observability import store as store_lib
+
+    parser = argparse.ArgumentParser(
+        description='flight-recorder smoke: a forced dump, validated')
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (default; raises without a card) or "
+                             "'cpu'")
+    args = parser.parse_args(argv)
+    device = engine_lib.resolve_device(args.device)
+    cfg = _smoke_config(device)
+    eng = engine_lib.InferenceEngine(
+        cfg, engine_lib.init_params_sharded(cfg, 1, 0, 0, device),
+        engine_lib.EngineConfig(
+            n_slots=2, max_seq_len=128, prefill_buckets=(16, 32),
+            prefill_chunk=32, paged=True, page_size=_SMOKE_PAGE,
+            # Any TTFT breaches a zero SLO: one dump at least.
+            ttft_slo_s=0.0),
+        device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = store_lib.SpanStore(
+            db_path=os.path.join(tmp, 'smoke-traces.db'))
+        set_dump_store(store)
+        try:
+            eng.generate([[7, 8, 9], [11] * 40], max_new_tokens=8)
+            snap = eng.stepline_snapshot()
+            errs = validate_perfetto(to_perfetto(snap))
+            if errs:
+                print('profile-smoke: live export INVALID:', errs)
+                return 1
+            if not snap['steps']:
+                print('profile-smoke: recorder captured no steps')
+                return 1
+            if not flush_dumps(10.0):
+                print('profile-smoke: dump writer did not drain')
+                return 1
+            dump = next((t for t in store.list_traces()
+                         if str(t.get('trace_id', ''))
+                         .startswith('stepline-')), None)
+            if dump is None:
+                print('profile-smoke: no anomaly dump in the store')
+                return 1
+            spans = store.get_trace(dump['trace_id'])
+            errs = validate_perfetto(render.to_perfetto(spans))
+            if errs:
+                print('profile-smoke: dump export INVALID:', errs)
+                return 1
+            if not any(s['name'] == 'stepline.trigger' for s in spans):
+                print('profile-smoke: dump lacks the trigger span')
+                return 1
+            summ = eng.stepline_summary()
+            print('profile-smoke OK:',
+                  json.dumps({'device': str(device),
+                              'model': {'dim': cfg.dim,
+                                        'n_layers': cfg.n_layers,
+                                        'head_dim': cfg.head_dim},
+                              'steps': summ['steps'],
+                              'step_mean_ms': summ['step_mean_ms'],
+                              'dump_spans': len(spans),
+                              'dump_trace': dump['trace_id']}))
+            return 0
+        finally:
+            set_dump_store(None)
+
+
+if __name__ == '__main__':
+    import sys
+
+    # `python -m` runs this file as `__main__`, a second module object:
+    # delegate to the canonical import, so that set_dump_store reaches
+    # the globals the engine's dump path reads.
+    from skypilot_tpu_torch.observability import stepline as _canonical
+    sys.exit(_canonical._smoke())

@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. Builds happen at first use (or all together, in parallel,
 through :func:`build`) into ``skypilot_tpu_torch/_build/``, which
-``.gitignore`` lists. A library's file name carries a hash of its source,
+``.gitignore`` lists, or into the directory :func:`set_build_dir` names
+(the replica's ``--compile-cache-dir``: a relaunched replica finds its
+libraries there and runs no ``nvcc``). A library's file name carries a
+hash of its source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited kernel or
 header is rebuilt and an unchanged one is loaded as it is; the
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
@@ -17,6 +20,7 @@ the package on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -40,6 +44,9 @@ SOURCES = ('paged_decode', 'paged_prefill', 'qdot_int8', 'flash_fwd',
            'flash_bwd', 'ce_fwd')
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# Wall seconds of each compile this process ran, by source name: what a
+# cold replica boot spent in nvcc (0 sources on a warm boot).
+compiled: Dict[str, float] = {}
 _lock = threading.Lock()
 
 
@@ -53,6 +60,22 @@ def _nvcc() -> str:
         raise BuildError('nvcc not found (on PATH or /usr/local/cuda/bin); '
                          'the CUDA kernels build only where the CUDA '
                          'toolkit is installed')
+    return path
+
+
+def set_build_dir(path) -> pathlib.Path:
+    """Build into and load from ``path`` instead of the default
+    ``_build/``. Refuses (RuntimeError) once a library is loaded: a
+    process serves one build directory. Returns the resolved path."""
+    global BUILD_DIR
+    path = pathlib.Path(path).expanduser().resolve()
+    with _lock:
+        if _libs and path != BUILD_DIR:
+            raise RuntimeError(
+                f'kernel libraries are already loaded from {BUILD_DIR} '
+                f'({", ".join(sorted(_libs))}); the build directory can '
+                f'only move before the first kernel launch')
+        BUILD_DIR = path
     return path
 
 
@@ -76,6 +99,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     seconds: Dict[str, float] = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -86,13 +110,21 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
         cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
                str(SRC_DIR / f'{name}.cu')]
-        procs.append((name, out, tmp, time.perf_counter(),
+        procs.append((name, out, tmp,
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT)))
-    errors: List[str] = []
-    for name, out, tmp, t0, proc in procs:
+
+    def finish(proc):
+        """The compiler's output and its own wall seconds (each compile
+        is drained on its own thread: waiting in turn would time a quick
+        one by the slow one before it)."""
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        return log, time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(procs))) as pool:
+        done = list(pool.map(finish, [p[-1] for p in procs]))
+    errors: List[str] = []
+    for (name, out, tmp, proc), (log, secs) in zip(procs, done):
+        seconds[name] = compiled[name] = secs
         out.with_suffix('.log').write_bytes(log)
         if proc.returncode != 0:
             errors.append(f'{name}: nvcc exited {proc.returncode}\n'

@@ -1,8 +1,9 @@
 """The port's serving sweeps (``skypilot_tpu_torch/bench_ttft.py``: chunked,
-concurrency, shared-prefix, disagg) at a tiny size on the CPU: each sweep
-prints one well-formed JSON document
-with the keys ``PERF.md`` reads, and without ``--device`` it refuses to
-run where there is no CUDA (it never falls back to the CPU quietly)."""
+concurrency, shared-prefix, disagg, coldstart, speculative, tenants and
+chaos-resume) at a tiny size on the CPU: each sweep prints one
+well-formed JSON document with the reference's head metric and the keys
+``PERF.md`` reads, and without ``--device`` it refuses to run where there
+is no CUDA (it never falls back to the CPU quietly)."""
 import json
 import os
 import pathlib
@@ -152,6 +153,112 @@ def test_disagg_sweep_prints_one_json_document():
     assert doc['value'] == doc['sweep'][0]['first_ttft_improvement_x']
 
 
+SMALL = ('--model', 'tiny', '--device', 'cpu', '--slots', '2',
+         '--max-seq-len', '256', '--page-size', '16')
+
+
+def test_coldstart_sweep_boots_twice_on_one_build_directory():
+    doc = _doc(_run('--sweep', 'coldstart', *SMALL))
+    assert doc['metric'] == 'coldstart_ready_ratio_cold_over_warm'
+    cold, warm = doc['sweep']
+    assert doc['value'] == pytest.approx(cold['time_to_ready_s']
+                                         / warm['time_to_ready_s'])
+    for boot in (cold, warm):
+        assert boot['first_token_s'] > boot['time_to_ready_s'] > 0
+        assert set(boot['stamps']) == {'weights_loaded', 'compiled'}
+        assert boot['stamps']['compiled']['total_s'] >= 0
+        # --compile-cache-dir reached the server; the CPU builds nothing.
+        assert boot['kernel_build_dir'] == cold['kernel_build_dir']
+        assert 'sky-tpu-kernels-' in boot['kernel_build_dir']
+        assert boot['nvcc_s'] == {} and boot['libraries_added'] == []
+        assert boot['library_mtimes_before'] == \
+            boot['library_mtimes_after'] == {}
+
+
+def test_speculative_sweep_runs_verify_and_keeps_greedy_tokens():
+    doc = _doc(_run('--sweep', 'speculative', *SMALL, '--concurrency', '2',
+                    '--requests-per-level', '3', '--spec-max-new', '16'))
+    assert doc['metric'] == 'speculative_itl_improvement_x'
+    assert doc['spec_k'] == 6 and doc['bit_identical'] is True
+    level = doc['sweep'][0]
+    assert level['counters']['spec_steps'] > 0       # verify ran
+    assert level['accepted_len_mean'] >= 1
+    assert 0 < level['spec_accept_rate'] <= 1
+    assert level['tokens_per_step'] > 1
+    assert doc['value'] == level['itl_improvement_x'] > 0
+    assert level['spec_off']['samples'] == level['spec_on']['samples'] == 3
+    assert doc['server_metrics']['step_programs']['verify'] == 1
+
+
+def test_tenants_sweep_reports_both_tenants():
+    doc = _doc(_run('--sweep', 'tenants', *SMALL, '--concurrency', '2',
+                    '--trace-duration', '2', '--new-tokens', '4'))
+    assert doc['metric'] == 'tenants_victim_ttft_p99_s'
+    assert doc['scheduler'] == 'wfq' and doc['max_queue_requests'] == 8
+    level = doc['sweep'][0]
+    assert set(level['tenants']) == {'victim', 'aggressor'}
+    assert level['samples'] == level['trace_events'] == sum(
+        t['issued'] for t in level['tenants'].values())
+    assert level['tenants']['aggressor']['issued'] > \
+        level['tenants']['victim']['issued']
+    vict = level['tenants']['victim']
+    assert doc['value'] == vict['ttft_p99_s'] > 0
+    assert level['replica_requests_shed'] == sum(
+        t['shed'] for t in level['tenants'].values())
+    assert level['replica_tenants_decode_tokens']['aggressor'] > 0
+
+
+def test_chaos_resume_sweep_splices_bitwise():
+    doc = _doc(_run('--sweep', 'chaos-resume', *SMALL, '--concurrency', '2',
+                    '--requests-per-level', '4', '--new-tokens', '16',
+                    '--kill-after-chunks', '3'))
+    assert doc['metric'] == 'chaos_resume_completed_rate'
+    assert doc['value'] == 1.0 and doc['resumes'] >= 1
+    assert doc['bit_identical'] is True
+    level = doc['sweep'][0]
+    assert level['uninterrupted']['resumes'] == 0
+    assert level['chaos']['resumed_streams'] == level['resumes'] >= 1
+    assert level['parted'] == []
+    assert doc['resume_added_p99_s'] == level['resume_added_p99_s']
+    # Each cut leg was cancelled on the replica when the client hung up.
+    assert doc['server_metrics']['requests_cancelled'] >= 1
+
+
+def test_tokenizer_128k_and_output_resolution(tmp_path, monkeypatch):
+    """``--tokenizer 128k`` writes the reference's derived tokenizer.json
+    (loading it needs the tokenizers package: only the file is checked);
+    ``--output auto`` takes the next free revision and an existing path
+    needs ``--clobber``."""
+    from skypilot_tpu.infer import server as jserver
+    from skypilot_tpu_torch import bench_ttft
+    monkeypatch.setenv('SKY_TPU_HOME', str(tmp_path / 'home'))
+    path = bench_ttft.resolve_tokenizer('128k')
+    assert path == str(tmp_path / 'home' / 'cache' / 'tokenizer_128k.json')
+    doc = json.loads(pathlib.Path(path).read_text())
+    assert len(doc['model']['vocab']) == 128_256
+    want = jserver.synthesize_wordlevel_tokenizer(
+        128_256, str(tmp_path / 'want.json'))
+    assert pathlib.Path(want).read_bytes() == pathlib.Path(path).read_bytes()
+    assert bench_ttft.resolve_tokenizer('tok.json') == 'tok.json'
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / 'TTFT_r03.json').write_text('{}')
+    assert bench_ttft.resolve_output('auto', False) == 'TTFT_r04.json'
+    with pytest.raises(SystemExit, match='clobber'):
+        bench_ttft.resolve_output('TTFT_r03.json', False)
+    assert bench_ttft.resolve_output('TTFT_r03.json', True) == \
+        'TTFT_r03.json'
+
+
+def test_long_prompt_lane_reports_apart():
+    doc = _doc(_run('--sweep', 'concurrency', *SMALL, '--concurrency', '2',
+                    '--requests-per-level', '8', '--new-tokens', '4',
+                    '--long-prompt-tokens', '100'))
+    assert doc['long_prompt_tokens'] == 100
+    [lv] = doc['sweep']
+    assert lv['samples'] == 8 and lv['long_samples'] == 1
+    assert lv['long_ttft_p50_s'] > 0 and lv['short_ttft_p50_s'] > 0
+
+
 def test_defaults_to_cuda_and_refuses_without_it():
     if torch.cuda.is_available():
         pytest.skip('checks the refusal where there is no CUDA')
@@ -159,3 +266,15 @@ def test_defaults_to_cuda_and_refuses_without_it():
     assert out.returncode != 0
     assert 'CUDA is not available' in out.stderr
     assert not out.stdout.strip()
+
+
+@pytest.mark.parametrize('name', ['coldstart', 'speculative', 'tenants',
+                                  'chaos-resume'])
+def test_new_sweeps_refuse_without_cuda(name):
+    """Without ``--device`` the sweep asks for the card and, where there
+    is none, raises before it starts any server."""
+    if torch.cuda.is_available():
+        pytest.skip('checks the refusal where there is no CUDA')
+    from skypilot_tpu_torch import bench_ttft
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        bench_ttft.sweep(['--sweep', name, '--model', 'tiny'])

@@ -41,6 +41,7 @@ def build_env(tmp_path, monkeypatch):
         (src / f'{name}.cu').write_text(f'// kernel {name}\n')
     monkeypatch.setattr(_build, 'SRC_DIR', src)
     monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'out')
+    monkeypatch.setattr(_build, 'compiled', {})
     return tmp_path
 
 
@@ -104,3 +105,24 @@ def test_missing_nvcc_is_a_build_error(monkeypatch):
     monkeypatch.setattr(_build.os.path, 'exists', lambda path: False)
     with pytest.raises(_build.BuildError, match='nvcc not found'):
         _build._nvcc()
+
+
+def test_set_build_dir_moves_builds_until_a_library_is_loaded(
+        build_env, monkeypatch):
+    """set_build_dir() moves where libraries are built and found, and
+    ``compiled`` records each compile's seconds; once a library is
+    loaded the directory refuses to move (the same one is accepted)."""
+    nvcc, log = _fake_nvcc(build_env)
+    monkeypatch.setattr(_build, '_nvcc', lambda: nvcc)
+    moved = build_env / 'cache'
+    assert _build.set_build_dir(str(moved)) == moved.resolve()
+    assert _build.library_path('k1').parent == moved.resolve()
+    secs = _build.build(['k1'])
+    assert _build.library_path('k1').exists()
+    assert _build.compiled == {'k1': secs['k1']} and secs['k1'] > 0
+    assert _build.build(['k1']) == {'k1': 0.0}
+    assert _build.compiled == {'k1': secs['k1']}     # nothing compiled
+    monkeypatch.setitem(_build._libs, 'k1', object())
+    with pytest.raises(RuntimeError, match='already loaded'):
+        _build.set_build_dir(str(build_env / 'elsewhere'))
+    assert _build.set_build_dir(str(moved)) == moved.resolve()

@@ -2,7 +2,8 @@
 (the observability copies, the serving sweep, the dense cache and the
 prefix cache's copies of ``prefix_hash``, ``kv_wire`` and ``prefix_cache``,
 the tensor-parallel ``parallel/`` and the lockstep ``infer/multihost``,
-the ResNet DDP path and the chip lock included) and
+the ResNet DDP path, the chip lock and the trace generator ``utils.loadgen``
+included) and
 ``chip_smoke.py``, which drives it on the card, loads neither JAX nor any
 module of the JAX package. Checked in a fresh interpreter, since
 this test process has both loaded."""
@@ -26,7 +27,7 @@ bad = sorted(m for m in sys.modules
              or m == 'skypilot_tpu' or m.startswith('skypilot_tpu.'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 41, names
+assert len(names) >= 42, names
 assert {'skypilot_tpu_torch.infer.sched.' + m
         for m in ('base', 'deadline', 'wfq')} <= set(names), names
 assert ({'skypilot_tpu_torch.observability.' + m
@@ -43,7 +44,8 @@ assert {'skypilot_tpu_torch.parallel.' + m
     | {'skypilot_tpu_torch.infer.multihost'} <= set(names), names
 assert {'skypilot_tpu_torch.models.resnet',
         'skypilot_tpu_torch.train.run_vision',
-        'skypilot_tpu_torch.utils.locks'} <= set(names), names
+        'skypilot_tpu_torch.utils.locks',
+        'skypilot_tpu_torch.utils.loadgen'} <= set(names), names
 '''
 
 

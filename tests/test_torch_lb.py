@@ -6,7 +6,10 @@ through the two load balancers must carry the same tokens (joined
 across their lines) and the same finish reason. Then the ``cache_aware``
 policy with its fleet prefix index in front of a torch prefill replica
 and a torch decode replica: the decode replica pulls the cohort's prefix
-from the prefill replica, and every stream equals a JAX replica's.
+from the prefill replica, and every stream equals a JAX replica's. Last,
+the load balancer's mid-stream resume: a chaos proxy
+(``tests/chaos/chaos_proxy.py``) severs a torch replica's stream, and the
+load balancer splices it onto the replica again with ``resume_from``.
 
 Each replica runs its own default control loop (the port: depth 1, fcfs,
 paged; the JAX replica: paged at depth 1), so the gate also holds the
@@ -259,3 +262,56 @@ def test_cache_aware_lb_routes_a_cohort_through_a_torch_prefill_decode_pair(
 def _lb_metrics(base):
     with urllib.request.urlopen(base + '/-/metrics', timeout=10) as r:
         return json.loads(r.read())
+
+
+def test_lb_resumes_a_severed_torch_stream_bitwise():
+    """The real load balancer (round_robin) over two routes to one torch
+    replica: first through a chaos proxy that severs every stream after 3
+    response chunks, then direct. A severed stream completes, its done
+    line counts at least one resume, and its tokens are the same
+    request's uninterrupted tokens (greedy: ``resume_from`` continues
+    exactly)."""
+    from tests.chaos.chaos_proxy import ChaosProxy
+    srv = tserver.InferenceServer(tserver.build_engine(
+        'tiny', 2, 128, 16, None, 'cpu', seed=0, paged=True))
+    port = srv.start('127.0.0.1', 0)
+    direct = f'http://127.0.0.1:{port}'
+    proxy = ChaosProxy(target_port=port, kill_every_s=3600.0,
+                       kill_after_chunks=3).start()
+    name = 'torch-resume-svc'
+    routes = [f'http://127.0.0.1:{proxy.port}', direct]
+    serve_state.add_service(name, spec_json='{}', task_yaml='', lb_port=0,
+                            lb_policy='round_robin')
+    for i, url in enumerate(routes):
+        rid = serve_state.add_replica(name, f'{name}-r{i}', version=1)
+        serve_state.set_replica_url(rid, url)
+        serve_state.set_replica_status(rid, serve_state.ReplicaStatus.READY)
+    lb = lb_lib.LoadBalancer(name, 'round_robin')
+    lb.policy.set_ready_replicas(list(routes))
+    lb_port = common_lib.free_port()
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(
+        target=lambda: (asyncio.set_event_loop(loop),
+                        loop.run_until_complete(lb.run('127.0.0.1',
+                                                       lb_port))),
+        daemon=True)
+    thread.start()
+    body = {'tokens': [5, 6, 7], 'max_new_tokens': 24, 'stream': True}
+    try:
+        _wait(direct + '/health', 'the torch replica')
+        _wait(f'http://127.0.0.1:{lb_port}/-/urls', 'the load balancer')
+        oracle = _stream(direct + '/generate', body)
+        lines = _stream(f'http://127.0.0.1:{lb_port}/generate', body)
+        done = lines[-1]
+        assert done.get('done') and done.get('resumed', 0) >= 1, done
+        assert [t for ln in lines[:-1] for t in ln['tokens']] == \
+            [t for ln in oracle[:-1] for t in ln['tokens']]
+        assert proxy.kills >= 1
+        m = _lb_metrics(f'http://127.0.0.1:{lb_port}')
+        assert m['requests_resumed'] >= 1 and m['requests_failed'] == 0
+    finally:
+        lb.stop()
+        thread.join(10)
+        loop.close()
+        proxy.stop()
+        srv.shutdown()

@@ -62,29 +62,42 @@ def _tp2_serves_tp1_tokens(tmp_path, flags, prompts):
     want = [r.output_tokens for r in tserver.server_from_args(
         args).engine.generate(prompts, max_new_tokens=9)]
     port = mesh.free_port()
-    log = open(tmp_path / 'server.log', 'w')
+    log_path = tmp_path / 'server.log'
+    log = open(log_path, 'w')
+    # One intra-op thread a rank (both inherit it): beside a loaded test
+    # run, each rank's pool of spinning OpenMP threads slows this tiny
+    # server past its deadlines (as test_torch_bench_ttft._run found).
     proc = subprocess.Popen(SERVER + flags + ['--tp', '2', '--port',
                                               str(port)],
-                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                            env={**os.environ, 'OMP_NUM_THREADS': '1'})
     base = f'http://127.0.0.1:{port}'
+
+    def server_log():
+        return '\nserver log:\n' + log_path.read_text()
     try:
         deadline = time.time() + 90
         while _get(base + '/health') != 200:
-            assert proc.poll() is None, (tmp_path / 'server.log').read_text()
-            assert time.time() < deadline, 'tp=2 server never turned healthy'
+            assert proc.poll() is None, server_log()
+            assert time.time() < deadline, ('tp=2 server never turned '
+                                            'healthy' + server_log())
             time.sleep(0.2)
-        got = [_post(base + '/generate', {'tokens': p, 'max_new_tokens': 9})
-               for p in prompts]
-        assert [g['tokens'] for g in got] == want
+        try:
+            got = [_post(base + '/generate',
+                         {'tokens': p, 'max_new_tokens': 9})
+                   for p in prompts]
+        except OSError as e:
+            raise AssertionError(f'/generate failed: {e!r}' + server_log())
+        assert [g['tokens'] for g in got] == want, server_log()
         with urllib.request.urlopen(base + '/metrics', timeout=10) as r:
             metrics = json.loads(r.read())
         proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=60) == 0
+        assert proc.wait(timeout=60) == 0, server_log()
     finally:
         if proc.poll() is None:
             proc.kill()
         log.close()
-    assert 'tp-rank-1 exited 0' in (tmp_path / 'server.log').read_text()
+    assert 'tp-rank-1 exited 0' in log_path.read_text(), server_log()
     return metrics
 
 
@@ -108,18 +121,23 @@ def saved_tiny(tmp_path_factory):
 
 
 @pytest.mark.parametrize('case', ['long_slots', 'checkpoint',
-                                  'checkpoint_quantize'])
+                                  'checkpoint_quantize',
+                                  'compile_cache_dir'])
 def test_tp2_server_tiers_and_checkpoints_serve_tp1_tokens(
         tmp_path, saved_tiny, case):
     """The recipes' other ``--tp`` command lines: a long tier beside the
     short one (a prompt past the short tier's cap routes there, on both
-    ranks' sliced weights), and ``--checkpoint`` restored and sliced by
-    each rank, quantized whole first with ``--quantize``."""
+    ranks' sliced weights), ``--checkpoint`` restored and sliced by
+    each rank, quantized whole first with ``--quantize``, and
+    ``--compile-cache-dir``, which the process and the spawned rank each
+    apply (the rank inherits no module globals)."""
     prompts = [[5, 17, 101, 7]]
     if case == 'long_slots':
         flags = ['--max-seq-len', '64', '--long-slots', '1',
                  '--long-seq-len', '128']
         prompts.append(list(range(20, 100)))
+    elif case == 'compile_cache_dir':
+        flags = ['--compile-cache-dir', str(tmp_path / 'kernels')]
     else:
         flags = ['--checkpoint', saved_tiny]
         if case == 'checkpoint_quantize':
@@ -131,6 +149,13 @@ def test_tp2_server_tiers_and_checkpoints_serve_tp1_tokens(
         assert [t['max_seq_len'] for t in metrics['tiers']] == [64, 128]
         # The warm-up's 64 tokens and the 80-token prompt.
         assert metrics['tiers'][1]['prefill_tokens'] >= 64 + 80
+    if case == 'compile_cache_dir':
+        assert metrics['kernel_build_dir'] == str(tmp_path / 'kernels')
+        assert metrics['kernel_build_s'] == {}     # the CPU builds nothing
+        # Applied in this process (rank 0) and again in rank 1's.
+        log = (tmp_path / 'server.log').read_text()
+        assert log.count('kernel build directory (compile cache) at') == 2, \
+            log
 
 
 def test_tp_beyond_the_gpus_and_paged_tp_fail_fast():

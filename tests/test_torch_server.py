@@ -439,3 +439,85 @@ def test_quantized_replica_serves_the_int8_engines_tokens(monkeypatch):
         tserver.server_from_args(tserver.parse_args(
             ['--port', '0', '--model', 'tiny', '--device', 'cpu',
              '--tokenizer', str(path)]))
+
+
+def test_compile_cache_dir_moves_the_kernel_build_directory(
+        tmp_path, monkeypatch, caplog):
+    """``--compile-cache-dir`` points the kernel build directory at its
+    argument (``/metrics`` says where, and the seconds each compile took:
+    none on the CPU). A directory that cannot be made, or one asked for
+    after a kernel library was loaded, only warns: the directory stays
+    where it was and the replica serves."""
+    from skypilot_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, 'BUILD_DIR', _build.BUILD_DIR)
+    default = _build.BUILD_DIR
+    (tmp_path / 'file').write_text('not a directory')
+    bad = str(tmp_path / 'file' / 'kernels')
+    args = tserver.parse_args(
+        ['--port', '0', '--model', 'tiny', '--slots', '2', '--max-seq-len',
+         '128', '--device', 'cpu', '--compile-cache-dir', bad])
+    assert args.compile_cache_dir == bad
+    with caplog.at_level('WARNING', logger=tserver.logger.name):
+        assert tserver.setup_compile_cache(args.compile_cache_dir) is False
+    assert 'compile cache setup failed' in caplog.text
+    assert _build.BUILD_DIR == default
+    srv = tserver.server_from_args(args)
+    base = f'http://127.0.0.1:{srv.start("127.0.0.1", 0)}'
+    try:
+        deadline = time.time() + 60
+        while _get(base + '/health')[0] != 200:
+            assert time.time() < deadline
+            time.sleep(0.05)
+        status, raw = _post(base + '/generate',
+                            {'tokens': [5, 6, 7], 'max_new_tokens': 4})
+        assert status == 200 and len(json.loads(raw)['tokens']) == 4
+        m = _get(base + '/metrics')[1]
+        assert m['kernel_build_dir'] == str(default)
+        assert m['kernel_build_s'] == {}
+    finally:
+        srv.shutdown()
+    good = tmp_path / 'kernels'
+    assert tserver.setup_compile_cache(str(good)) is True
+    assert _build.BUILD_DIR == good and good.is_dir()
+    # Once a library is loaded the directory stays.
+    monkeypatch.setitem(_build._libs, 'paged_decode', object())
+    caplog.clear()
+    with caplog.at_level('WARNING', logger=tserver.logger.name):
+        assert tserver.setup_compile_cache(str(tmp_path / 'other')) is False
+    assert 'already loaded' in caplog.text
+    assert _build.BUILD_DIR == good
+    assert tserver.replica_sources(args) == ('paged_decode', 'paged_prefill')
+    args.quantize = True
+    assert tserver.replica_sources(args)[-1] == 'qdot_int8'
+
+
+def test_warm_up_builds_the_replica_kernels_first(monkeypatch):
+    """The replica's kernel sources are built at the start of its warm-up,
+    before any step program is captured, so that a cold boot's compile
+    counts in ``coldstart.compiled``'s ``warm_s`` (on the CPU
+    ``server_from_args`` passes none: the wrappers run their plain
+    versions)."""
+    from skypilot_tpu_torch.ops import _build
+    order, stamps = [], {}
+
+    def build(names):
+        order.append(tuple(names))
+        time.sleep(0.3)
+        return {n: 0.3 for n in names}
+    monkeypatch.setattr(_build, 'build', build)
+    engine = _engine()
+    monkeypatch.setattr(engine, 'note_lifecycle_event',
+                        lambda event, **kw: stamps.setdefault(event, kw))
+
+    def finish(warm):
+        while not all(w.done for w in warm):
+            engine.step()
+    srv = tserver.InferenceServer(engine,
+                                  kernel_sources=('paged_decode', 'x'))
+    assert srv._warm_up(lambda: order.append('capture'), engine.submit,
+                        finish)
+    assert order == [('paged_decode', 'x'), 'capture']
+    assert stamps['coldstart.compiled']['warm_s'] >= 0.3
+    args = tserver.parse_args(['--port', '0', '--model', 'tiny',
+                               '--device', 'cpu'])
+    assert tserver.server_from_args(args).kernel_sources == ()

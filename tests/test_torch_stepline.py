@@ -17,7 +17,15 @@ package, on the CPU.
   the same file (found by request id), and both Perfetto exports, the
   dump's and the snapshot's, pass the JAX ``stepline.validate_perfetto``.
   Admission sheds and ``cache_full`` finishes dump too.
+- The profile-smoke twin (``python -m
+  skypilot_tpu_torch.observability.stepline --device cpu``) exits 0.
 """
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -227,3 +235,19 @@ def test_lifecycle_event_and_ring_cap(params):
         range(snap['steps_total'] - 8, snap['steps_total']))
     life = [e for e in snap['events'] if e['request_id'] == -1]
     assert life and life[0]['event'] == 'warm'
+
+
+def test_profile_smoke_twin_exits_0_on_the_cpu():
+    """``python -m skypilot_tpu_torch.observability.stepline --device
+    cpu`` (the reference's ``make profile-smoke``): a forced dump, the
+    live export and the dump's round trip validated, exit 0."""
+    out = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.observability.stepline',
+         '--device', 'cpu'],
+        cwd=pathlib.Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=300, env={**os.environ, 'OMP_NUM_THREADS': '1'})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.startswith('profile-smoke OK:'), out.stdout
+    doc = json.loads(out.stdout.split(':', 1)[1])
+    assert doc['device'] == 'cpu' and doc['steps'] > 0
+    assert doc['dump_spans'] > 2
