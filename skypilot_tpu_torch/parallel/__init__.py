@@ -1,5 +1,5 @@
-"""Tensor parallelism for serving (counterpart of the ``tp`` half of
-``skypilot_tpu/parallel/``): the process group (``mesh.py``), the
-Megatron placement of each parameter (``sharding.py``) and the explicit
-collectives the model runs where GSPMD would insert them
-(``collectives.py``)."""
+"""Parallelism (counterpart of ``skypilot_tpu/parallel/``): the process
+groups and meshes (``mesh.py``), the Megatron and ZeRO-3 placement of
+each parameter (``sharding.py``), the explicit collectives the model runs
+where GSPMD would insert them (``collectives.py``) and the GPipe pipeline
+(``pipeline.py``)."""

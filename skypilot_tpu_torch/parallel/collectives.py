@@ -25,6 +25,14 @@ the forward:
 - :func:`gather_replicated` (over ``tp``, for a computation every rank of
   the group repeats): forward all-gather; backward keeps the rank's slice
   and does not sum, since every rank computed the same whole gradient.
+- :func:`scatter_shards` (the MoE's expert exchange over ``ep``): forward
+  reduce-scatter; backward all-gather. Its way back is
+  :func:`gather_shards`.
+- :func:`ppermute` (ring attention's K/V rotation over ``sp``, the
+  pipeline's shift to the next stage over ``pp``): forward sends each
+  rank's tensor along a permutation (``lax.ppermute``); backward sends the
+  gradient along the inverse permutation. A rank that nobody sends to
+  receives zeros.
 
 ``torch.distributed.nn.functional.all_reduce`` is not used: its backward
 all-reduces again, which multiplies a replicated gradient by the group's
@@ -33,15 +41,18 @@ no-gradient halves (the checkpoint gathers whole leaves with the first).
 
 Each is the identity at world size 1 (``group`` None or of one rank): not
 called, so a single-card engine runs exactly the launches it ran before.
-The collectives run on ``group.pg``. With ``gloo`` over tensors on a card
-(ranks sharing one card, a correctness run) they stage explicitly through
+The collectives run on ``group.pg``; :func:`send_recv`, :func:`ppermute`'s
+no-gradient half, posts its sends and receives together
+(``dist.batch_isend_irecv``), so that a ring cannot deadlock. With
+``gloo`` over tensors on a card (ranks sharing one card, a correctness
+run) they stage explicitly through
 the host: a copy to the CPU, the collective there, a copy back. That
 synchronizes the stream, which is why such an engine runs without CUDA
 graphs; NCCL runs them on the card, inside a graph.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -166,6 +177,34 @@ def reduce_scatter_along(x: torch.Tensor, group: Optional[TPGroup],
     return out.to(x.device).movedim(0, axis)
 
 
+def send_recv(x: torch.Tensor, group: Optional[TPGroup],
+              perm: List[Tuple[int, int]]) -> torch.Tensor:
+    """What this rank receives when every rank ``i`` of the group sends
+    its ``x`` to ``j`` for each ``(i, j)`` of ``perm`` (a new tensor;
+    zeros where nobody sends to this rank). ``x`` itself at world size
+    1."""
+    if not _multi(group):
+        return x
+    src = _stage(x.contiguous(), group)
+    out = torch.zeros_like(src)
+    ops = []
+    for i, j in perm:
+        if i == group.rank and j == group.rank:
+            out.copy_(src)
+        elif i == group.rank:
+            ops.append(dist.P2POp(dist.isend, src,
+                                  dist.get_global_rank(group.pg, j),
+                                  group.pg))
+        elif j == group.rank:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(group.pg, i),
+                                  group.pg))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out.to(x.device)
+
+
 def _summed(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
     """The sum of every rank's ``x`` as a new tensor (``x`` untouched)."""
     return all_reduce_sum(x.clone(), group)
@@ -232,6 +271,37 @@ class _GatherReplicated(torch.autograd.Function):
         return _keep(g, ctx.group, ctx.axis), None, None
 
 
+class _ScatterShards(torch.autograd.Function):
+    """Forward reduce-scatter along ``axis`` (the sum over the group,
+    this rank keeping its block); backward all-gather (every rank's
+    block of the sum reads every rank's whole input)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return reduce_scatter_along(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_along(g, ctx.group, ctx.axis), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    """Forward :func:`send_recv` along ``perm``; backward along the
+    inverse permutation (the gradient of what a rank received goes back
+    to the rank that sent it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return send_recv(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(j, i) for i, j in ctx.perm]
+        return send_recv(g, ctx.group, back), None, None
+
+
 def gather_shards(x: torch.Tensor, group: Optional[TPGroup],
                   axis: int) -> torch.Tensor:
     """The whole tensor from the ranks' shards along ``axis``; its
@@ -257,3 +327,21 @@ def gather_replicated(x: torch.Tensor, group: Optional[TPGroup],
     computation that every rank of the group repeats whole; the gradient
     keeps the rank's block, unsummed."""
     return _GatherReplicated.apply(x, group, axis) if _multi(group) else x
+
+
+def scatter_shards(x: torch.Tensor, group: Optional[TPGroup],
+                   axis: int) -> torch.Tensor:
+    """This rank's block along ``axis`` of the sum of every rank's ``x``;
+    its gradient is all-gathered (the inverse of :func:`gather_shards`)."""
+    return _ScatterShards.apply(x, group, axis) if _multi(group) else x
+
+
+def ppermute(x: torch.Tensor, group: Optional[TPGroup],
+             perm: List[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute`` over the group: rank ``j`` receives the ``x`` of
+    rank ``i`` for each ``(i, j)`` of ``perm``, zeros if nobody sends to
+    it; the gradient goes back along the inverse permutation. Every rank
+    of the group calls it with the same ``perm``, and every rank must run
+    its backward (keep the result in the graph on every rank, as a
+    tensor-level ``where`` does), or a partner's send waits forever."""
+    return _PPermute.apply(x, group, perm) if _multi(group) else x

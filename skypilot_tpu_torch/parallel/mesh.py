@@ -1,5 +1,5 @@
-"""Process groups: serving's tensor-parallel group and training's
-``dp`` x ``fsdp`` x ``tp`` mesh (counterpart of
+"""Process groups: serving's tensor-parallel group, training's
+``dp`` x ``fsdp`` x ``tp`` mesh and the meshes of named axes (counterpart of
 ``skypilot_tpu/parallel/mesh.py`` and of ``tp_mesh`` in
 ``skypilot_tpu/infer/engine.py``).
 
@@ -13,19 +13,27 @@ one ``torch.distributed`` world.
   size 1 nothing is initialized and every collective is skipped. The
   reference's layout rules hold: ``tp`` no larger than the devices, and
   ranks striped evenly over hosts (:func:`check_layout`).
+- Meshes of named axes: :func:`axes_mesh` joins the world of an
+  :class:`AxesShape` (rank order ``np.arange(n).reshape(sizes)``, as the
+  reference's ``Mesh(devices.reshape(sizes), axes)``) and returns an
+  :class:`AxesMesh`: a :class:`TPGroup` along each axis and along each
+  combination asked for. The groups are made with ``dist.new_group``,
+  every rank creating every group in the same order (as ``new_group``
+  requires); an axis of size 1 gets no group, and a combination in which
+  one axis alone is larger than 1 is that axis' group. The reference's
+  layouts for sequence, pipeline and expert parallelism are
+  :data:`SP_AXES`, :data:`PP_AXES` and :data:`EP_AXES` (the MoE's data
+  axes: ``fsdp`` x ``ep``).
 - Training: :func:`make_mesh`, :func:`auto_mesh`,
   :func:`make_multislice_mesh` and :func:`mesh_from_hosts` choose a
   :class:`MeshShape` by the reference's rules, raising its ValueErrors;
-  :func:`train_mesh` joins the world and returns a :class:`TrainMesh`:
-  the rank's coordinates and one :class:`TPGroup` per axis (``dp``,
-  ``fsdp``, ``tp``) plus ``data``, the ``dp`` x ``fsdp`` ranks that share
-  the rank's ``tp`` coordinate (the batch's axes). The rank order is the
-  reference's ``np.array(devices).reshape(dp, fsdp, tp)``: rank ``r`` sits
-  at ``(r // (fsdp * tp), (r // tp) % fsdp, r % tp)``. The groups are made
-  with ``dist.new_group``, every rank creating every group of every axis
-  in the same order (as ``new_group`` requires); an axis of size 1 gets
-  no group, and at ``dp`` 1 or ``fsdp`` 1 ``data`` is the other axis'
-  group.
+  it is the :class:`AxesShape` over ``('dp', 'fsdp', 'tp')``, so rank
+  ``r`` sits at ``(r // (fsdp * tp), (r // tp) % fsdp, r % tp)``.
+  :func:`train_mesh` joins it through :func:`axes_mesh` and returns a
+  :class:`TrainMesh`: the rank's coordinates, one :class:`TPGroup` per
+  axis plus ``data``, the ``dp`` x ``fsdp`` ranks that share the rank's
+  ``tp`` coordinate (the batch's axes), and a ``gloo`` group of the whole
+  world for host values.
 
 The backend is ``nccl`` on CUDA and ``gloo`` on the CPU unless the caller
 names one (``backend='gloo'`` puts several ranks on one card, a
@@ -204,55 +212,198 @@ def run_local_ranks(lead: Callable, follower: Callable,
 
 
 # ---------------------------------------------------------------------------
+# Meshes of named axes
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AxesShape:
+    """Named axes and their sizes. Rank ``r`` sits where ``r`` sits in
+    ``np.arange(size).reshape(sizes)``: the last axis varies fastest, as
+    the reference's ``Mesh(devices.reshape(sizes), axes)`` places its
+    devices."""
+    axes: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for k in self.sizes:
+            n *= k
+        return n
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s coordinate on each axis."""
+        out = {}
+        for axis, n in zip(reversed(self.axes), reversed(self.sizes)):
+            out[axis] = rank % n
+            rank //= n
+        return {axis: out[axis] for axis in self.axes}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        """The rank at ``coords`` (:meth:`coords`' inverse)."""
+        rank = 0
+        for axis, n in zip(self.axes, self.sizes):
+            rank = rank * n + coords[axis]
+        return rank
+
+    def groups(self, names: Tuple[str, ...]) -> List[List[int]]:
+        """Every group of the ranks that differ only along the axes
+        ``names``, each in rank order (so along several axes the first of
+        the mesh's order varies slowest), the groups in the order of
+        their first rank."""
+        unknown = set(names) - set(self.axes)
+        if unknown:
+            raise ValueError(f'unknown mesh axes {sorted(unknown)}')
+        by_rest: Dict[tuple, List[int]] = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            key = tuple(c[a] for a in self.axes if a not in names)
+            by_rest.setdefault(key, []).append(r)
+        return list(by_rest.values())
+
+
+def group_name(names: Tuple[str, ...]) -> str:
+    """The key of the group along ``names`` in :attr:`AxesMesh.groups`
+    (``'fsdp+ep'``)."""
+    return '+'.join(names)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxesMesh:
+    """One rank's view of a mesh of named axes: its shape, rank, device
+    and backend, and a :class:`TPGroup` for each axis, and for each
+    combination of axes that was asked for, of more than one rank
+    (``groups[group_name(names)]``)."""
+    shape: AxesShape
+    rank: int = 0
+    device: torch.device = torch.device('cpu')
+    backend: Optional[str] = None
+    groups: Dict[str, TPGroup] = dataclasses.field(default_factory=dict)
+
+    @property
+    def size(self) -> int:
+        return self.shape.size
+
+    def coord(self, axis: str) -> int:
+        return self.shape.coords(self.rank)[axis]
+
+    def group(self, *names: str) -> TPGroup:
+        """The group along ``names`` (the world-size-1 group where they
+        span one rank)."""
+        return self.groups.get(group_name(names)) or single(self.device)
+
+
+def _join(world: int, rank: int, address: Optional[str],
+          device: torch.device, backend: Optional[str]) -> str:
+    """Join the ``world``-rank world at ``address`` as ``rank`` on
+    ``device``; returns the backend (default: :func:`default_backend`)."""
+    backend = backend or default_backend(device)
+    if backend not in BACKENDS:
+        raise ValueError(f'backend must be one of {BACKENDS}, got '
+                         f'{backend!r}')
+    if backend == 'nccl' and device.type != 'cuda':
+        raise ValueError(f'nccl needs a CUDA device, got {device}')
+    if address is None:
+        raise ValueError('a mesh of more than one rank needs the '
+                         'rendezvous address (host:port)')
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f'tcp://{address}',
+                            world_size=world, rank=rank)
+    return backend
+
+
+def axes_mesh(shape: AxesShape, rank: int, address: Optional[str] = None,
+              device='cpu', backend: Optional[str] = None,
+              combined: Tuple[Tuple[str, ...], ...] = ()) -> AxesMesh:
+    """Join the ``shape.size``-rank world at ``address`` (``host:port`` of
+    rank 0's TCP store) as ``rank`` on ``device`` with ``backend``
+    (default: :func:`default_backend`) and make one group along each axis
+    and along each tuple of axes in ``combined`` with ``dist.new_group``,
+    every rank creating every group in the same order (as ``new_group``
+    requires). An axis of size 1 gets no group; a combination in which one
+    axis alone is larger than 1 is that axis' group. Size 1 initializes
+    nothing."""
+    device = torch.device(device)
+    if shape.size == 1:
+        return AxesMesh(shape=shape, device=device)
+    backend = _join(shape.size, rank, address, device, backend)
+    sizes = dict(zip(shape.axes, shape.sizes))
+    groups = {}
+    for names in [(a,) for a in shape.axes] + list(combined):
+        live = tuple(a for a in names if sizes[a] > 1)
+        if len(live) == 1 and live != names:
+            if live[0] in groups:
+                groups[group_name(names)] = groups[live[0]]
+            continue
+        for ranks in shape.groups(names):
+            if len(ranks) == 1:
+                continue
+            pg = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                groups[group_name(names)] = TPGroup(
+                    rank=ranks.index(rank), world=len(ranks), device=device,
+                    backend=backend, pg=pg)
+    return AxesMesh(shape=shape, rank=rank, device=device, backend=backend,
+                    groups=groups)
+
+
+def destroy_mesh(mesh) -> None:
+    """Leave the world of a :class:`TrainMesh` or an :class:`AxesMesh` (a
+    no-op at size 1)."""
+    if mesh.size > 1 and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# The reference's layouts for ring attention, the GPipe pipeline and the
+# MoE (``Mesh(devices, ('sp',))``, ``Mesh(devices.reshape(dp, pp), ('dp',
+# 'pp'))``, ``Mesh(devices.reshape(fsdp, tp, ep), ('fsdp', 'tp', 'ep'))``).
+SP_AXES = ('sp',)
+PP_AXES = ('dp', 'pp')
+EP_AXES = ('fsdp', 'tp', 'ep')
+
+
+# ---------------------------------------------------------------------------
 # The training mesh
 # ---------------------------------------------------------------------------
 AXES = ('dp', 'fsdp', 'tp')
+# The batch's axes, the training mesh's ``data`` group.
+DATA_AXES = ('dp', 'fsdp')
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshShape:
-    """The sizes of the three axes; ``size`` ranks in all."""
+    """The sizes of the three axes; ``size`` ranks in all. The mesh is
+    :attr:`named`, the :class:`AxesShape` over :data:`AXES`."""
     dp: int = 1
     fsdp: int = 1
     tp: int = 1
 
     @property
+    def named(self) -> AxesShape:
+        return AxesShape(AXES, (self.dp, self.fsdp, self.tp))
+
+    @property
     def size(self) -> int:
-        return self.dp * self.fsdp * self.tp
+        return self.named.size
 
     @property
     def shape(self) -> Dict[str, int]:
         """``{'dp': .., 'fsdp': .., 'tp': ..}``, as ``Mesh.shape``."""
-        return dict(zip(AXES, (self.dp, self.fsdp, self.tp)))
+        return dict(zip(AXES, self.named.sizes))
 
     def coords(self, rank: int) -> Tuple[int, int, int]:
         """Rank ``rank``'s (dp, fsdp, tp) coordinates."""
-        return (rank // (self.fsdp * self.tp), (rank // self.tp) % self.fsdp,
-                rank % self.tp)
+        return tuple(self.named.coords(rank).values())
 
     def rank_of(self, dp: int, fsdp: int, tp: int) -> int:
         """The rank at coordinates (dp, fsdp, tp)."""
-        return (dp * self.fsdp + fsdp) * self.tp + tp
+        return self.named.rank_of(dict(dp=dp, fsdp=fsdp, tp=tp))
 
     def axis_groups(self, axis: str) -> List[List[int]]:
         """Every group of ranks along ``axis`` (``'data'``: ``dp`` and
         ``fsdp`` together, dp-major), each in rank order, the groups
         ordered by the other coordinates."""
-        ranges = dict(dp=range(self.dp), fsdp=range(self.fsdp),
-                      tp=range(self.tp))
-        if axis == 'data':
-            return [[self.rank_of(d, f, t) for d in ranges['dp']
-                     for f in ranges['fsdp']] for t in ranges['tp']]
-        if axis not in AXES:
-            raise ValueError(f'unknown mesh axis {axis!r}')
-        others = [a for a in AXES if a != axis]
-        groups = []
-        for i in ranges[others[0]]:
-            for j in ranges[others[1]]:
-                fixed = {others[0]: i, others[1]: j}
-                groups.append([self.rank_of(**{**fixed, axis: k})
-                               for k in ranges[axis]])
-        return groups
+        return self.named.groups(DATA_AXES if axis == 'data' else (axis,))
 
 
 def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1,
@@ -348,49 +499,19 @@ def single_mesh(device='cpu') -> TrainMesh:
 
 def train_mesh(shape: MeshShape, rank: int, address: Optional[str] = None,
                device='cpu', backend: Optional[str] = None) -> TrainMesh:
-    """Join the ``shape.size``-rank world at ``address`` (``host:port`` of
-    rank 0's TCP store) as ``rank`` on ``device`` with ``backend``
-    (default: :func:`default_backend`) and make the axis groups with
-    ``dist.new_group``. Size 1 initializes nothing."""
+    """Join the world as :func:`axes_mesh` does over ``shape.named``, with
+    ``data`` the group along :data:`DATA_AXES`, and add ``host_pg``. Size
+    1 initializes nothing."""
     device = torch.device(device)
     if shape.size == 1:
         return single_mesh(device)
-    backend = backend or default_backend(device)
-    if backend not in BACKENDS:
-        raise ValueError(f'backend must be one of {BACKENDS}, got '
-                         f'{backend!r}')
-    if backend == 'nccl' and device.type != 'cuda':
-        raise ValueError(f'nccl needs a CUDA device, got {device}')
-    if address is None:
-        raise ValueError('a mesh of more than one rank needs the '
-                         'rendezvous address (host:port)')
-    if device.type == 'cuda':
-        torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=f'tcp://{address}',
-                            world_size=shape.size, rank=rank)
-    groups = {}
-    sizes = dict(shape.shape, data=shape.dp * shape.fsdp)
-    for axis in AXES + ('data',):
-        if sizes[axis] == 1:
-            continue
-        if axis == 'data' and sizes['data'] in (shape.dp, shape.fsdp):
-            # dp 1 or fsdp 1: the data ranks are the other axis' group.
-            groups['data'] = groups['fsdp' if shape.dp == 1 else 'dp']
-            continue
-        for ranks in shape.axis_groups(axis):
-            # Every rank creates every group, in the same order.
-            pg = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
-                groups[axis] = TPGroup(rank=ranks.index(rank),
-                                       world=len(ranks), device=device,
-                                       backend=backend, pg=pg)
-    host_pg = (dist.group.WORLD if backend == 'gloo'
+    m = axes_mesh(shape.named, rank, address, device, backend,
+                  combined=(DATA_AXES,))
+    groups = dict(m.groups)
+    data = groups.pop(group_name(DATA_AXES), None)
+    if data is not None:
+        groups['data'] = data
+    host_pg = (dist.group.WORLD if m.backend == 'gloo'
                else dist.new_group(backend='gloo'))
-    return TrainMesh(shape=shape, rank=rank, device=device, backend=backend,
-                     groups=groups, host_pg=host_pg)
-
-
-def destroy_mesh(mesh: TrainMesh) -> None:
-    """Leave the world (a no-op at size 1)."""
-    if mesh.size > 1 and dist.is_initialized():
-        dist.destroy_process_group()
+    return TrainMesh(shape=shape, rank=rank, device=device,
+                     backend=m.backend, groups=groups, host_pg=host_pg)

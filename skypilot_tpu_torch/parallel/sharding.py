@@ -129,6 +129,15 @@ def map_tree(fn, params, path: Tuple[str, ...] = ()):
     return fn(path, params)
 
 
+def tree_leaves(params) -> Dict[Tuple[str, ...], object]:
+    """``{path: leaf}`` over a param tree, in :func:`map_tree`'s order;
+    ``map_tree(lambda path, _: flat[path], params)`` nests such a dict
+    again."""
+    flat: Dict[Tuple[str, ...], object] = {}
+    map_tree(flat.__setitem__, params)
+    return flat
+
+
 def shard_params(params, rank: int, tp: int):
     """Rank ``rank``'s slices of a whole param tree, bf16 or int8."""
     return map_tree(lambda path, leaf: shard_leaf(path, leaf, rank, tp),
@@ -314,20 +323,28 @@ class RankOps:
     takes this as ``shard``): each layer's weights gathered over fsdp,
     Megatron's copy into and reduction from tp, the vocab-parallel
     embedding's rank and the whole ``lm_head`` for the loss; and the data
-    axes' sums that make the loss the global mean."""
+    axes' sums that make the loss the global mean.
 
-    def __init__(self, mesh: TrainMesh):
+    ``spec(path)`` gives each leaf's split axes (``.fsdp``, ``.tp``;
+    :func:`train_spec` for Llama) and ``data`` names the mesh's group of
+    the batch's axes (``'data'``: dp x fsdp), so ``models/moe.py`` runs
+    its ``('fsdp', 'tp', 'ep')`` mesh through the same collectives."""
+
+    def __init__(self, mesh, spec: Callable = train_spec,
+                 data: str = 'data'):
         self.mesh = mesh
-        self.tp = mesh.shape.tp
-        self.tp_rank = mesh.coords[2]
-        self.data_world = mesh.shape.dp * mesh.shape.fsdp
+        self.spec = spec
+        tp = mesh.group('tp')
+        self.tp, self.tp_rank = tp.world, tp.rank
+        self.data = mesh.group(data)
+        self.data_world = self.data.world
 
     def gather(self, path: Tuple[str, ...],
                shard: torch.Tensor) -> torch.Tensor:
         """The leaf's fsdp shards put together (its tp block stays); the
         gradient is reduce-scattered back over fsdp. A ``('layers', k)``
         path takes one layer's slice of the stacked leaf."""
-        axis = train_spec(path).fsdp
+        axis = self.spec(path).fsdp
         if axis is None:
             return shard
         if path[0] == 'layers':
@@ -347,13 +364,11 @@ class RankOps:
         cannot partition the loss's Pallas call either)."""
         x = self.gather(('lm_head',), shard)
         return collectives.gather_replicated(x, self.mesh.group('tp'),
-                                             train_spec(('lm_head',)).tp)
+                                             self.spec(('lm_head',)).tp)
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the data axes (dp x fsdp) of a tensor without
-        gradient."""
-        return collectives.all_reduce_sum(x.detach().clone(),
-                                          self.mesh.group('data'))
+        """The sum over the data axes of a tensor without gradient."""
+        return collectives.all_reduce_sum(x.detach().clone(), self.data)
 
 
 def reduce_grad(path: Tuple[str, ...], g: torch.Tensor,

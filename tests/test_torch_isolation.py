@@ -2,8 +2,8 @@
 (the observability copies, the serving sweep, the dense cache and the
 prefix cache's copies of ``prefix_hash``, ``kv_wire`` and ``prefix_cache``,
 the tensor-parallel ``parallel/`` and the lockstep ``infer/multihost``,
-the ResNet DDP path, the chip lock and the trace generator ``utils.loadgen``
-included) and
+the ResNet DDP path, the chip lock, the trace generator ``utils.loadgen``,
+ring attention, the GPipe pipeline and the MoE included) and
 ``chip_smoke.py``, which drives it on the card, loads neither JAX nor any
 module of the JAX package. Checked in a fresh interpreter, since
 this test process has both loaded."""
@@ -27,7 +27,7 @@ bad = sorted(m for m in sys.modules
              or m == 'skypilot_tpu' or m.startswith('skypilot_tpu.'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 42, names
+assert len(names) >= 50, names
 assert {'skypilot_tpu_torch.infer.sched.' + m
         for m in ('base', 'deadline', 'wfq')} <= set(names), names
 assert ({'skypilot_tpu_torch.observability.' + m
@@ -46,6 +46,9 @@ assert {'skypilot_tpu_torch.models.resnet',
         'skypilot_tpu_torch.train.run_vision',
         'skypilot_tpu_torch.utils.locks',
         'skypilot_tpu_torch.utils.loadgen'} <= set(names), names
+assert {'skypilot_tpu_torch.ops.ring_attention',
+        'skypilot_tpu_torch.parallel.pipeline',
+        'skypilot_tpu_torch.models.moe'} <= set(names), names
 '''
 
 
