@@ -42,7 +42,10 @@ What the port keeps from the reference:
   decode steps, and speculation stands down for that step; greedy
   outputs are the same fused on and off;
 - the flight recorder (``stepline``): a ring of per-step records (stage
-  wall times, batch and chunk sizes, page pressure, queue depth) and
+  intervals, batch and chunk sizes, page pressure, queue depth), a ring
+  of per-program records (each dispatched program's rows, chunks and
+  KV tokens read, its device time and the idle gap before it, read from
+  CUDA events only after a wait the step loop makes anyway) and
   per-request timeline events, ``stepline_snapshot()`` /
   ``stepline_summary()``, and anomaly dumps (TTFT SLO, preemption,
   ``cache_full``, admission shed, SDC) into the span store, written off
@@ -646,17 +649,25 @@ class InferenceEngine:
         self._sdc_events = 0
         # ---- flight recorder --------------------------------------------
         # _sl_on is fixed at init and read lock-free; the rings behind it
-        # are guarded by _lock. Stage accumulators of the current step
-        # (engine thread only): dispatch = program launches, drain =
-        # consume bookkeeping, readback = waiting on a pair's event.
+        # are guarded by _lock. The current step's stage intervals
+        # (engine thread only; None outside a recorded step): its
+        # perf_counter start, (stage, offset, seconds) in the order they
+        # ran, the programs it dispatched and its decode batch.
         self._sl_on = bool(ecfg.stepline)
         self._stepline = (stepline_lib.StepRecorder(ecfg.stepline_cap)
                           if self._sl_on else None)
         self._pending_dumps: List[tuple] = []
-        self._sl_dispatch = 0.0
-        self._sl_drain = 0.0
-        self._sl_readback = 0.0
+        self._sl_t0 = 0.0
+        self._sl_stages: Optional[List[tuple]] = None
+        self._sl_programs = 0
         self._sl_batch = 0
+        # Program records whose CUDA events are unread, in dispatch order:
+        # (fields, start event, end event, the previous program's end
+        # event); and the last program's end (its event, on the CPU its
+        # perf_counter time), None after an idle tick (the device had no
+        # work: the next gap is not the engine's).
+        self._sl_pending: collections.deque = collections.deque()
+        self._sl_prev_end: Any = None
         # Queued requests dropped because the client went away,
         # requests cut by their deadline, active requests cancelled.
         self._abandoned = 0
@@ -1214,13 +1225,15 @@ class InferenceEngine:
         """Standalone dispatch of a prepared chunk through the prefill
         program (no host sync). True when the source is fully cached."""
         self._note_first_dispatch(plan.req)
-        t_d = time.perf_counter() if self._sl_on else 0.0
+        begin = self._sl_begin()
         self._stage_chunk(plan)
         sampled = plan.req.temperature > 0
+        self._sl_start(begin)
         self._run_program(('prefill', plan.bucket, sampled),
                           lambda: self._chunk_body(plan.bucket, sampled))
-        if self._sl_on:
-            self._sl_dispatch += time.perf_counter() - t_d
+        self._sl_program(begin, 'prefill', plan.bucket, plan.tl,
+                         [(plan.req.request_id, plan.off, plan.tl)],
+                         plan.off + plan.tl)
         with self._lock:
             self._prefill_tokens += plan.tl
             self._prefill_chunks += 1
@@ -1502,20 +1515,27 @@ class InferenceEngine:
                 return self._step()
             t0 = time.perf_counter()
             t_wall = time.time()
-            self._sl_dispatch = self._sl_drain = self._sl_readback = 0.0
-            self._sl_batch = 0
+            self._sl_t0 = t0
+            self._sl_stages = []
+            self._sl_programs = self._sl_batch = 0
             with self._lock:
                 pre = (self._prefill_tokens, self._spec_drafted,
                        self._spec_accepted, self._decode_steps,
                        self._spec_steps, self._fused_steps,
                        self._decode_tokens)
-            worked = self._step()
-            self._sl_record(t_wall, time.perf_counter() - t0, pre)
+            try:
+                worked = self._step()
+                if not worked and not self._sl_programs:
+                    self._sl_prev_end = None   # an idle tick
+                self._sl_record(t_wall, time.perf_counter() - t0, pre)
+            finally:
+                self._sl_stages = None
             self._flush_stepline_dumps()
             return worked
 
     def _step(self) -> int:
         self._service_kv_jobs()
+        t_s = time.perf_counter()
         with self._lock:
             self._sweep_dead_requests()
             spec_k = self._spec_k
@@ -1533,6 +1553,7 @@ class InferenceEngine:
                         self._stepline.note_event(
                             req.request_id, req.tenant, 'resume',
                             time.time(), slot=slot)
+        self._sl_stage('schedule', t_s)
         just_prefilled: List[int] = []
         deferred: set = set()
         plan: Optional[_ChunkPlan] = None
@@ -1541,9 +1562,11 @@ class InferenceEngine:
         if self._fused and has_decode and self._prefilling:
             # One chunk rides the decode dispatch; the scheduler picks
             # the slot. A dry pool defers it while decode goes on.
+            t_s = time.perf_counter()
             with self._lock:
                 slot = self._sched.next_prefill_slot(
                     sorted(self._prefilling), self._slots)
+            self._sl_stage('schedule', t_s)
             plan = self._prepare_chunk(slot)
         else:
             dispatched = 0
@@ -1552,9 +1575,11 @@ class InferenceEngine:
                                     if s not in deferred)
                 if not candidates:
                     break
+                t_s = time.perf_counter()
                 with self._lock:
                     slot = self._sched.next_prefill_slot(candidates,
                                                          self._slots)
+                self._sl_stage('schedule', t_s)
                 result = self._do_chunk(slot)
                 if result is None:
                     deferred.add(slot)
@@ -1809,13 +1834,15 @@ class InferenceEngine:
         return pair
 
     def _enqueue_readback(self, pair: torch.Tensor, decoded, prefilled,
-                          spec_r: Optional[int]) -> None:
+                          spec_r: Optional[int]
+                          ) -> Optional[torch.cuda.Event]:
         """Start the pair's copy into the next host ring buffer (pinned
         on CUDA, the copy asynchronous on the step's stream, so the next
         replay cannot overwrite the pair first), record an event after
-        it, and queue the step for consumption. The ring is rebuilt when
-        the depth changes or a pair outgrows it (room for a verify pair of
-        the current width); steps in flight keep their own buffers."""
+        it (returned), and queue the step for consumption. The ring is
+        rebuilt when the depth changes or a pair outgrows it (room for a
+        verify pair of the current width); steps in flight keep their own
+        buffers."""
         if (len(self._ring) != self._depth + 1
                 or self._ring[0].shape[0] < pair.shape[0]):
             pin = self.device.type == 'cuda'
@@ -1829,9 +1856,11 @@ class InferenceEngine:
         host.copy_(pair, non_blocking=True)
         event = None
         if self.device.type == 'cuda':
-            event = torch.cuda.Event()
+            # Timed with the recorder on: it ends the program's record.
+            event = torch.cuda.Event(enable_timing=self._sl_on)
             event.record()
         self._queue.append((host, event, decoded, prefilled, spec_r))
+        return event
 
     def _take_pending_first(self) -> List[tuple]:
         """The slots whose first token waits in _last since a standalone
@@ -1844,27 +1873,24 @@ class InferenceEngine:
         self._pending_first.clear()
         return out
 
-    def _note_dispatch(self, t_d: float, decoding: List[int]) -> None:
-        if self._sl_on:
-            self._sl_dispatch += time.perf_counter() - t_d
-            self._sl_batch = len(decoding)
-
     def _dispatch_decode(self, decoding: List[int],
                          just_prefilled: List[int]) -> None:
         """Dispatch one decode step (no host sync)."""
-        t_d = time.perf_counter() if self._sl_on else 0.0
+        begin = self._sl_begin()
+        kv = self._kv_read(decoding, 1) if begin else 0
         sampled = self._refresh_dispatch_state(decoding)
+        self._sl_start(begin)
         pair = self._run_program(('decode', 1, sampled),
                                  lambda: self._decode_body(sampled))
         with self._lock:
             self._decode_steps += 1
             for s in decoding:
                 self._inflight_tok[s] += 1
-        self._enqueue_readback(
+        end = self._enqueue_readback(
             pair, [(s, self._slots[s]) for s in decoding],
             self._take_pending_first()
             + [(s, self._slots[s]) for s in just_prefilled], None)
-        self._note_dispatch(t_d, decoding)
+        self._sl_program(begin, 'decode', 1, len(decoding), [], kv, end)
 
     def _dispatch_mixed(self, decoding: List[int], plan: _ChunkPlan) -> None:
         """Dispatch ONE mixed step (no host sync): the plan's chunk and
@@ -1872,11 +1898,14 @@ class InferenceEngine:
         queue like a decode pair; a chunk that completes its prompt
         surfaces its first token through row 0 and joins the next step's
         decode (one step later than unfused, the same tokens)."""
-        t_d = time.perf_counter() if self._sl_on else 0.0
+        begin = self._sl_begin()
+        kv = (self._kv_read(decoding, 1) + plan.off + plan.tl
+              if begin else 0)
         sampled = self._refresh_dispatch_state(decoding)
         sampled = sampled or plan.req.temperature > 0
         self._note_first_dispatch(plan.req)
         self._stage_chunk(plan)
+        self._sl_start(begin)
         pair = self._run_program(
             ('mixed', plan.bucket, sampled),
             lambda: self._mixed_body(plan.bucket, sampled))
@@ -1891,9 +1920,10 @@ class InferenceEngine:
         prefilled = self._take_pending_first()
         if completes:
             prefilled.append((plan.slot, plan.req))
-        self._enqueue_readback(
+        end = self._enqueue_readback(
             pair, [(s, self._slots[s]) for s in decoding], prefilled, None)
-        self._note_dispatch(t_d, decoding)
+        self._sl_program(begin, 'mixed', plan.bucket, len(decoding),
+                         [(plan.req.request_id, plan.off, plan.tl)], kv, end)
 
     # ---- speculative decoding -------------------------------------------
     def _spec_eligible(self, s: int, fresh: set) -> bool:
@@ -1961,15 +1991,17 @@ class InferenceEngine:
                          draft_lens: np.ndarray) -> None:
         """Dispatch one verify step (no host sync); its pair rides the
         in-flight queue like a decode pair."""
-        t_d = time.perf_counter() if self._sl_on else 0.0
-        sampled = self._refresh_dispatch_state(decoding)
+        begin = self._sl_begin()
         r = draft_mat.shape[1] + 1
+        kv = self._kv_read(decoding, r) if begin else 0
+        sampled = self._refresh_dispatch_state(decoding)
         if r not in self._drafts:
             self._drafts[r] = torch.zeros((self.ecfg.n_slots, r - 1),
                                           dtype=torch.int32,
                                           device=self.device)
         self._host_to_device(draft_mat, self._drafts[r])
         self._host_to_device(draft_lens, self._draft_lens)
+        self._sl_start(begin)
         pair = self._run_program(('verify', r, sampled),
                                  lambda: self._verify_body(r, sampled))
         with self._lock:
@@ -1977,11 +2009,11 @@ class InferenceEngine:
             self._spec_steps += 1
             for s in decoding:
                 self._inflight_tok[s] += int(draft_lens[s]) + 1
-        self._enqueue_readback(
+        end = self._enqueue_readback(
             pair, [(s, self._slots[s], int(draft_lens[s])) for s in decoding],
             self._take_pending_first()
             + [(s, self._slots[s]) for s in just_prefilled], r)
-        self._note_dispatch(t_d, decoding)
+        self._sl_program(begin, 'verify', r, len(decoding), [], kv, end)
 
     # ---- host bookkeeping ------------------------------------------------
     def _consume_one(self) -> None:
@@ -1994,18 +2026,18 @@ class InferenceEngine:
         a slot whose flag (the pair's last row) is 0 finishes 'sdc'
         instead of taking its token."""
         host, event, decoded, prefilled, spec_r = self._queue.popleft()
-        t_rb = time.perf_counter() if self._sl_on else 0.0
+        t_rb = time.perf_counter()
         if event is not None:
             event.synchronize()
         pair = host.numpy().copy()
-        if self._sl_on:
-            t_bk = time.perf_counter()
-            self._sl_readback += t_bk - t_rb
+        t_bk = self._sl_stage('readback', t_rb)
         now = time.time()
         bad = (set(np.flatnonzero(pair[-1] == 0).tolist())
                if self._sentinel else set())
         touched: List[Request] = []
         with self._lock:
+            if self._sl_pending:
+                self._sl_complete(event)
             for slot, req in prefilled:
                 if req is None or req.done or self._slots[slot] is not req:
                     continue
@@ -2045,8 +2077,7 @@ class InferenceEngine:
         for req in touched:
             if not req.done:
                 req._notify()
-        if self._sl_on:
-            self._sl_drain += time.perf_counter() - t_bk
+        self._sl_stage('drain', t_bk)
 
     def _consume_verify(self, pair: np.ndarray, decoded, spec_r: int,
                         touched: List[Request],
@@ -2260,11 +2291,104 @@ class InferenceEngine:
 
         stepline_lib.enqueue_dump(render)
 
+    def _sl_stage(self, stage: str, start: float) -> float:
+        """Append the current step's ``stage`` interval from ``start``
+        (perf_counter) to now, and return now; nothing outside a
+        recorded step."""
+        if self._sl_stages is None:
+            return 0.0
+        now = time.perf_counter()
+        self._sl_stages.append((stage, start - self._sl_t0, now - start))
+        return now
+
+    def _sl_begin(self) -> Optional[list]:
+        """The start of a program's dispatch inside a recorded step:
+        [its perf_counter time, and, once :meth:`_sl_start` has run, the
+        wall time and the program's start: an event on CUDA, a
+        perf_counter time on the CPU]."""
+        if self._sl_stages is None:
+            return None
+        return [time.perf_counter(), 0.0, None]
+
+    def _sl_start(self, begin: Optional[list]) -> None:
+        """Mark the program's start in ``begin``, after its staging
+        copies and just before its launch: where the stream is empty,
+        the device idles until here."""
+        if begin is None:
+            return
+        begin[1] = time.time()
+        if self.device.type == 'cuda':
+            begin[2] = torch.cuda.Event(enable_timing=True)
+            begin[2].record()
+        else:
+            begin[2] = time.perf_counter()
+
+    def _kv_read(self, decoding: List[int], r: int) -> int:
+        """Keys each layer's attention reads for the decoding slots of a
+        program of ``r`` queries a slot: each slot's device length (the
+        host's plus the tokens in flight) plus its ``r`` new positions."""
+        return sum(int(self._slot_len[s]) + self._inflight_tok[s] + r
+                   for s in decoding)
+
+    def _sl_program(self, begin: Optional[list], kind: str, bucket: int,
+                    rows: int, chunks: List[tuple], kv_tokens: int,
+                    end: Optional[torch.cuda.Event] = None) -> None:
+        """Close the dispatch begun at ``begin``: its stage interval, and
+        its program record, appended now on the CPU; on CUDA once its
+        events are read (:meth:`_sl_complete`). ``end`` is the event
+        after the program's read-back copy; a chunk records its own."""
+        if begin is None:
+            return
+        t_d, t_wall, start = begin
+        cuda = self.device.type == 'cuda'
+        if cuda and end is None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        now = self._sl_stage('dispatch', t_d)
+        self._sl_programs += 1
+        if kind != 'prefill':
+            self._sl_batch = rows
+        fields = dict(step_idx=self._stepline.steps.total, kind=kind,
+                      bucket=bucket, t=t_wall, dispatch_s=now - t_d,
+                      rows=rows, chunks=chunks, kv_tokens=kv_tokens)
+        if not cuda:
+            # The CPU runs the ops as they are called: its device time
+            # is the host's.
+            prev, self._sl_prev_end = self._sl_prev_end, now
+            with self._lock:
+                self._stepline.note_program(stepline_lib.ProgramRecord(
+                    **fields, device_s=now - start,
+                    gap_before_s=None if prev is None else start - prev))
+            return
+        self._sl_pending.append((fields, start, end, self._sl_prev_end))
+        self._sl_prev_end = end
+
+    def _sl_complete(self, event) -> None:  # holds: _lock
+        """Append the pending program records up to the one whose end
+        event is ``event``, which the caller has waited on: the events
+        recorded before it on the stream are complete too, so reading
+        them adds no sync."""
+        if not any(p[2] is event for p in self._sl_pending):
+            return
+        while True:
+            fields, start, end, prev = self._sl_pending.popleft()
+            self._stepline.note_program(stepline_lib.ProgramRecord(
+                **fields, device_s=start.elapsed_time(end) / 1e3,
+                gap_before_s=(prev.elapsed_time(start) / 1e3
+                              if prev is not None else None)))
+            if end is event:
+                return
+
     def _sl_record(self, t_wall: float, dur: float, pre: tuple) -> None:
         """Classify and append this step's record from counter deltas
         (pure observation: nothing the step loop acts on is read)."""
         (pre_pref, pre_drafted, pre_accepted, pre_steps, pre_spec,
          pre_fused, pre_tok) = pre
+        stages = self._sl_stages
+        sums = {'dispatch': 0.0, 'drain': 0.0, 'readback': 0.0}
+        for stage, _, sec in stages:
+            if stage in sums:
+                sums[stage] += sec
         with self._lock:
             d_disp = self._decode_steps - pre_steps
             d_chunk = self._prefill_tokens - pre_pref
@@ -2275,7 +2399,7 @@ class InferenceEngine:
                         else 'decode')
             elif d_chunk:
                 kind = 'prefill'
-            elif d_tok or self._sl_readback or self._sl_drain:
+            elif d_tok or any(st == 'readback' for st, _, _ in stages):
                 kind = 'free'   # consumes only
             else:
                 return   # an idle tick
@@ -2288,8 +2412,8 @@ class InferenceEngine:
                                                                 0) + 1
             self._stepline.note_step(stepline_lib.StepRecord(
                 idx=self._stepline.steps.total, t=t_wall, dur_s=dur,
-                kind=kind, dispatch_s=self._sl_dispatch,
-                drain_s=self._sl_drain, readback_s=self._sl_readback,
+                kind=kind, dispatch_s=sums['dispatch'],
+                drain_s=sums['drain'], readback_s=sums['readback'],
                 batch=self._sl_batch, chunk_tokens=d_chunk,
                 prefilling=len(self._prefilling),
                 spec_drafted=self._spec_drafted - pre_drafted,
@@ -2299,7 +2423,7 @@ class InferenceEngine:
                 prefix_evictions=(self.prefix.evictions
                                   if self.prefix is not None else 0),
                 preemptions=self._preemptions, queue_depth=depth,
-                tenant_depths=tenant_depths))
+                tenant_depths=tenant_depths, stages=stages))
 
     def stepline_snapshot(self) -> Dict[str, Any]:
         """A copy of the recorder's rings: the GET /debug/stepline
@@ -2614,12 +2738,15 @@ class EnginePool:
         self.engines[0].note_lifecycle_event(event, t, **detail)
 
     def stepline_snapshot(self) -> Dict[str, Any]:
-        """The tiers' recorder snapshots merged on the shared wall clock."""
+        """The tiers' recorder snapshots merged on the shared wall clock
+        (each step carries its own tier's program records)."""
         tiers = [e.stepline_snapshot() for e in self.engines]
         return {
             'enabled': any(t.get('enabled') for t in tiers),
             'dumps': sum(t.get('dumps', 0) for t in tiers),
             'steps_total': sum(t.get('steps_total', 0) for t in tiers),
+            'programs_total': sum(t.get('programs_total', 0)
+                                  for t in tiers),
             'steps': sorted((r for t in tiers for r in t.get('steps', [])),
                             key=lambda r: r['t']),
             'events': sorted((ev for t in tiers

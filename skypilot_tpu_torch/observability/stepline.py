@@ -3,18 +3,27 @@ copy of ``skypilot_tpu/observability/stepline.py`` for the port, which
 imports nothing of the JAX package).
 
 An always-on, low-overhead ring of per-engine-step records (one compact
-:class:`StepRecord` per worked step: kind, dispatch/drain/readback wall
-shares, batch and chunk sizes, speculation accept counts, page
-pressure, queue depth per tenant) plus a per-request timeline ring
-(submit -> first_dispatch -> first_token -> done, with resume, cancel
-and shed events), both appended by the engine step loop under the
-engine's ``_lock``.
+:class:`StepRecord` per worked step: kind, the host intervals of its
+stages, batch and chunk sizes, speculation accept counts, page
+pressure, queue depth per tenant), a ring of step-program records (one
+:class:`ProgramRecord` per device program the step loop dispatched: its
+work as counts, its device time and the device's idle gap before it)
+and a per-request timeline ring (submit -> first_dispatch -> first_token
+-> done, with resume, cancel and shed events), all appended by the
+engine step loop under the engine's ``_lock``. A snapshot lists each
+step's program records under the step (``steps[i]['programs']``).
+
+The train step keeps its own ring of :class:`TrainStepRecord` (the
+device seconds of forward, backward, gradient sync and optimizer):
+``train.trainer.make_train_step``'s ``step_fn.records()``.
 
 Two export paths, as in the reference:
 
 - **Perfetto**: :func:`to_perfetto` renders a snapshot as Chrome-trace
-  JSON, one track per step-loop stage (dispatch / drain / readback /
-  host) and one per request.
+  JSON: the steps, one track per step-loop stage (schedule / dispatch /
+  readback / drain, each interval where it ran), the programs on the
+  device and the device's idle gaps between them, and one track per
+  request.
 - **Anomaly dumps**: a TTFT-SLO breach, preemption, ``cache_full``
   finish, admission shed or SDC hit snapshots the ring into the sqlite
   span store (``observability/store.py``: the same schema at the same
@@ -30,9 +39,11 @@ outputs are identical recorder on vs off.
 Profile smoke (the reference's ``make profile-smoke``): ``python -m
 skypilot_tpu_torch.observability.stepline [--device cpu]`` runs a tiny
 workload on the port's engine with a zero TTFT SLO, which forces a dump,
-and exits 0 only if the live Perfetto export validates, the dump writer
-drains, and the dump reads back from the span store, renders, validates
-and holds its ``stepline.trigger`` span. It runs on the card unless
+and exits 0 only if the live Perfetto export validates and draws every
+program on its ``programs`` track and every stage interval at its
+recorded offset, the dump writer drains, and the dump reads back from
+the span store, renders, validates and holds its ``stepline.trigger``
+span. It runs on the card unless
 ``--device cpu``: there on the smallest model preset whose shapes the
 paged attention kernels take.
 """
@@ -43,7 +54,7 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 # Ring capacities (records, not bytes). A step record is ~15 scalars;
 # 1024 of them cover minutes of steady-state decode — enough context
@@ -59,9 +70,14 @@ DEFAULT_DUMP_INTERVAL_S = 30.0
 TRIGGERS = ('ttft_slo', 'preemption', 'cache_full', 'admission_shed',
             'breaker_open', 'slo_page')
 
-# Step-loop stage keys, in the order they run inside one step. 'host'
-# is the remainder (scheduling, page accounting, drafting).
+# Step-loop stage keys of the summary. 'host' is the remainder
+# (scheduling, page accounting, drafting).
 STAGES = ('dispatch', 'drain', 'readback', 'host')
+# The stages a step record holds as intervals ``StepRecord.stages``:
+# the scheduler's work (slot refill, the dead-request sweep, prefill
+# picks), one dispatch a program, the wait on a read-back pair and the
+# bookkeeping that consumes it.
+INTERVALS = ('schedule', 'dispatch', 'readback', 'drain')
 
 
 def default_cap() -> int:
@@ -81,16 +97,18 @@ def dump_interval_s() -> float:
 
 @dataclasses.dataclass
 class StepRecord:
-    """One engine step, compactly. All times are wall seconds; the
-    stage shares are DISJOINT: ``dispatch_s`` (device program
-    launches), ``drain_s`` (consume bookkeeping while catching host
-    state up), ``readback_s`` (blocked on the device→host pair copy),
-    and host = ``dur_s`` minus the three."""
+    """One engine step, compactly. All times are wall seconds. ``stages``
+    lists the step's stage intervals as (stage, start offset from ``t``,
+    seconds) in the order they ran, disjoint (:data:`INTERVALS`);
+    ``dispatch_s`` (device program launches), ``drain_s`` (consume
+    bookkeeping while catching host state up) and ``readback_s`` (blocked
+    on the device→host pair copy) are the sums of their intervals, and
+    host = ``dur_s`` minus the three."""
     __slots__ = ('idx', 't', 'dur_s', 'kind', 'dispatch_s', 'drain_s',
                  'readback_s', 'batch', 'chunk_tokens', 'prefilling',
                  'spec_drafted', 'spec_accepted', 'pages_free',
                  'prefix_evictions', 'preemptions', 'queue_depth',
-                 'tenant_depths')
+                 'tenant_depths', 'stages')
     idx: int                 # monotonic step index (survives wrap)
     t: float                 # wall-clock step start
     dur_s: float
@@ -108,6 +126,7 @@ class StepRecord:
     preemptions: int         # cumulative
     queue_depth: int
     tenant_depths: Optional[Dict[str, int]]   # None when single-tenant
+    stages: List[Tuple[str, float, float]]
 
     def host_s(self) -> float:
         return max(0.0, self.dur_s - self.dispatch_s - self.drain_s
@@ -117,6 +136,65 @@ class StepRecord:
         d = {k: getattr(self, k) for k in self.__slots__}
         d['host_s'] = self.host_s()
         return d
+
+
+@dataclasses.dataclass
+class ProgramRecord:
+    """One step program the engine dispatched (prefill chunk, decode,
+    mixed or verify). The counts come from the engine's host state:
+    ``rows`` the decoding slots (a standalone chunk: its true length),
+    ``chunks`` (request id, offset, true length) of the prefill chunk it
+    ran, ``kv_tokens`` the keys each layer's attention reads, summed over
+    its rows (a decoding slot: its context; a verify slot: its context
+    and the drafted run; a chunk: offset + true length).
+    ``dispatch_s`` is the host time of its dispatch (staging, dispatch
+    state, the launch or replay). Its start event is recorded after the
+    staging copies, just before the launch, at wall time ``t``.
+    ``device_s`` runs from its start event to its end event (after the
+    read-back copy, where it has one); ``gap_before_s`` from the previous
+    program's end event to its start event: the device's idle time
+    before it (staging copies included), None for the first program and
+    after an idle engine tick. On the CPU, which runs the ops as they
+    are called, both are host intervals: from the start to the
+    dispatch's end, and from the previous dispatch's end to the start."""
+    __slots__ = ('step_idx', 'kind', 'bucket', 't', 'dispatch_s',
+                 'device_s', 'gap_before_s', 'rows', 'chunks', 'kv_tokens')
+    step_idx: int
+    kind: str                # prefill | decode | mixed | verify
+    bucket: int              # chunk bucket, or queries a slot
+    t: float
+    dispatch_s: float
+    device_s: float
+    gap_before_s: Optional[float]
+    rows: int
+    chunks: List[Tuple[int, int, int]]
+    kv_tokens: int
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self.__slots__}
+
+
+@dataclasses.dataclass
+class TrainStepRecord:
+    """One train step: ``t`` its wall start, ``dur_s`` its host time,
+    and the device seconds of its phases between its events: ``forward``
+    (the loss, chunked cross-entropy included), ``backward`` (the
+    gradients, remat's recompute included), ``grad_sync`` (the mesh's
+    gradient reduction and global norm; None off a mesh) and
+    ``optimizer`` (the global norm, the clip and AdamW). On the CPU the
+    phases are host intervals."""
+    __slots__ = ('idx', 't', 'dur_s', 'forward', 'backward', 'grad_sync',
+                 'optimizer')
+    idx: int
+    t: float
+    dur_s: float
+    forward: float
+    backward: float
+    grad_sync: Optional[float]
+    optimizer: float
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self.__slots__}
 
 
 class Ring:
@@ -152,15 +230,18 @@ class Ring:
 
 
 class StepRecorder:
-    """The engine-side recorder: a step ring + a request-event ring +
-    per-trigger dump rate limiting. Every method is called under the
-    owning engine's ``_lock`` (the recorder owns no lock; same
-    contract as the scheduler)."""
+    """The engine-side recorder: a step ring + a program ring + a
+    request-event ring + per-trigger dump rate limiting. Every method is
+    called under the owning engine's ``_lock`` (the recorder owns no
+    lock; same contract as the scheduler)."""
 
     def __init__(self, cap: Optional[int] = None,
                  min_dump_interval_s: Optional[float] = None) -> None:
         cap = cap if cap is not None else default_cap()
         self.steps = Ring(cap)
+        # A step runs up to prefill_chunks_per_step chunk programs and a
+        # decode program: the programs of the step ring's steps fit.
+        self.programs = Ring(cap * 4)
         # Requests produce ~4 events each; give them a wider window so
         # the request timeline spans the same wall interval as steps.
         self.events = Ring(cap * 4)
@@ -173,6 +254,9 @@ class StepRecorder:
     # -- recording (holds: engine _lock) -----------------------------------
     def note_step(self, rec: StepRecord) -> None:
         self.steps.append(rec)
+
+    def note_program(self, rec: ProgramRecord) -> None:
+        self.programs.append(rec)
 
     def note_event(self, request_id: int, tenant: str, event: str,
                    t: float, **detail: Any) -> None:
@@ -199,28 +283,39 @@ class StepRecorder:
 
     # -- export ------------------------------------------------------------
     def raw(self) -> Dict[str, Any]:
-        """O(n) POINTER copy of both rings (oldest first) — the only
+        """O(n) POINTER copy of the rings (oldest first) — the only
         part that needs the owner's lock. Records and event dicts are
         write-once after append, so sharing the references is safe;
         render with :func:`render_snapshot` OUTSIDE the lock."""
         return {
             'cap': self.steps.cap,
             'steps_total': self.steps.total,
+            'programs_total': self.programs.total,
             'events_total': self.events.total,
             'dumps': self.dumps,
             'steps_raw': self.steps.snapshot(),
+            'programs_raw': self.programs.snapshot(),
             'events': self.events.snapshot(),
         }
 
 
 def render_snapshot(raw: Dict[str, Any]) -> Dict[str, Any]:
     """Expand a ``StepRecorder.raw()`` copy into the JSON-able
-    snapshot shape (per-record dict building — thousands of dicts for
-    a full ring — deliberately OUTSIDE any lock: a 1 Hz
-    /debug/stepline poll must not stall the step loop for the
-    build)."""
+    snapshot shape, each step's program records under the step
+    (``programs``, in dispatch order; a program whose step left the ring
+    is dropped). Per-record dict building — thousands of dicts for a
+    full ring — runs deliberately OUTSIDE any lock: a 1 Hz
+    /debug/stepline poll must not stall the step loop for the build."""
     out = dict(raw)
-    out['steps'] = [r.as_dict() for r in out.pop('steps_raw')]
+    steps = [r.as_dict() for r in out.pop('steps_raw')]
+    by_idx = {s['idx']: s for s in steps}
+    for s in steps:
+        s['programs'] = []
+    for p in out.pop('programs_raw', ()):
+        step = by_idx.get(p.step_idx)
+        if step is not None:
+            step['programs'].append(p.as_dict())
+    out['steps'] = steps
     return out
 
 
@@ -258,7 +353,38 @@ def summarize(recs: List[StepRecord]) -> Dict[str, Any]:
 # (which start at 1), so a merged document never collides.
 _PID_STEPS = 1000
 _PID_REQUESTS = 1001
-_STAGE_TIDS = {s: i + 1 for i, s in enumerate(STAGES)}
+_STEP_TIDS = {name: i + 1 for i, name in enumerate(
+    ('step',) + INTERVALS + ('programs', 'device gap'))}
+
+
+def _program_events(steps: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """The programs on the device and the idle gaps before them, on the
+    host clock. A program starts at its start event's host time where
+    the stream was empty then (it has a gap), else when the program
+    before it ended; a gap ends where its program starts."""
+    progs = sorted((p for s in steps for p in s.get('programs', ())),
+                   key=lambda p: p['t'])
+    events: List[Dict[str, Any]] = []
+    prev_end = None
+    for p in progs:
+        gap = p['gap_before_s']
+        start = p['t']
+        if gap is not None and prev_end is not None:
+            start = max(start, prev_end + gap)
+        if gap:
+            events.append({
+                'name': 'device.idle', 'ph': 'X',
+                'ts': (start - gap) * 1e6, 'dur': gap * 1e6,
+                'pid': _PID_STEPS, 'tid': _STEP_TIDS['device gap'],
+                'args': {'before_step': p['step_idx'],
+                         'before': p['kind']}})
+        events.append({
+            'name': f"program.{p['kind']}", 'ph': 'X', 'ts': start * 1e6,
+            'dur': p['device_s'] * 1e6, 'pid': _PID_STEPS,
+            'tid': _STEP_TIDS['programs'],
+            'args': {k: v for k, v in p.items() if k != 't'}})
+        prev_end = start + p['device_s']
+    return events
 
 
 def stepline_events(snapshot: Dict[str, Any]
@@ -273,32 +399,28 @@ def stepline_events(snapshot: Dict[str, Any]
         {'name': 'process_name', 'ph': 'M', 'pid': _PID_REQUESTS,
          'tid': 1, 'args': {'name': 'requests'}},
     ]
-    for s, tid in _STAGE_TIDS.items():
+    for name, tid in _STEP_TIDS.items():
         events.append({'name': 'thread_name', 'ph': 'M',
                        'pid': _PID_STEPS, 'tid': tid,
-                       'args': {'name': s}})
-    for rec in snapshot.get('steps', ()):
-        # Stages laid out sequentially inside the step's wall
-        # interval: dispatch, drain, readback, then host remainder —
-        # an approximation of interleaving, exact in total.
-        t = rec['t']
-        spans = (('dispatch', rec['dispatch_s']),
-                 ('drain', rec['drain_s']),
-                 ('readback', rec['readback_s']),
-                 ('host', rec.get('host_s', 0.0)))
-        for stage, dur in spans:
-            if dur <= 0.0:
-                continue
+                       'args': {'name': name}})
+    steps = snapshot.get('steps', ())
+    for rec in steps:
+        args = {'step': rec['idx'], 'batch': rec['batch'],
+                'chunk_tokens': rec['chunk_tokens'],
+                'queue_depth': rec['queue_depth']}
+        events.append({
+            'name': f"step.{rec['kind']}", 'ph': 'X', 'ts': rec['t'] * 1e6,
+            'dur': rec['dur_s'] * 1e6, 'pid': _PID_STEPS,
+            'tid': _STEP_TIDS['step'],
+            'args': dict(args, host_s=rec.get('host_s', 0.0))})
+        # Each stage interval where it ran inside the step.
+        for stage, off, dur in rec.get('stages', ()):
             events.append({
-                'name': f"step.{rec['kind']}",
-                'ph': 'X', 'ts': t * 1e6, 'dur': dur * 1e6,
-                'pid': _PID_STEPS, 'tid': _STAGE_TIDS[stage],
-                'args': {'step': rec['idx'], 'stage': stage,
-                         'batch': rec['batch'],
-                         'chunk_tokens': rec['chunk_tokens'],
-                         'queue_depth': rec['queue_depth']},
-            })
-            t += dur
+                'name': f"step.{rec['kind']}.{stage}", 'ph': 'X',
+                'ts': (rec['t'] + off) * 1e6, 'dur': dur * 1e6,
+                'pid': _PID_STEPS, 'tid': _STEP_TIDS[stage],
+                'args': dict(args, stage=stage)})
+    events.extend(_program_events(steps))
     # Request tracks: one tid per request_id; lifecycle phases become
     # 'X' slices bounded by the recorded events, everything else an
     # instant.
@@ -571,6 +693,29 @@ def _smoke_config(device):
     raise RuntimeError('no model preset fits the paged attention kernels')
 
 
+def _check_tracks(snapshot: Dict[str, Any],
+                  events: List[Dict[str, Any]]) -> List[str]:
+    """What the export must draw of the snapshot: a slice on the
+    ``programs`` track for each program record, and each stage interval
+    of each step on its stage's track at the step's start plus its
+    recorded offset. Returns what is missing."""
+    def on(track):
+        return [e for e in events if e.get('pid') == _PID_STEPS
+                and e.get('tid') == _STEP_TIDS[track] and e['ph'] == 'X']
+    errs = []
+    progs = [p for s in snapshot['steps'] for p in s['programs']]
+    if not progs or len(on('programs')) != len(progs):
+        errs.append(f"{len(on('programs'))} program slices for "
+                    f'{len(progs)} program records')
+    starts = {(e['tid'], e['ts']) for e in events if e['ph'] == 'X'}
+    for s in snapshot['steps']:
+        for stage, off, _ in s['stages']:
+            if (_STEP_TIDS[stage], (s['t'] + off) * 1e6) not in starts:
+                errs.append(f"step {s['idx']}: no {stage} slice at "
+                            f'offset {off}')
+    return errs
+
+
 def _smoke(argv: Optional[List[str]] = None) -> int:
     """Run a tiny in-process workload with the recorder on, force an
     anomaly dump (a zero TTFT SLO), and validate the live Perfetto export
@@ -607,12 +752,17 @@ def _smoke(argv: Optional[List[str]] = None) -> int:
         try:
             eng.generate([[7, 8, 9], [11] * 40], max_new_tokens=8)
             snap = eng.stepline_snapshot()
-            errs = validate_perfetto(to_perfetto(snap))
+            doc = to_perfetto(snap)
+            errs = validate_perfetto(doc)
             if errs:
                 print('profile-smoke: live export INVALID:', errs)
                 return 1
             if not snap['steps']:
                 print('profile-smoke: recorder captured no steps')
+                return 1
+            errs = _check_tracks(snap, doc['traceEvents'])
+            if errs:
+                print('profile-smoke: export misplaces records:', errs)
                 return 1
             if not flush_dumps(10.0):
                 print('profile-smoke: dump writer did not drain')
@@ -638,6 +788,7 @@ def _smoke(argv: Optional[List[str]] = None) -> int:
                                         'n_layers': cfg.n_layers,
                                         'head_dim': cfg.head_dim},
                               'steps': summ['steps'],
+                              'programs': snap['programs_total'],
                               'step_mean_ms': summ['step_mean_ms'],
                               'dump_spans': len(spans),
                               'dump_trace': dump['trace_id']}))

@@ -33,6 +33,8 @@ import torch
 
 logger = logging.getLogger(__name__)
 
+PHASES = ('forward', 'backward', 'grad_sync', 'optimizer')
+
 MODELS = {
     'llama-tiny': ('llama', 'tiny'),
     'llama-350m': ('llama', 'bench_350m'),
@@ -100,6 +102,19 @@ def run_rank(args: argparse.Namespace, shape, rank: int = 0,
         return _train(args, shape, rank, address, device, backend)
 
 
+def phase_means_ms(records: List[Dict], n: int) -> Dict[str, Optional[float]]:
+    """The mean ms of each train-step phase over the last ``n`` records
+    (``trainer.make_train_step``'s ``records()``); None for a phase the
+    steps did not run (``grad_sync`` off a mesh)."""
+    recent = records[-n:] if n > 0 else []
+    out = {}
+    for phase in PHASES:
+        vals = [r[phase] for r in recent if r[phase] is not None]
+        out[f'{phase}_ms'] = (sum(vals) / len(vals) * 1e3 if vals
+                              else None)
+    return out
+
+
 def _train(args, shape, rank, address, device, backend):
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
@@ -159,13 +174,19 @@ def _train(args, shape, rank, address, device, backend):
             loss = float(metrics['loss'])
             dt = time.perf_counter() - t_last
             tps = tokens_per_step * (step + 1 - logged) / dt
+            # The loss's read waited for the step: reading the records
+            # waits no more.
+            phases = phase_means_ms(step_fn.records(), step + 1 - logged)
             t_last, logged = time.perf_counter(), step + 1
             out.append({'step': step + 1, 'loss': loss,
                         'grad_norm': float(metrics['grad_norm']),
-                        'tokens_per_s': tps})
+                        'tokens_per_s': tps, **phases})
             if lead:
-                logger.info('step %d/%d loss=%.4f tokens/s=%.0f',
-                            step + 1, args.steps, loss, tps)
+                logger.info('step %d/%d loss=%.4f tokens/s=%.0f %s',
+                            step + 1, args.steps, loss, tps,
+                            ' '.join(f'{k}={v:.1f}'
+                                     for k, v in phases.items()
+                                     if v is not None))
             if not torch.isfinite(metrics['loss']):
                 logger.error('non-finite loss; aborting')
                 sys.exit(1)

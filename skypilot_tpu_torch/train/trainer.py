@@ -27,16 +27,23 @@ batch); gradients of fsdp-split leaves are reduce-scattered over fsdp and
 summed over dp, the others summed over dp x fsdp; the global norm, for
 clipping and for ``grad_norm``, counts each element once; AdamW updates
 the rank's blocks with that norm.
+
+Each step records its phases (``step_fn.records()``: forward, backward,
+the mesh's gradient sync, the optimizer) between CUDA events that are
+read only once a wait the step makes anyway has passed them, so the
+records add no host sync; on the CPU the phases are host intervals.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import stepline as stepline_lib
 from skypilot_tpu_torch.parallel import sharding as sharding_lib
 from skypilot_tpu_torch.parallel.mesh import TrainMesh
 
@@ -216,23 +223,57 @@ def make_train_step(config: llama.LlamaConfig, optimizer: AdamW,
     advanced. On a mesh of more than one rank the state holds the rank's
     blocks (:func:`init_train_state` or :func:`shard_train_state`) and
     the batch is the rank's rows (``sharding.batch_rows``); the metrics
-    are the global ones, the same on every rank."""
+    are the global ones, the same on every rank.
+
+    ``step.records()`` returns a ``stepline.TrainStepRecord`` dict a
+    step, oldest first (the ring keeps the last ``stepline.default_cap()``
+    steps). A step's record is appended once its events are read: after
+    the next step's optimizer has read the gradient norm on the host, or
+    by ``records()``, which waits for the last step's optimizer to end
+    where it has not."""
     if mesh is not None and mesh.size > 1:
         sharding_lib.check_divisible(config, mesh.shape.tp, mesh.shape.fsdp)
         shard = sharding_lib.RankOps(mesh)
     else:
         mesh = shard = None
+    ring = stepline_lib.Ring(stepline_lib.default_cap())
+    # The last step's (idx, t, dur_s, marks), its optimizer end unread.
+    pending: List[tuple] = []
+
+    def mark(cuda: bool):
+        if not cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def append_pending() -> None:
+        idx, t, dur, marks = pending.pop()
+        if isinstance(marks[0], float):
+            secs = [b - a for a, b in zip(marks, marks[1:])]
+        else:
+            secs = [a.elapsed_time(b) / 1e3 for a, b in zip(marks,
+                                                            marks[1:])]
+        forward, backward, *sync, opt = secs
+        ring.append(stepline_lib.TrainStepRecord(
+            idx=idx, t=t, dur_s=dur, forward=forward, backward=backward,
+            grad_sync=sync[0] if sync else None, optimizer=opt))
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        t_wall, t0 = time.time(), time.perf_counter()
         leaves = _leaves(state.params)
+        cuda = leaves[0].is_cuda
+        marks = [mark(cuda)]
         for p in leaves:
             p.requires_grad_(True)
         try:
             loss = llama.loss_fn(config, state.params, batch['tokens'],
                                  batch['targets'], batch.get('mask'),
                                  shard=shard)
+            marks.append(mark(cuda))
             grads = list(torch.autograd.grad(loss, leaves))
+            marks.append(mark(cuda))
         finally:
             for p in leaves:
                 p.requires_grad_(False)
@@ -244,13 +285,32 @@ def make_train_step(config: llama.LlamaConfig, optimizer: AdamW,
                      for path, g in zip(paths, grads)]
             g_norm = sharding_lib.global_norm(paths, grads, mesh)
             loss = shard.data_sum(loss)
+            marks.append(mark(cuda))
         grad_tree = _unflatten(state.params, grads)
         g_norm = optimizer.update(grad_tree, state.opt_state, state.params,
                                   g_norm)
+        marks.append(mark(cuda))
+        # The update read the norm on the host: every event recorded
+        # before it, the last step's optimizer end included, is complete.
+        if pending:
+            append_pending()
         state.step = state.step + 1
+        pending.append((ring.total, t_wall, time.perf_counter() - t0,
+                        marks))
+        if not cuda:
+            append_pending()
         metrics = {'loss': loss, 'grad_norm': g_norm, 'step': state.step}
         return state, metrics
 
+    def records() -> List[Dict[str, Any]]:
+        if pending:
+            end = pending[0][3][-1]
+            if not end.query():
+                end.synchronize()
+            append_pending()
+        return [r.as_dict() for r in ring.snapshot()]
+
+    step_fn.records = records
     return step_fn
 
 

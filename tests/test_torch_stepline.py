@@ -4,7 +4,8 @@ package, on the CPU.
 - Pure observation: the recorder on vs off, and the sentinel on vs off,
   give identical greedy tokens, ``decode_steps`` and
   ``compiled_counts()`` over the preempting workload with fused mixed
-  steps (and, for the sentinel, with speculation on), at depth 1.
+  steps (and, for the sentinel, with speculation on), at depth 1; with
+  the recorder on every program is recorded, each chunk once.
 - The records: every worked step is recorded with its kind (decode,
   mixed, free; a step that only prefills is 'prefill'), its chunk tokens
   add up to the prefill tokens, the stage times are disjoint and the port's
@@ -99,6 +100,13 @@ def test_recorder_on_off_identical(recorded):
     assert on.metrics()['preemptions'] >= 1
     assert on.metrics()['stepline_steps'] > 0
     assert off.metrics()['stepline_steps'] == 0
+    # Every program of the workload was recorded, each chunk once.
+    progs = [p for s in on.stepline_snapshot()['steps']
+             for p in s['programs']]
+    assert sum(p['kind'] != 'prefill' for p in progs) == \
+        on.metrics()['decode_steps']
+    assert sum(tl for p in progs for _, _, tl in p['chunks']) == \
+        on.metrics()['prefill_tokens']
     assert off.stepline_snapshot() == {'enabled': False, 'steps': [],
                                        'events': []}
     assert off.stepline_summary() == {'enabled': False}
