@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero:
    limit as ``nvidia-smi`` reports them.
 2. Build: compiles every kernel source of the port from
    ``skypilot_tpu_torch/ops/csrc`` with ``nvcc`` (one process per
-   source, all six started together) and prints the seconds and the
+   source, all seven started together) and prints the seconds and the
    compiler's register/spill report and warnings; then reads the
    compiled kernels back (``cuobjdump -sass``) and fails unless every
    instance of the flash forward, dQ and dK/dV kernels and the fused
@@ -64,13 +64,16 @@ Phases, in order; any failure exits non-zero:
    blocks (``FLASH_RING_SHAPES``, causal and full) and at 7f's and 7g's
    attention shapes (``FLASH_PATH_SHAPES``: a bench_1b microbatch of 1 x
    2048, Mixtral-8x7B's 32 query and 8 KV heads at b 2 and b 1, s 2048),
-   which phase 4 times.
+   which phase 4 times; and the AdamW update (``csrc/adamw.cu``) bitwise
+   the eager chain at the ft stage's ``w_gate`` (bf16) and at a ragged
+   length for every (param, mu) dtype pair, clip on and off.
 4. Timing: each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls:
    ``scaled_dot_product_attention`` for attention, its backward through
    autograd, ``matmul`` + ``logsumexp`` for the cross-entropy, ``matmul``
    with the bf16 dequantized weight for the int8-weight product, which
-   is also timed beside ``torch._weight_int8pack_mm``), by CUDA
+   is also timed beside ``torch._weight_int8pack_mm``, one
+   ``torch._fused_adamw_`` call for the AdamW update), by CUDA
    events with the L2 cache flushed between launches and a sleep kernel
    ahead of each, so the events time the device's work and not the
    host's enqueueing; plus the least time the card could take for the
@@ -226,7 +229,8 @@ Phases, in order; any failure exits non-zero:
    flash --ce fused`` (bench_1b at full width and depth) in a subprocess,
    whose JSON gives tokens/s, MFU, step time, peak memory and each
    training kernel's launches over its timed steps (counters reset just
-   before them), then the same with ``--ce dense`` for comparison, then
+   before them; every run must launch ``adamw_update`` once a leaf a
+   step), then the same with ``--ce dense`` for comparison, then
    with ``--ce fused --remat-policy save_attn`` and ``dots`` (24 flash
    forward launches a step under ``save_attn``, 48 under ``dots``; their
    tokens/s, MFU and peak memory beside full's); then
@@ -244,8 +248,9 @@ Phases, in order; any failure exits non-zero:
    0.02, with a checkpoint at steps 1 and 2: every rank's losses within
    MESH_LOSS_ATOL of the one-rank run's, whose lr 0 control (the state
    left unchanged) must part from it by more than MESH_CONTROL_X times
-   that, the flash forward, dQ and dK/dV
-   launched on every rank (``launches_train_mesh`` in the kernel line),
+   that, the flash forward, dQ and dK/dV launched on every rank and
+   ``adamw_update`` once a leaf a step on each (``launches_train_mesh``
+   in the kernel line),
    and the mesh's step-2 checkpoint (the whole state, written by rank 0)
    resumed at one rank lands on the mesh's step-3 loss. Prints the time
    a step, labelled gloo on one card. NCCL (one card a rank) needs more
@@ -329,6 +334,17 @@ BF16_FLOP_PER_S = 989e12
 # time_ms: the sleep ahead of each timed call, in SM clock cycles (about
 # a millisecond, longer than the host takes to enqueue any timed call).
 SLEEP_CYCLES = 2_000_000
+# The AdamW update's leaves: BENCHMARK.json's ft stage (Mistral-7B-v0.3
+# at 16 layers, bf16 params and moments, 3,758,231,552 elements), and its
+# bytes an element in one pass (g, mu, nu, p read; mu, nu, p written).
+ADAMW_LEAVES = {
+    'embed': (32768, 4096), 'attn_norm': (16, 4096),
+    'wq': (16, 4096, 4096), 'wk': (16, 4096, 1024), 'wv': (16, 4096, 1024),
+    'wo': (16, 4096, 4096), 'mlp_norm': (16, 4096),
+    'w_gate': (16, 4096, 14336), 'w_up': (16, 4096, 14336),
+    'w_down': (16, 14336, 4096), 'final_norm': (4096,),
+    'lm_head': (4096, 32768)}
+ADAMW_BYTES_PER_ELEMENT = 14
 
 # Llama-3-8B attention shapes.
 HKV, GROUP, HD, PAGE = 8, 4, 128, 64
@@ -3873,6 +3889,129 @@ def check_training_kernels(torch, att, ce):
     return results
 
 
+def adamw_leaf(torch, gen, shape, dtype, mu_dtype):
+    """A seeded (g, mu, nu, p) of one leaf on the card: moments as a few
+    steps leave them (nu >= 0), params ~1."""
+    def draw(scale, dt):
+        return (torch.randn(shape, generator=gen, device='cuda') * scale
+                ).to(dt)
+    return (draw(1.0, dtype), draw(1e-2, mu_dtype),
+            draw(1e-2, dtype).square_(), draw(1.0, dtype))
+
+
+def adamw_scalars(torch, count):
+    """The bias corrections and step size of train-4k's optimizer
+    (``make_optimizer(learning_rate=3e-4, total_steps=1000)``) at
+    ``count``, as ``AdamW.update`` makes them, and its optimizer."""
+    from skypilot_tpu_torch.train import trainer
+    opt = trainer.make_optimizer(learning_rate=3e-4, total_steps=1000)
+    f32 = torch.float32
+    bc1 = 1 - torch.tensor(opt.b1, dtype=f32) ** (count + 1)
+    bc2 = 1 - torch.tensor(opt.b2, dtype=f32) ** (count + 1)
+    step = torch.tensor(-opt.schedule(count), dtype=f32)
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay, grad_clip=opt.grad_clip)
+    return (bc1, bc2, step), hyper
+
+
+def check_adamw_kernel(torch):
+    """Phase 3, the AdamW update: the kernel's mu, nu and p bitwise the
+    eager chain's at the ft stage's w_gate (bf16, clip on, count 150),
+    then at 1,000,003 elements (a ragged tail) for every (param, mu)
+    dtype pair the trainer builds, clip on and off. Returns its entry of
+    the checked kernels: the max abs error (0, or the phase fails) and
+    the case."""
+    from skypilot_tpu_torch.ops import adamw
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(21)
+    (bc1, bc2, step), hyper = adamw_scalars(torch, 150)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(ADAMW_LEAVES['w_gate'], bf16, bf16, True)] + [
+        ((1_000_003,), p_dt, m_dt, clip)
+        for p_dt, m_dt in ((bf16, bf16), (f32, f32), (f32, bf16),
+                           (bf16, f32)) for clip in (True, False)]
+    for shape, p_dt, m_dt, clip in cases:
+        leaf = adamw_leaf(torch, gen, shape, p_dt, m_dt)
+        ref = [t.clone() for t in leaf]
+        g_norm = torch.sqrt(torch.sum(leaf[0].float() ** 2)).to(p_dt)
+        before = adamw.launches['adamw_update']
+        adamw.adamw_update(*leaf, g_norm, clip, bc1, bc2, step, **hyper)
+        if adamw.launches['adamw_update'] != before + 1:
+            fail('adamw_update did not count its launch')
+        adamw.adamw_update_reference(*ref, g_norm, clip, bc1, bc2, step,
+                                     **hyper)
+        torch.cuda.synchronize()
+        for name, a, b in zip('gmvp', leaf, ref):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                fail(f'adamw_update: {name} differs from the eager chain at '
+                     f'{shape} {p_dt} params, {m_dt} mu, clip {clip}')
+        del leaf, ref
+    torch.cuda.empty_cache()
+    print(f'adamw_update: mu, nu and p bitwise the eager chain at {len(cases)} '
+          f'cases (w_gate {ADAMW_LEAVES["w_gate"]} bf16; 1,000,003 '
+          f'elements, every dtype pair, clip on and off)', flush=True)
+    return {'adamw_update': (0.0, cases[0])}
+
+
+def time_adamw_kernel(torch):
+    """Phase 4, the AdamW update at train-4k's leaves (bf16): w_gate
+    alone, then all of them; the kernel (one launch a leaf), the eager
+    chain, and one ``torch._fused_adamw_`` call over the same leaves (a
+    yardstick the port never calls), against 14 bytes an element at the
+    card's bandwidth. Returns w_gate's row of the timed kernels."""
+    from skypilot_tpu_torch.ops import adamw
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(22)
+    (bc1, bc2, step), hyper = adamw_scalars(torch, 150)
+    bf16 = torch.bfloat16
+    flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
+    rows = {}
+    for label, names in (('w_gate', ['w_gate']),
+                         ('whole update', list(ADAMW_LEAVES))):
+        leaves = [adamw_leaf(torch, gen, ADAMW_LEAVES[n], bf16, bf16)
+                  for n in names]
+        n = sum(leaf[0].numel() for leaf in leaves)
+        g_norm = torch.sqrt(sum(torch.sum(leaf[0].float() ** 2)
+                                for leaf in leaves)).to(bf16)
+
+        def kernel():
+            for leaf in leaves:
+                adamw.adamw_update(*leaf, g_norm, True, bc1, bc2, step,
+                                   **hyper)
+
+        def plain():
+            for leaf in leaves:
+                adamw.adamw_update_reference(*leaf, g_norm, True, bc1, bc2,
+                                             step, **hyper)
+        reps = 20 if len(names) == 1 else 5
+        ms = time_ms(torch, kernel, reps, flush)
+        plain_ms = time_ms(torch, plain, 3, flush)
+        steps = [torch.tensor(151.0, device='cuda') for _ in leaves]
+        try:
+            lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+                [x[3] for x in leaves], [x[0] for x in leaves],
+                [x[1] for x in leaves], [x[2] for x in leaves], [], steps,
+                lr=3e-4, beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                amsgrad=False, maximize=False), reps, flush)
+        except (RuntimeError, TypeError) as e:
+            lib_ms = None
+            print(f'  torch._fused_adamw_: not measured ({e})', flush=True)
+        bound_ms = ADAMW_BYTES_PER_ELEMENT * n / HBM_BYTES_PER_S * 1e3
+        rate = ADAMW_BYTES_PER_ELEMENT * n / (ms * 1e-3)
+        print(f'adamw_update, {label} ({n:,} bf16 elements, {len(leaves)} '
+              f'launches): {ms:.4f} ms ({rate / 1e12:.3f} TB/s, '
+              f'{100 * rate / HBM_BYTES_PER_S:.1f}% of peak), plain '
+              f'{plain_ms:.4f} ms, library '
+              + (f'{lib_ms:.4f} ms' if lib_ms is not None else 'not measured')
+              + f', bound {bound_ms:.4f} ms (bytes)', flush=True)
+        rows.setdefault('adamw_update', dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound=(bound_ms, 'bytes')))
+        del leaves, steps
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_training_kernels(torch, att, ce, checked):
     """Phase 4, training kernels at the bench_1b shapes."""
     F = torch.nn.functional
@@ -4182,6 +4321,7 @@ def train_mesh_rank(rank: int, world: int, address: str, argv,
     to 0 just before; writes its logged steps, launches and peak memory to
     ``<tmp>/rank<rank>.json``."""
     import torch
+    from skypilot_tpu_torch.ops import adamw
     from skypilot_tpu_torch.ops import attention as att
     from skypilot_tpu_torch.ops import cross_entropy as ce
     from skypilot_tpu_torch.parallel import mesh
@@ -4189,11 +4329,13 @@ def train_mesh_rank(rank: int, world: int, address: str, argv,
     args = run.parse_args(argv)
     att.reset_launches()
     ce.reset_launches()
+    adamw.reset_launches()
     logged = run.run_rank(args, mesh.MeshShape(1, 2, 2), rank, address,
                           'cuda:0', backend='gloo')
     torch.cuda.synchronize()
     pathlib.Path(tmp, f'rank{rank}.json').write_text(json.dumps({
-        'logged': logged, 'launches': {**att.launches, **ce.launches},
+        'logged': logged,
+        'launches': {**att.launches, **ce.launches, **adamw.launches},
         'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}))
 
 
@@ -4207,9 +4349,13 @@ def train_mesh_on_one_card(torch, card: str):
     resumed at one rank lands on the mesh's step 3 loss. Prints the time
     a step, labelled gloo on one card. Returns the launches summed over
     the ranks."""
+    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.parallel import mesh
     from skypilot_tpu_torch.train import run
     t0 = time.perf_counter()
+    # Each rank updates its block of every leaf once a step.
+    updates = (train_leaves(llama.LlamaConfig.bench_350m())
+               * int(MESH_ARGS[MESH_ARGS.index('--steps') + 1]))
     one = run.run_rank(run.parse_args(MESH_ARGS), mesh.MeshShape(), 0,
                        None, 'cuda')
     control = run.run_rank(run.parse_args(MESH_ARGS + ['--lr', '0']),
@@ -4245,6 +4391,10 @@ def train_mesh_on_one_card(torch, card: str):
         if missing:
             checks.append(f'rank {i}: {missing} not launched '
                           f'({res["launches"]})')
+        if res['launches']['adamw_update'] != updates:
+            checks.append(f'rank {i}: adamw_update launched '
+                          f'{res["launches"]["adamw_update"]} times, want '
+                          f'one a leaf a step ({updates})')
         for k, n in res['launches'].items():
             launches[k] = launches.get(k, 0) + n
     mesh3 = {r['step']: r['loss'] for r in ranks[0]['logged']}.get(3)
@@ -4813,7 +4963,18 @@ def run_logged(cmd, log_name: str, timeout: float):
     return proc.stdout, proc.stderr
 
 
+def train_leaves(config) -> int:
+    """The leaves of ``config``'s params: the optimizer's kernel launches
+    once a leaf a step."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+    return len(trainer._leaves(llama.init_params(config, None, 'meta')))
+
+
 def run_bench(ce_flavor: str, card: str, remat: str = 'full'):
+    """bench_1b's train step under the flags; fails unless the loss is
+    finite and the AdamW update launched once a leaf a timed step."""
+    from skypilot_tpu_torch.models import llama
     flags = ['--attn', 'flash', '--ce', ce_flavor, '--remat-policy', remat]
     suffix = '' if remat == 'full' else f'_{remat}'
     out, _ = run_logged(
@@ -4824,6 +4985,11 @@ def run_bench(ce_flavor: str, card: str, remat: str = 'full'):
           + json.dumps(result), flush=True)
     if not math.isfinite(result['loss']):
         fail(f'bench loss is not finite: {result["loss"]}')
+    leaves = train_leaves(llama.LlamaConfig.bench_1b())
+    if result['launches_per_step'].get('adamw_update') != leaves:
+        fail(f'bench {" ".join(flags)}: adamw_update launched '
+             f'{result["launches_per_step"].get("adamw_update")} times a '
+             f'step, want one a leaf ({leaves})')
     return result
 
 
@@ -5047,6 +5213,7 @@ def main() -> int:
     checked.update(check_qdot_kernel(torch, quant))
     checked.update(check_training_kernels(torch, att, ce))
     tp_train_checked = check_tp_training_kernels(torch, att)
+    checked.update(check_adamw_kernel(torch))
     print('paged_prefill: the device-scalar entry is bitwise the '
           'host-scalar entry at ' + json.dumps(DEVICE_SCALAR_CHECKS)
           + ' cases (every prefill case, split edge and page type above)',
@@ -5064,6 +5231,7 @@ def main() -> int:
     timed.update(time_spec_int8_kernels(torch, pa, checked))
     timed.update(time_qdot_kernel(torch, quant))
     timed.update(time_training_kernels(torch, att, ce, checked))
+    timed.update(time_adamw_kernel(torch))
     # The dense cache's chunks: C 16 at offset 1792 (the 16-token bucket),
     # and a 256-token chunk at offset 7936 over a 128-page row.
     flush = torch.empty(64 << 20, dtype=torch.int8, device='cuda')
@@ -5227,6 +5395,8 @@ def main() -> int:
          'skypilot_tpu/ops/cross_entropy.py:131'),
         ('qdot_int8', 'qdot_int8', 'qdot_int8',
          'skypilot_tpu/ops/quant.py:73'),
+        ('adamw_update', 'adamw_update', 'adamw',
+         'skypilot_tpu/train/trainer.py:43'),
     ]
     kernels = []
     for wrapper, key, source, where in rows:

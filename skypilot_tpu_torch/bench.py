@@ -53,14 +53,15 @@ def peak_tflops(device_name: str) -> float:
 
 
 def kernel_launches() -> Dict[str, int]:
-    from skypilot_tpu_torch.ops import attention, cross_entropy
-    return {**attention.launches, **cross_entropy.launches}
+    from skypilot_tpu_torch.ops import adamw, attention, cross_entropy
+    return {**attention.launches, **cross_entropy.launches, **adamw.launches}
 
 
 def reset_launches() -> None:
-    from skypilot_tpu_torch.ops import attention, cross_entropy
+    from skypilot_tpu_torch.ops import adamw, attention, cross_entropy
     attention.reset_launches()
     cross_entropy.reset_launches()
+    adamw.reset_launches()
 
 
 def measure(config, batch: int, seq: int, device, steps: int = STEPS,

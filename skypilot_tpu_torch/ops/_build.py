@@ -38,10 +38,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # Every kernel source of the port (csrc/<name>.cu): the paged attention
 # and the int8-weight product of the serving path, then the flash
-# attention forward/backward and the fused cross-entropy forward of the
-# training path.
+# attention forward/backward, the fused cross-entropy forward and the
+# AdamW update of the training path.
 SOURCES = ('paged_decode', 'paged_prefill', 'qdot_int8', 'flash_fwd',
-           'flash_bwd', 'ce_fwd')
+           'flash_bwd', 'ce_fwd', 'adamw')
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # Wall seconds of each compile this process ran, by source name: what a

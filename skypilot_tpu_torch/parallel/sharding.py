@@ -377,9 +377,11 @@ def reduce_grad(path: Tuple[str, ...], g: torch.Tensor,
     fsdp-split leaf's gradient was reduce-scattered over fsdp by its
     gather's backward, so it is summed over dp; any other leaf's is summed
     over dp x fsdp. tp needs nothing: Megatron's collectives already gave
-    each tp rank its block's whole gradient."""
+    each tp rank its block's whole gradient. The block comes back
+    contiguous, as the optimizer's kernel takes it (the reduce-scatter
+    leaves the embedding's, split on its axis 1, transposed)."""
     axis = 'dp' if train_spec(path).fsdp is not None else 'data'
-    return collectives.all_reduce_sum(g, mesh.group(axis))
+    return collectives.all_reduce_sum(g.contiguous(), mesh.group(axis))
 
 
 def global_norm(paths: List[Tuple[str, ...]], grads: List[torch.Tensor],

@@ -16,7 +16,9 @@ eps=1e-8, weight_decay, mu_dtype)`` under
   optax's ``tree.zeros_like(params)`` does (bf16 for bf16 params).
 - The ``grad_norm`` metric is the norm before clipping.
 - Params and moments are updated in place: the reference donates the
-  state's buffers to its jitted step, which is the same thing.
+  state's buffers to its jitted step, which is the same thing. Each
+  leaf's update is ``ops/adamw.py``'s: one kernel a leaf on CUDA tensors
+  (the same bits as the eager chain), the eager chain on the CPU.
 
 On a mesh (``parallel/mesh.py``'s ``TrainMesh`` of more than one rank)
 each rank holds its blocks of the params and of their moments (ZeRO-3:
@@ -44,6 +46,7 @@ import torch
 
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import stepline as stepline_lib
+from skypilot_tpu_torch.ops import adamw as adamw_lib
 from skypilot_tpu_torch.parallel import sharding as sharding_lib
 from skypilot_tpu_torch.parallel.mesh import TrainMesh
 
@@ -132,17 +135,10 @@ class AdamW:
         step_size = torch.tensor(-self.schedule(count), dtype=f32)
         for g, mu, nu, p in zip(leaves, _leaves(opt_state['mu']),
                                 _leaves(opt_state['nu']), _leaves(params)):
-            if clip:
-                g = (g / g_norm.to(g.dtype)) * self.grad_clip
-            mu_new = (1 - self.b1) * g + self.b1 * mu
-            nu.copy_((1 - self.b2) * g ** 2 + self.b2 * nu)
-            mu_hat = mu_new / bc1.to(mu_new.dtype)
-            nu_hat = nu / bc2.to(nu.dtype)
-            u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-            u = u + self.weight_decay * p
-            u = step_size.to(u.dtype) * u
-            mu.copy_(mu_new)
-            p.copy_(p + u)
+            adamw_lib.adamw_update(
+                g, mu, nu, p, g_norm, clip, bc1, bc2, step_size,
+                b1=self.b1, b2=self.b2, eps=self.eps,
+                weight_decay=self.weight_decay, grad_clip=self.grad_clip)
         opt_state['count'] = torch.tensor(count_inc, dtype=torch.int32)
         return g_norm
 

@@ -103,7 +103,8 @@ def test_bench_measure_runs_the_training_path():
     assert torch.isfinite(torch.tensor(r['loss']))
     assert set(r['launches_per_step']) == {
         'flash_attention_fwd', 'flash_attention_bwd_dq',
-        'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd'}
+        'flash_attention_bwd_dkv', 'fused_cross_entropy_fwd',
+        'adamw_update'}
     assert all(v == 0 for v in r['launches'].values())
     json.dumps(r)
 
